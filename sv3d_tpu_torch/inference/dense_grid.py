@@ -1,0 +1,96 @@
+"""Dense-grid occupancy evaluation + mesh extraction (port of the serving
+half of sv3d_tpu/inference/dense_grid.py).
+
+The IF-Net pyramid is encoded once, then the dense lattice over
+[-0.5, 0.5]^3 is swept in slabs of slab_rows axis-0 rows through
+IFNet.query_lattice (the CUDA sweep kernel on the card).  slab_rows is a
+parameter of the sweep, not a layout: the kernel takes any row count per
+launch.  Arbitrary-point evaluation comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from sv3d_tpu_torch.models.ifnet import IFNet
+
+
+def evaluate_on_grid_device(
+    model: IFNet, levels, resolution, res_increase: int = 1, slab_rows: int = 1,
+) -> torch.Tensor:
+    """Whole dense sweep, result left on the levels' device: (r0_padded, r1,
+    r2) sigmoid occupancy; rows past resolution[0] * res_increase are padding
+    for the caller to trim."""
+    resolution = tuple(int(x) for x in resolution)
+    r0 = resolution[0] * res_increase
+    n_slabs = -(-r0 // slab_rows)
+    with torch.inference_mode():
+        slabs = [
+            torch.sigmoid(
+                model.query_lattice(levels, resolution, res_increase, slab_rows, s * slab_rows)
+            )[0]
+            for s in range(n_slabs)
+        ]
+        return torch.cat(slabs, dim=0)
+
+
+def evaluate_on_grid(
+    model: IFNet, grid: torch.Tensor, resolution, res_increase: int = 1,
+    slab_rows: int = 1, transfer_dtype=torch.float32,
+) -> np.ndarray:
+    """Sigmoid occupancy on the dense lattice, as a float32 numpy volume
+    (r0, r1, r2), r_i = resolution[i] * res_increase.
+
+    grid: (1, D0, D1, D2, 1) occupancy volume.  transfer_dtype is the dtype
+    the value grid is cast to on the device before the host pull: float32
+    (exact), float16, or uint8 fixed point (x/255); the result is float32 in
+    [0, 1] in every case.  None skips the cast."""
+    resolution = tuple(int(x) for x in resolution)
+    if transfer_dtype == torch.uint8:
+        host = _evaluate_u8(model, grid, resolution, res_increase, slab_rows)
+        return host.astype(np.float32) / np.float32(255.0)
+    r0 = resolution[0] * res_increase
+    with torch.inference_mode():
+        levels = model.encode(grid)
+        out = evaluate_on_grid_device(model, levels, resolution, res_increase, slab_rows)
+        if transfer_dtype is not None:
+            out = out.to(transfer_dtype)
+        return out[:r0].cpu().numpy().astype(np.float32)
+
+
+def _evaluate_u8(model, grid, resolution, res_increase, slab_rows) -> np.ndarray:
+    """Dense sweep -> uint8 fixed point (sigmoid * 255 + 0.5, truncated, as
+    the JAX package casts) on the device -> host pull of the raw u8 grid."""
+    r0 = int(resolution[0]) * res_increase
+    with torch.inference_mode():
+        levels = model.encode(grid)
+        out = evaluate_on_grid_device(model, levels, resolution, res_increase, slab_rows)
+        return (out[:r0] * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+
+
+def implicit_to_mesh(
+    model: IFNet, grid: torch.Tensor, resolution, threshold_p: float,
+    output_path: str | Path, res_increase: int = 1, slab_rows: int = 1,
+    transfer_dtype=torch.uint8,
+):
+    """Dense evaluation -> marching cubes on (1 - occupancy) at level
+    threshold_p -> OBJ.  Returns (vertices, triangles).
+
+    The default uint8 pull is meshed directly by the native u8 marching cubes
+    (sv3d_tpu.utils.visualize.visualize_sdf_u8); pass torch.float32 for the
+    exact field."""
+    resolution = tuple(int(x) for x in resolution)
+    if transfer_dtype == torch.uint8:
+        from sv3d_tpu.utils.visualize import visualize_sdf_u8
+
+        host_u8 = _evaluate_u8(model, grid, resolution, res_increase, slab_rows)
+        return visualize_sdf_u8(host_u8, output_path, level=threshold_p)
+    from sv3d_tpu.utils.visualize import visualize_sdf
+
+    value_grid = evaluate_on_grid(
+        model, grid, resolution, res_increase, slab_rows, transfer_dtype=transfer_dtype
+    )
+    return visualize_sdf(1.0 - value_grid, output_path, level=threshold_p)

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain torch versions.
+
+This file imports only sv3d_tpu_torch (the card machine has no flax).  The
+tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
+the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The
+CPU test checks the part of the sweep kernel that Python owns: its 2-tap
+tables and index arithmetic, replayed in numpy against the plain sweep."""
+
+import numpy as np
+import pytest
+import torch
+
+from sv3d_tpu.config import IFNetConfig
+from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain, sweep_tables
+from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels, scatter_voxels_cuda
+
+torch.set_num_threads(1)
+
+CASES = [(128, (17, 16, 18)), (32, (12, 9, 10))]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _encoded(net_res, dims, device="cpu"):
+    cfg = IFNetConfig.for_net_res(net_res)
+    model = IFNet(cfg, device=device, generator=torch.Generator().manual_seed(net_res)).eval()
+    grid = np.random.default_rng(net_res).uniform(0, 1, (1, *dims, 1)).astype(np.float32)
+    with torch.inference_mode():
+        levels = model.encode(torch.tensor(grid, device=device))
+    return cfg, model, levels
+
+
+def _emulate_kernel(levels, mlp, r, rows, off, cfg):
+    """csrc/sweep.cu's feature and fc0 arithmetic in numpy (f64)."""
+    chans = [f.shape[1] for f in levels.flats]
+    meta, tap_idx, tap_w = sweep_tables(chans, list(levels.dims), r, rows, off,
+                                        cfg.align_corners, cfg.displacement)
+    sum_c = sum(chans)
+    n = rows * r[1] * r[2]
+    p = np.arange(n)
+    y, x, a = p % r[2], (p // r[2]) % r[1], p // (r[1] * r[2])
+    mlp = [(w.detach().numpy(), b.detach().numpy()) for w, b in mlp]
+    w0 = mlp[0][0].astype(np.float64)
+    h = np.zeros((w0.shape[0], n))
+    for d in range(7):
+        v0, v1, v2 = {1: 1, 2: 2}.get(d, 0), {3: 1, 4: 2}.get(d, 0), {5: 1, 6: 2}.get(d, 0)
+        for lv, (flat, (g0, g1, g2)) in enumerate(levels):
+            c, cg = meta[lv, 0], meta[lv, 7]
+            vol = flat[0].numpy().reshape(c, g0, g1 * g2)
+            ea = meta[lv, 4] + v0 * rows + a
+            ex = meta[lv, 5] + v1 * r[1] + x
+            ey = meta[lv, 6] + v2 * r[2] + y
+            f = np.zeros((c, n))
+            for ca in range(2):
+                for cb in range(2):
+                    for cc in range(2):
+                        w = tap_w[ea, ca] * tap_w[ex, cb] * tap_w[ey, cc]
+                        f += w * vol[:, tap_idx[ea, ca], tap_idx[ex, cb] * g2 + tap_idx[ey, cc]]
+            h += w0[:, d * sum_c + cg: d * sum_c + cg + c] @ f
+    for i, (w, b) in enumerate(mlp):
+        if i:
+            h = w @ h
+        h = h + b[:, None]
+        if i < len(mlp) - 1:
+            h = np.maximum(h, 0.0)
+    return h[0].reshape(rows, r[1], r[2])
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_sweep_tables_replay_the_plain_sweep(net_res, dims):
+    """Interior slab, a slab running past the lattice end, res_increase 1
+    and 2; f32 plain vs f64 replay: atol 1e-5."""
+    cfg, model, levels = _encoded(net_res, dims)
+    for ri, rows, off in ((2, 2, 4), (1, 5, dims[0] - 2)):
+        r = tuple(ri * d for d in dims)
+        with torch.inference_mode():
+            ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
+                                      cfg.displacement)
+        got = _emulate_kernel(levels, model.mlp, r, rows, off, cfg)
+        np.testing.assert_allclose(got, ref[0].numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_matches_plain_on_card(cuda_device):
+    """Atomics sum in a run-dependent order: atol 1e-5 after the clamp (see
+    the source note in csrc/voxelize.cu)."""
+    rng = np.random.default_rng(3)
+    pts = torch.tensor(rng.uniform(-0.7, 0.7, (2, 76800, 3)).astype(np.float32),
+                       device=cuda_device)
+    dims = (139, 104, 112)
+    before = scatter_voxels_cuda.launches
+    got = scatter_voxels_cuda(pts, dims)
+    torch.cuda.synchronize()
+    assert scatter_voxels_cuda.launches == before + 1
+    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=1e-5, rtol=0)
+    with pytest.raises(NotImplementedError):
+        scatter_voxels_cuda(pts.clone().requires_grad_(), dims)
+    with pytest.raises(TypeError):
+        scatter_voxels_cuda(pts.double(), dims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
+    """f32 FMA kernel vs plain f32 torch: summation order only, atol 1e-4."""
+    cfg, model, levels = _encoded(net_res, dims, cuda_device)
+    r = tuple(2 * d for d in dims)
+    with torch.inference_mode():
+        for rows, off in ((2, 0), (5, r[0] - 3), (r[0], 0)):
+            before = lattice_sweep.launches
+            got = lattice_sweep(levels, model.mlp, r, rows, off, cfg.align_corners,
+                                cfg.displacement)
+            torch.cuda.synchronize()
+            assert lattice_sweep.launches == before + 1
+            ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
+                                      cfg.displacement)
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)

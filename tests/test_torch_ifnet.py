@@ -1,0 +1,108 @@
+"""Port parity: IF-Net encode and the dense-lattice query of sv3d_tpu_torch
+against sv3d_tpu, eval mode, from converted weights.
+
+The dims are those of tests/test_pallas_sweep.py: (17, 16, 18) at net_res 128
+(align_corners=False) and (12, 9, 10) at net_res 32 (align_corners=True);
+both pool a size-1 dim through the -inf pad.  Conv and contraction sums run
+in another order than XLA's: atol 1e-4 on features and logits.  Against
+JAX's default bf16 sweep the bound is the JAX package's own mixed-precision
+one, atol 2e-2 on sigmoid (tests/test_pallas_sweep.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sv3d_tpu.config import IFNetConfig
+from sv3d_tpu.models.ifnet import IFNet as JIFNet
+from sv3d_tpu_torch.convert import from_flax
+from test_torch_unet import randomized
+from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain
+
+torch.set_num_threads(1)
+
+CASES = [(128, (17, 16, 18)), (32, (12, 9, 10))]
+
+
+def _models(net_res, dims):
+    cfg = IFNetConfig.for_net_res(net_res)
+    grid = np.random.default_rng(net_res).normal(size=(1, *dims, 1)).astype(np.float32)
+    jm = JIFNet(cfg)
+    init = jax.jit(lambda k: jm.init(k, jnp.asarray(grid), jnp.zeros((1, 8, 3)), train=False))
+    variables = randomized(init(jax.random.PRNGKey(0)), 7)
+    tm = IFNet(cfg)
+    tm.load_state_dict(from_flax(variables))
+    return cfg, grid, jm, variables, tm.eval()
+
+
+@pytest.fixture(scope="module", params=CASES, ids=["net128", "net32"])
+def case(request):
+    net_res, dims = request.param
+    cfg, grid, jm, variables, tm = _models(net_res, dims)
+    jlev = jax.jit(lambda v, g: jm.apply(v, g, train=False, method=JIFNet.encode))(
+        variables, jnp.asarray(grid))
+    with torch.inference_mode():
+        tlev = tm.encode(torch.tensor(grid))
+    return dims, jm, variables, tm, jlev, tlev
+
+
+def test_encode_levels(case):
+    _, _, _, _, ref, got = case
+    assert got.dims == ref.dims
+    for (gf, _), (rf, _) in zip(got, ref):
+        np.testing.assert_allclose(gf.numpy(), np.asarray(rf), atol=1e-4)
+
+
+def test_encode_pads_size_one_dims_before_pooling():
+    """(17, 13, 14) pools to a (2, 1, 1) level, whose pooling needs the -inf
+    pad to give a (1, 1, 1) level instead of an empty one."""
+    _, grid, jm, variables, tm = _models(128, (17, 13, 14))
+    ref = jm.apply(variables, jnp.asarray(grid), train=False, method=JIFNet.encode)
+    with torch.inference_mode():
+        got = tm.encode(torch.tensor(grid))
+    assert got.dims == ref.dims
+    assert got.dims[-2:] == ((2, 1, 1), (1, 1, 1))
+    for (gf, _), (rf, _) in zip(got, ref):
+        np.testing.assert_allclose(gf.numpy(), np.asarray(rf), atol=1e-4)
+
+
+def test_query_lattice_matches_both_jax_sweeps(case):
+    """res_increase 2; slabs: interior (rows 2-3), the last full slab, and
+    the last slab of 5, which runs past the lattice into padded rows (slab
+    offsets are multiples of the slab size, as the sweep issues them)."""
+    dims, jm, variables, tm, jlev, tlev = case
+    r0 = 2 * dims[0]
+    sig = lambda x: 1.0 / (1.0 + np.exp(-np.asarray(x, np.float64)))
+    sweeps = {}
+    for slab, off in ((2, 2), (2, r0 - 2), (5, (-(-r0 // 5) - 1) * 5)):
+        with torch.inference_mode():
+            got = tm.query_lattice(tlev, dims, 2, slab, off).numpy()
+        assert got.shape == (1, slab, 2 * dims[1], 2 * dims[2])
+        for name, kw in (
+            ("unfused", dict(compute_dtype=jnp.float32, fused_tail=False)),
+            ("fused", dict(compute_dtype=jnp.float32, fused_tail=True)),  # Pallas, interpret
+            ("bf16", dict(fused_tail=False)),  # the JAX default compute dtype
+        ):
+            key = (name, slab)
+            if key not in sweeps:
+                sweeps[key] = jax.jit(lambda v, lv, o, kw=kw, slab=slab: jm.apply(
+                    v, lv, dims, 2, slab, o, method=JIFNet.query_lattice,
+                    use_pallas_mlp=False, **kw))
+            ref = np.asarray(sweeps[key](variables, jlev, jnp.asarray(off, jnp.int32)))
+            if name == "bf16":
+                np.testing.assert_allclose(sig(got), sig(ref), atol=2e-2, err_msg=f"{key} {off}")
+            else:
+                np.testing.assert_allclose(got, ref, atol=1e-4, err_msg=f"{key} {off}")
+
+
+def test_cpu_levels_take_the_plain_sweep():
+    cfg, grid, _, _, tm = _models(*CASES[1])
+    with torch.inference_mode():
+        lev = tm.encode(torch.tensor(grid))
+        before = lattice_sweep.launches
+        a = lattice_sweep(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners, cfg.displacement)
+        b = lattice_sweep_plain(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners, cfg.displacement)
+    assert lattice_sweep.launches == before
+    np.testing.assert_array_equal(a.numpy(), b.numpy())

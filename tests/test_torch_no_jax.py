@@ -1,0 +1,80 @@
+"""sv3d_tpu_torch imports and serves on the CPU with jax, jaxlib and flax
+blocked, and chip_smoke.py refuses to run without CUDA."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+BLOCK = textwrap.dedent("""
+    import sys
+
+    class _Blocked:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, _Blocked())
+""")
+
+SLICE = BLOCK + textwrap.dedent("""
+    import importlib, json
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    modules = [
+        "sv3d_tpu_torch", "sv3d_tpu_torch.convert", "sv3d_tpu_torch.geometry",
+        "sv3d_tpu_torch.ops.voxelize", "sv3d_tpu_torch.ops.grid_sample",
+        "sv3d_tpu_torch.ops.lattice", "sv3d_tpu_torch.ops.cuda.build",
+        "sv3d_tpu_torch.ops.cuda.voxelize", "sv3d_tpu_torch.ops.cuda.sweep",
+        "sv3d_tpu_torch.models", "sv3d_tpu_torch.inference.dense_grid",
+        "sv3d_tpu_torch.inference.predict",
+    ]
+    for m in modules:
+        importlib.import_module(m)
+    from sv3d_tpu.config import IFNetConfig
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
+    from sv3d_tpu_torch.models.ifnet import IFNet
+
+    model = IFNet(IFNetConfig.for_net_res(128), generator=torch.Generator().manual_seed(0)).eval()
+    grid = torch.tensor(np.random.default_rng(0).uniform(0, 1, (1, 9, 7, 8, 1)), dtype=torch.float32)
+    values = evaluate_on_grid(model, grid, (9, 7, 8))
+    print(json.dumps({
+        "shape": list(values.shape), "finite": bool(np.isfinite(values).all()),
+        "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+    }))
+""")
+
+
+def _run(code_or_args, cwd, env=None):
+    args = ["-c", code_or_args] if isinstance(code_or_args, str) else code_or_args
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, capture_output=True, text=True, timeout=240,
+        env=env,
+    )
+
+
+def test_port_imports_and_serves_without_jax():
+    proc = _run(SLICE, ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"shape": [9, 7, 8], "finite": True, "jax": []}
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _run(BLOCK + "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')",
+                ROOT, env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], tmp_path, env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

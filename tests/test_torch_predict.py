@@ -1,0 +1,115 @@
+"""Port parity for the serving slice as a whole: RGB -> UNetMini -> depth ->
+back-projection -> Projection -> IF-Net encode -> dense sweep, through both
+packages' predict + evaluate_on_grid, from the same (converted) SceneNet
+weights: full widths, net_res 128, at scale_factor 8 (dims (17, 13, 14), a
+frustum of (18, 13, 14)).
+
+Tolerances: the depth map and the voxel occupancy at atol 1e-4 (f32 conv
+sums in another order); the f32 sigmoid grid at atol 1e-4 against the JAX
+chain run with compute_dtype=float32 (JAX's evaluate_on_grid itself sweeps
+in bf16, so against it the bound is the JAX package's mixed-precision atol
+2e-2, tests/test_pallas_sweep.py).  The port's main() is driven on the CPU
+and its OBJ read back with sv3d_tpu.io.load_obj."""
+
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sv3d_tpu.config import Config
+from sv3d_tpu.geometry.camera import parse_intrinsics as j_parse_intrinsics
+from sv3d_tpu.geometry.frustum import FrustumGrid as JFrustumGrid
+from sv3d_tpu.inference.dense_grid import evaluate_on_grid as j_evaluate_on_grid
+from sv3d_tpu.inference.predict import predict as j_predict
+from sv3d_tpu.models.ifnet import IFNet as JIFNet
+from sv3d_tpu.models.scene_net import SceneNet as JSceneNet
+from sv3d_tpu_torch.convert import from_flax
+from test_torch_unet import randomized
+from sv3d_tpu_torch.geometry.camera import parse_intrinsics
+from sv3d_tpu_torch.geometry.frustum import FrustumGrid
+from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
+from sv3d_tpu_torch.inference.predict import main, predict
+from sv3d_tpu_torch.models.scene_net import SceneNet
+
+torch.set_num_threads(1)
+
+TEXT = "[[277.128, 0., 159.5, 0.], [0., 277.128, 119.5, 0.], [0., 0., 1., 0.], [0., 0., 0., 1.]]"
+SCALE = 8
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    config = Config(scale_factor=SCALE, seed=0)
+    ji = j_parse_intrinsics(TEXT)
+    jmodel = JSceneNet(config, ji, JFrustumGrid.create(ji, voxel_size=0.05 * SCALE))
+    init = jax.jit(lambda k: jmodel.init(
+        k, jnp.zeros((1, 240, 320, 3)), jnp.full((1, 240, 320), 2.0), jnp.zeros((1, 8, 3)),
+        train=False))
+    variables = randomized(init(jax.random.PRNGKey(0)), 3)
+    rgb_u8 = np.random.default_rng(4).integers(0, 256, (240, 320, 3), dtype=np.uint8)
+    rgb = ((rgb_u8 / np.float32(255.0) - 0.5) / 0.5).astype(np.float32)
+
+    state = SimpleNamespace(params=variables["params"], batch_stats=variables["batch_stats"])
+    jvox, jdepth = j_predict(config, jmodel, state, rgb=rgb)
+    ifnet = JIFNet(config.ifnet())
+    ifv = {"params": variables["params"]["ifnet"],
+           "batch_stats": variables["batch_stats"]["ifnet"]}
+    levels = jax.jit(lambda v, g: ifnet.apply(v, g, train=False, method=JIFNet.encode))(ifv, jvox)
+    sweep = jax.jit(lambda v, lv, o: jax.nn.sigmoid(ifnet.apply(
+        v, lv, config.dims, 1, 1, o, method=JIFNet.query_lattice,
+        compute_dtype=jnp.float32, fused_tail=False, use_pallas_mlp=False))[0])
+    jgrid_f32 = np.concatenate([
+        np.asarray(sweep(ifv, levels, jnp.asarray(r, jnp.int32))) for r in range(config.dims[0])
+    ])
+    jgrid_bf16 = j_evaluate_on_grid(ifnet, ifv, jvox, config.dims, transfer_dtype=jnp.float32)
+
+    ti = parse_intrinsics(TEXT)
+    model = SceneNet(config, ti, FrustumGrid.create(ti, voxel_size=0.05 * SCALE))
+    model.load_state_dict(from_flax(variables))
+    model.eval()
+    vox, depth = predict(config, model, rgb=rgb)
+    grid = evaluate_on_grid(model.ifnet, vox, config.dims, transfer_dtype=torch.float32)
+    return SimpleNamespace(
+        config=config, model=model, rgb_u8=rgb_u8, jvox=np.asarray(jvox), jdepth=jdepth,
+        jgrid_f32=jgrid_f32, jgrid_bf16=jgrid_bf16, vox=vox.numpy(), depth=depth, grid=grid,
+    )
+
+
+def test_slice_matches_jax(slice_run):
+    s = slice_run
+    assert s.config.dims == (17, 13, 14)
+    np.testing.assert_allclose(s.depth, s.jdepth, atol=1e-4)
+    assert s.vox.shape == (1, 17, 13, 14, 1)
+    assert s.vox.max() > 0.1  # the depth map really landed in the grid
+    np.testing.assert_allclose(s.vox, s.jvox, atol=1e-4)
+    assert s.grid.shape == (17, 13, 14) and np.isfinite(s.grid).all()
+    np.testing.assert_allclose(s.grid, s.jgrid_f32, atol=1e-4)
+    np.testing.assert_allclose(s.grid, s.jgrid_bf16, atol=2e-2)
+
+
+def test_main_writes_a_mesh(slice_run, tmp_path):
+    from PIL import Image
+
+    from sv3d_tpu.io.mesh import load_obj
+
+    s = slice_run
+    scene = tmp_path / "scene"
+    scene.mkdir()
+    Image.fromarray(s.rgb_u8).save(scene / "rgb.png")
+    (scene / "intrinsic.txt").write_text(TEXT)
+    ckpt = tmp_path / "model.pt"
+    torch.save(s.model.state_dict(), ckpt)
+    # random weights need not cross 0.5: mesh at the grid's median instead
+    level = float(1.0 - np.median(s.grid))
+    out = tmp_path / "out"
+    main([
+        "--checkpoint", str(ckpt), "--rgb", str(scene / "rgb.png"),
+        "--scale_factor", str(SCALE), "--device", "cpu", "--out", str(out),
+        "--threshold", str(level),
+    ])
+    mesh = load_obj(out / "scene.obj")
+    assert len(mesh.vertices) > 0 and len(mesh.faces) > 0
+    assert np.all(mesh.vertices.max(axis=0) <= np.asarray(s.config.dims) - 1)
