@@ -73,15 +73,16 @@ def _leaf(name: str, value: np.ndarray):
     raise ValueError(f"unknown flax leaf {name!r}")
 
 
-def from_flax(variables: dict) -> "OrderedDict[str, torch.Tensor]":
-    """flax {"params", "batch_stats"} -> state_dict.  BatchNorm layers also
-    get num_batches_tracked = 0."""
+def from_flax(variables: dict, dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
+    """flax {"params", "batch_stats"} -> state_dict of dtype tensors (float64
+    keeps a float64 tree, such as the gradients of a float64 step, exact).
+    BatchNorm layers also get num_batches_tracked = 0."""
     state = OrderedDict()
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
             name, arr = _leaf(path[-1], value)
             key = ".".join(_module_path(list(path[:-1])) + name.split("."))
-            state[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
+            state[key] = torch.tensor(np.asarray(arr, dtype=dtype))
             if key.endswith(".running_mean"):
                 state[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state

@@ -1,7 +1,8 @@
-"""Scene reconstruction pipeline modules (port of the serving half of
+"""End-to-end scene reconstruction pipeline (port of
 sv3d_tpu/models/scene_net.py): RGB -> depth -> point cloud -> voxel
-occupancy; the IF-Net encodes the occupancy and sweeps the lattice.  The
-training forward (arbitrary-point queries) comes with the training slice."""
+occupancy -> IF-Net occupancy logits at query points (forward, training),
+or the dense lattice (serving, through predict_depth / project_depth /
+project and ifnet.query_lattice)."""
 
 from __future__ import annotations
 
@@ -38,10 +39,41 @@ class SceneNet(nn.Module):
     def predict_depth(self, rgb: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalized RGB -> (B, 240, 320) renormalized depth."""
         cfg = self.config
-        logits = self.unet(rgb).float()
+        logits = self.unet(rgb)
         if cfg.resize_input:
             logits = resize_crop_depth(logits)
         return renormalize_depth(logits[..., 0], cfg.min_z, cfg.max_z)
+
+    def forward(self, rgb, depth_target, points, subsample_idx=None):
+        """(logits (B, N_q), depthmap (B, 240, 320), point_cloud_out).
+
+        rgb: (B, H, W, 3) normalized (unused under skip_unet, which projects
+        depth_target instead); points: (B, N, 3) supervision points.  With
+        0 < subsample_points < H*W the query set is the projected cloud at
+        subsample_idx (a (subsample_points,) index array the caller draws,
+        e.g. from a torch.Generator) followed by points, and point_cloud_out is
+        that subsample; with subsample_points == 0 only points are queried;
+        above H*W the whole cloud is.  BatchNorm follows the module's mode."""
+        cfg = self.config
+        depthmap = depth_target if cfg.skip_unet else self.predict_depth(rgb)
+        point_cloud = self.project_depth(depthmap)
+        voxel_occupancy = self.project(point_cloud)
+
+        n_pixels = depthmap.shape[-2] * depthmap.shape[-1]
+        if 0 < cfg.subsample_points < n_pixels:
+            if subsample_idx is None:
+                raise ValueError("subsample_points > 0 requires subsample_idx")
+            pc_sub = point_cloud[:, subsample_idx.to(point_cloud.device), :]
+            query_points = torch.cat([pc_sub, points], dim=1)
+            point_cloud_out = pc_sub
+        elif cfg.subsample_points == 0:
+            query_points = points
+            point_cloud_out = point_cloud
+        else:
+            query_points = torch.cat([point_cloud, points], dim=1)
+            point_cloud_out = point_cloud
+        logits = self.ifnet(voxel_occupancy, query_points)
+        return logits, depthmap, point_cloud_out
 
     def project_depth(self, depthmap: torch.Tensor) -> torch.Tensor:
         """Depth map -> normed-grid-space point cloud.  The frustum gives the

@@ -4,8 +4,9 @@ UNet: 8-down / 8-up for 256x256 inputs; UNetMini: 4-down / 4-up for unresized
 240x320 inputs.  Encoder convs are k4 s2 p1 with LeakyReLU(0.2), decoder
 convs k3 s1 p1 with ReLU after a bilinear 2x upsample, skip concats at every
 level.  The public layout is NHWC (B, H, W, 3) -> (B, H, W, 1), as in the JAX
-package; inside, the convs run NCHW.  BatchNorm is eps=1e-5 (flax
-momentum=0.9 is torch momentum=0.1); train/eval is the module's mode.
+package; inside, the convs run NCHW.  BatchNorm is the port's flax-semantics
+BatchNorm (models/batchnorm.py, eps=1e-5, momentum 0.9); train/eval is the
+module's mode.
 Weights are drawn from an explicit torch.Generator with flax's initializers,
 then the module moves to device.
 """
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
 
 
@@ -34,7 +36,7 @@ def _same(cin, cout):
 
 
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm(c)
 
 
 class UNet(nn.Module):

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the serving slice and their wrappers.
+"""Hand-written Hopper kernels of the port and their wrappers.
 
 Each wrapper runs its plain torch version for a CPU tensor and launches its
 CUDA kernel for a CUDA tensor (or raises); it counts its kernel launches in a

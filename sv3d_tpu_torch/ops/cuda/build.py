@@ -5,8 +5,10 @@ The library is built at first use into ``build/sv3d_tpu_torch/`` at the
 checkout root, under a name keyed by a hash of the sources and flags, and is
 renamed into place atomically (as sv3d_tpu/native/Makefile does), so a
 concurrent loader never opens a half-written file and a stale build is never
-reused.  Building with nvcc alone takes seconds; a source that includes
-PyTorch's headers would take minutes, so the C entries take raw pointers.
+reused.  Each source compiles in its own nvcc process, all started together,
+and one more nvcc links the objects.  Building with nvcc alone takes seconds;
+a source that includes PyTorch's headers would take minutes, so the C entries
+take raw pointers.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sv3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -57,17 +59,35 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    tag = f"tmp.{os.getpid()}"
+    tmp = lib.with_name(f"{lib.name}.{tag}")
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)])
+    try:
+        _run_all(cmds[:-1])  # one nvcc per source, all at once
+        _run_all(cmds[-1:])  # the link
+        os.replace(tmp, lib)
+    finally:
+        for f in [*objs, tmp]:
+            f.unlink(missing_ok=True)
     return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel, wait for all; raise with the output of
+    the ones that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    failed = [
+        f"nvcc failed (exit {p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+        for cmd, p, (out, err) in zip(cmds, procs, outs) if p.returncode != 0
+    ]
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.lru_cache(maxsize=1)

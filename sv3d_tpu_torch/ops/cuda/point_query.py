@@ -1,0 +1,159 @@
+"""Wrappers of the CUDA point-query kernels (sv3d_tpu_torch/csrc/point_query.cu).
+
+  level_features_cuda     K4, replaces sv3d_tpu/ops/pallas/point_query.py::level_features
+  level_grad_points_cuda  K7, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
+  level_grad_vol_cuda     K8, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
+
+level_features is the differentiable entry (the counterpart of the JAX
+package's level_features_diff custom VJP): an autograd.Function whose forward
+runs K4 and whose backward runs K8 for the level's gradient and K7 for the
+coordinates' when autograd asks for it.  Each wrapper runs its plain version
+(sv3d_tpu_torch/ops/point_query.py) for a CPU tensor and launches its kernel
+for a CUDA tensor, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sv3d_tpu_torch.ops.cuda import build
+from sv3d_tpu_torch.ops.point_query import (
+    level_features_plain,
+    level_grad_points_plain,
+    level_grad_vol_plain,
+)
+
+_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(name: str, n_ptr: int):
+    fn = getattr(build.load(), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + _TAIL
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cuda(t: torch.Tensor, who: str) -> bool:
+    """False for a CPU tensor (plain version), True for CUDA, else raise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {t.device}")
+    return True
+
+
+def _check(who: str, device, **tensors) -> None:
+    for name, (t, shape) in tensors.items():
+        if t.device != device or t.dtype != torch.float32:
+            raise TypeError(f"{who}: {name} must be float32 on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{who}: {name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def _tail(b, n, c, dims, align_corners, displacement, device):
+    return (b, n, c, *(int(d) for d in dims), int(bool(align_corners)), float(displacement),
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def level_features_cuda(flat, p0, p1, p2, dims, align_corners: bool, displacement: float):
+    """K4: (B, C, G) level, three (B, N) coords in [-1, 1] -> (B, N, 7*C)."""
+    if not _on_cuda(flat, "level_features"):
+        return level_features_plain(flat, p0, p1, p2, dims, align_corners, displacement)
+    b, c, g = flat.shape
+    n = p0.shape[1]
+    if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
+        raise ValueError(f"level_features: level of {g} voxels for dims {dims}")
+    _check("level_features", flat.device, flat=(flat, (b, c, g)), p0=(p0, (b, n)),
+           p1=(p1, (b, n)), p2=(p2, (b, n)))
+    out = torch.empty((b, n, 7 * c), dtype=torch.float32, device=flat.device)
+    rc = _bind("sv3d_level_features", 5)(
+        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
+        *_tail(b, n, c, dims, align_corners, displacement, flat.device),
+    )
+    build.check(rc, "sv3d_level_features")
+    level_features_cuda.launches += 1
+    return out
+
+
+def level_grad_points_cuda(flat, p0, p1, p2, g, dims, align_corners: bool,
+                           displacement: float):
+    """K7: d features / d coords contracted with g (B, N, 7*C) -> (B, N, 3)."""
+    if not _on_cuda(flat, "level_grad_points"):
+        return level_grad_points_plain(flat, p0, p1, p2, g, dims, align_corners, displacement)
+    b, c, gsize = flat.shape
+    n = p0.shape[1]
+    _check("level_grad_points", flat.device, flat=(flat, (b, c, gsize)), p0=(p0, (b, n)),
+           p1=(p1, (b, n)), p2=(p2, (b, n)), g=(g, (b, n, 7 * c)))
+    out = torch.empty((b, n, 3), dtype=torch.float32, device=flat.device)
+    rc = _bind("sv3d_level_grad_points", 6)(
+        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), g.data_ptr(),
+        out.data_ptr(), *_tail(b, n, c, dims, align_corners, displacement, flat.device),
+    )
+    build.check(rc, "sv3d_level_grad_points")
+    level_grad_points_cuda.launches += 1
+    return out
+
+
+def level_grad_vol_cuda(p0, p1, p2, g, dims, align_corners: bool, displacement: float):
+    """K8: d features / d level contracted with g (B, N, 7*C) -> (B, C, G)."""
+    if not _on_cuda(g, "level_grad_vol"):
+        return level_grad_vol_plain(p0, p1, p2, g, dims, align_corners, displacement)
+    b, n, sevenc = g.shape
+    c = sevenc // 7
+    gsize = int(dims[0]) * int(dims[1]) * int(dims[2])
+    _check("level_grad_vol", g.device, p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)),
+           g=(g, (b, n, 7 * c)))
+    out = torch.zeros((b, c, gsize), dtype=torch.float32, device=g.device)
+    rc = _bind("sv3d_level_grad_vol", 5)(
+        p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), g.data_ptr(), out.data_ptr(),
+        *_tail(b, n, c, dims, align_corners, displacement, g.device),
+    )
+    build.check(rc, "sv3d_level_grad_vol")
+    level_grad_vol_cuda.launches += 1
+    return out
+
+
+class _LevelFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, p0, p1, p2, dims, align_corners, displacement):
+        ctx.save_for_backward(flat, p0, p1, p2)
+        ctx.args = (dims, align_corners, displacement)
+        return level_features_cuda(flat, p0, p1, p2, dims, align_corners, displacement)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, p0, p1, p2 = ctx.saved_tensors
+        g = g.contiguous()
+        gvol = level_grad_vol_cuda(p0, p1, p2, g, *ctx.args)
+        gp = (None, None, None)
+        if any(ctx.needs_input_grad[1:4]):
+            gpts = level_grad_points_cuda(flat, p0, p1, p2, g, *ctx.args)
+            gp = tuple(
+                gpts[..., i] if ctx.needs_input_grad[1 + i] else None for i in range(3)
+            )
+        return (gvol, *gp, None, None, None)
+
+
+def level_features(vol, p0, p1, p2, dims, align_corners: bool, displacement: float):
+    """One pyramid level's trilinear features at the 7 displaced copies of
+    (B, N) points given as coordinates in [-1, 1], differentiable in the level
+    and the coordinates.
+
+    vol: contiguous channel-major flat level (B, C, G0*G1*G2), as
+    flatten_grid makes it; returns (B, N, 7*C) f32, displacement-major within
+    the level (index d*C + c).  The level's gradient comes back in the same
+    flat layout."""
+    dims = tuple(int(d) for d in dims)
+    p0, p1, p2 = (p.contiguous() for p in (p0, p1, p2))
+    return _LevelFeatures.apply(vol, p0, p1, p2, dims, bool(align_corners), float(displacement))
+
+
+level_features_cuda.launches = 0
+level_grad_points_cuda.launches = 0
+level_grad_vol_cuda.launches = 0

@@ -1,0 +1,92 @@
+"""CLI flag parsing -> (Config, device) for the port's trainers.
+
+The parser is a copy of sv3d_tpu/training/cli.py's build_parser, flag for
+flag, plus --device.  A copy, not an import, because importing
+sv3d_tpu.training.cli runs sv3d_tpu/training/__init__.py, which imports flax
+and optax.  parse_config builds the Config directly: the JAX package's
+initialize_distributed (jax.distributed) has no place here, and multi-GPU
+runs (dp * sp > 1, the cluster flags) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from sv3d_tpu.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
+
+MULTI_GPU = "multi-GPU training is not ported yet (ROADMAP.md queue 1, item 10)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="sv3d_tpu_torch trainer")
+    p.add_argument("--num_workers", type=int, default=0)
+    p.add_argument("--sanity_steps", type=int, default=2)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--splitsdir", type=str, default="overfit")
+    p.add_argument("--datasetdir", type=str, default="data")
+    p.add_argument("--val_check_percent", type=float, default=0.5)
+    p.add_argument("--val_check_interval", type=float, default=0.25)
+    p.add_argument("--max_epoch", type=int, default=100)
+    p.add_argument("--save_epoch", type=int, default=1)
+    p.add_argument("--monitor", type=str, default="",
+                   help="checkpoint-ranking metric (default: the trainer's, "
+                   "val_point_iou/max for the scene trainer); pass val_ce_loss "
+                   "for the reference's monitor")
+    p.add_argument("--monitor_mode", type=str, default="",
+                   choices=["", "min", "max"])
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient-accumulation microbatches per step")
+    p.add_argument("--experiment", type=str, default="scenes_net")
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--W", type=int, default=256)
+    p.add_argument("--sigma", nargs="+", type=float, default=[1.5])
+    p.add_argument("--kernel_size", nargs="+", type=int, default=[3, 3, 3])
+    p.add_argument("--num_points", type=int, default=2048)
+    p.add_argument("--net_res", type=int, default=128)
+    p.add_argument("--inf_res", type=int, default=1)
+    p.add_argument("--precision", type=int, default=32)
+    p.add_argument("--profiler", type=str, default=None)
+    p.add_argument("--version", type=str, default=None)
+    p.add_argument("--resize_input", action="store_true")
+    p.add_argument("--flip_aug", action="store_true",
+                   help="exact-mirror horizontal flip augmentation on the "
+                   "end-to-end train split (see Config.flip_aug)")
+    p.add_argument("--pretrain_unet", default=None)
+    p.add_argument("--visualize", action="store_true")
+    p.add_argument("--min_z", type=float, default=DEFAULT_MIN_Z)
+    p.add_argument("--max_z", type=float, default=DEFAULT_MAX_Z)
+    p.add_argument("--scale_factor", type=int, default=1)
+    p.add_argument("--subsample_points", type=int, default=0)
+    p.add_argument("--skip_unet", action="store_true")
+    p.add_argument("--no_depth_sup", action="store_true")
+    p.add_argument("--test", type=str, default=None)
+    p.add_argument(
+        "--fused_query", action="store_true",
+        help="train through the point-query kernels (K4 forward, K7/K8 "
+        "backward); f32, as exact as the default gather path",
+    )
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size")
+    p.add_argument("--sp", type=int, default=1, help="point-sharding mesh size")
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train on (default cuda; fails if absent)")
+    return p
+
+
+def parse_config(argv=None):
+    """Parse trainer flags -> (Config, torch.device).  A CUDA device without
+    CUDA raises (no CPU fallback)."""
+    args = vars(build_parser().parse_args(argv))
+    cluster = [args.pop(k) for k in ("coordinator_address", "num_processes", "process_id")]
+    if any(v is not None for v in cluster) or args["dp"] * args["sp"] > 1:
+        raise NotImplementedError(MULTI_GPU)
+    device = torch.device(args.pop("device"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: CUDA is not available")
+    return Config(**args), device

@@ -1,0 +1,219 @@
+"""Shared training loop (port of sv3d_tpu/training/loop.py): epochs,
+validation cadence with PyTorch-Lightning-1.1 val_check_interval semantics,
+sanity validation, metric logging at step 1 and every 10 steps, top-k + last
+checkpoints ranked only at validation, resume, and --profiler.
+
+Randomness is explicit: the subsample draws of the train steps come from one
+torch.Generator seeded with config.seed (the JAX loop splits one PRNGKey),
+model initialization from another; the data order and per-item draws are the
+seeded numpy ones of sv3d_tpu.data.  One device, given by the caller: the
+multi-device mesh of the JAX loop is not ported yet.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sv3d_tpu.config import Config
+from sv3d_tpu_torch.training.checkpoint import CheckpointManager, load_state_from_checkpoint
+from sv3d_tpu_torch.training.cli import MULTI_GPU
+from sv3d_tpu_torch.training.logging import MetricLogger
+
+#: --profiler advanced traces the first this many train steps
+TRACE_STEPS = 20
+
+
+class BaseTrainer:
+    """Subclasses implement:
+      build_state() -> TrainState
+      train_step(state, batch, generator) -> metrics dict (updates state)
+      eval_step(state, batch) -> metrics dict
+      train_dataset() / val_dataset() -> dataset objects
+      monitor / monitor_mode: validation metric ranking the checkpoints
+      visualize(state, batch, out_dir) and vis_datasets(), optional
+    """
+
+    monitor = "val_loss"
+    monitor_mode = "min"
+
+    def __init__(self, config: Config, device="cuda", experiment_dir: Optional[Path] = None):
+        if config.dp * config.sp > 1:
+            raise NotImplementedError(MULTI_GPU)
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device}: CUDA is not available")
+        random.seed(config.seed)
+        np.random.seed(config.seed)
+        self.generator = torch.Generator().manual_seed(config.seed)
+
+        self.exp_dir = Path(experiment_dir) if experiment_dir else config.experiment_dir()
+        self.exp_dir.mkdir(parents=True, exist_ok=True)
+        if config.monitor:
+            self.monitor = config.monitor
+            if not config.monitor_mode:
+                # infer the direction from the name, so `--monitor val_ce_loss`
+                # on a max-mode trainer cannot rank backwards
+                self.monitor_mode = "max" if self.monitor.endswith("_iou") else "min"
+        if config.monitor_mode:
+            self.monitor_mode = config.monitor_mode
+        self.ckpt = CheckpointManager(self.exp_dir / "checkpoints", mode=self.monitor_mode,
+                                      monitor=self.monitor)
+        self.logger = MetricLogger(self.exp_dir / "logs")
+        self.global_step = 0
+
+    # -- subclass hooks ------------------------------------------------------
+    def build_state(self):
+        raise NotImplementedError
+
+    def train_step(self, state, batch, generator):
+        raise NotImplementedError
+
+    def eval_step(self, state, batch):
+        raise NotImplementedError
+
+    def train_dataset(self):
+        raise NotImplementedError
+
+    def val_dataset(self):
+        raise NotImplementedError
+
+    def visualize(self, state, batch, out_dir: Path):
+        pass
+
+    def vis_datasets(self) -> dict:
+        """name -> dataset pairs to visualize at validation time; an empty
+        dict visualizes the first validation batch."""
+        return {}
+
+    # -- loop ----------------------------------------------------------------
+    def _loader(self, dataset, shuffle: bool, drop_last: bool):
+        from sv3d_tpu.data.loader import DataLoader
+
+        return DataLoader(dataset, batch_size=self.config.batch_size, shuffle=shuffle,
+                          drop_last=drop_last, num_workers=self.config.num_workers,
+                          seed=self.config.seed)
+
+    def validate(self, state, loader, max_batches: Optional[int] = None, do_vis=False):
+        agg: dict = {}
+        count = 0
+        first_batch = None
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            for k, v in self.eval_step(state, batch).items():
+                agg[k] = agg.get(k, 0.0) + float(v)
+            if i == 0:
+                first_batch = batch
+            count += 1
+        if do_vis and self.config.visualize:
+            self._visualize_pass(state, first_batch)
+        return {k: v / max(count, 1) for k, v in agg.items()}
+
+    def _visualize_pass(self, state, fallback_batch):
+        vis_dir = self.exp_dir / "vis" / f"{self.global_step // 100:05d}"
+        named = self.vis_datasets()
+        if named:
+            for name, ds in named.items():
+                batch = next(iter(self._loader(ds, shuffle=False, drop_last=False)), None)
+                if batch is not None:
+                    out = vis_dir / name
+                    out.mkdir(parents=True, exist_ok=True)
+                    self.visualize(state, batch, out)
+        elif fallback_batch is not None:
+            vis_dir.mkdir(parents=True, exist_ok=True)
+            self.visualize(state, fallback_batch, vis_dir)
+
+    def _profiler(self):
+        """torch.profiler over the first TRACE_STEPS steps (--profiler
+        advanced); the trace lands in <exp>/profile/trace.json."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+        return prof
+
+    def _stop_profiler(self, prof):
+        prof.__exit__(None, None, None)
+        out = self.exp_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+
+    def fit(self, max_steps: Optional[int] = None):
+        cfg = self.config
+        state = self.build_state()
+        if cfg.resume:
+            state = load_state_from_checkpoint(state, cfg.resume)
+            self.global_step = int(state.step)
+
+        train_loader = self._loader(self.train_dataset(), shuffle=True, drop_last=True)
+        val_loader_fn = lambda: self._loader(self.val_dataset(), shuffle=False, drop_last=False)
+
+        steps_per_epoch = max(len(train_loader), 1)
+        # PL-1.1 val_check_interval: a float in (0, 1] is a fraction of the
+        # training epoch, an integer > 1 means every N training batches
+        if cfg.val_check_interval > 1:
+            val_every_steps = int(cfg.val_check_interval)
+        else:
+            val_every_steps = max(int(steps_per_epoch * cfg.val_check_interval), 1)
+        n_val = len(val_loader_fn())
+        max_val_batches = max(int(n_val * cfg.val_check_percent), 1)
+
+        if cfg.sanity_steps > 0:
+            self.validate(state, val_loader_fn(), max_batches=cfg.sanity_steps)
+
+        from sv3d_tpu.utils.profiling import StepTimer
+
+        timer = StepTimer() if cfg.profiler else None
+        prof = self._profiler() if cfg.profiler == "advanced" else None
+
+        last_val = {}
+        # windowed throughput, validation excluded
+        log_t0 = time.time()
+        log_step0 = self.global_step
+        try:
+            for epoch in range(cfg.max_epoch):
+                for batch in train_loader:
+                    if timer:
+                        with timer.section("train_step"):
+                            metrics = self.train_step(state, batch, self.generator)
+                    else:
+                        metrics = self.train_step(state, batch, self.generator)
+                    self.global_step += 1
+                    if prof is not None and self.global_step >= TRACE_STEPS:
+                        self._stop_profiler(prof)
+                        prof = None
+                    if self.global_step % 10 == 0 or self.global_step == 1:
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        metrics["steps_per_sec"] = (self.global_step - log_step0) / max(
+                            time.time() - log_t0, 1e-9)
+                        self.logger.log(metrics, self.global_step)
+                        log_t0 = time.time()
+                        log_step0 = self.global_step
+                    if self.global_step % val_every_steps == 0:
+                        last_val = self.validate(state, val_loader_fn(),
+                                                 max_batches=max_val_batches, do_vis=True)
+                        self.logger.log(last_val, self.global_step)
+                        # rank a checkpoint only here, where the monitor is fresh
+                        self.ckpt.save(state, metric=last_val.get(self.monitor))
+                        log_t0 = time.time()
+                        log_step0 = self.global_step
+                    if max_steps is not None and self.global_step >= max_steps:
+                        self.ckpt.save(state)
+                        return state
+                if (epoch + 1) % max(cfg.save_epoch, 1) == 0:
+                    self.ckpt.save(state)
+            self.ckpt.save(state)
+            return state
+        finally:
+            if prof is not None:
+                self._stop_profiler(prof)
+            if timer:
+                timer.dump(self.exp_dir / "profile_simple.json")

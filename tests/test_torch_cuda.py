@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions.
+"""The port's CUDA kernels (K1, K1b, K2, K4, K7, K8) against their plain
+torch versions.
 
 This file imports only sv3d_tpu_torch (the card machine has no flax).  The
 tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
@@ -12,8 +13,25 @@ import torch
 
 from sv3d_tpu.config import IFNetConfig
 from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.ops.cuda.point_query import (
+    level_features,
+    level_features_cuda,
+    level_grad_points_cuda,
+    level_grad_vol_cuda,
+)
 from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain, sweep_tables
-from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels, scatter_voxels_cuda
+from sv3d_tpu_torch.ops.cuda.voxelize import (
+    scatter_voxels,
+    scatter_voxels_bwd_cuda,
+    scatter_voxels_cuda,
+    scatter_voxels_raw_cuda,
+)
+from sv3d_tpu_torch.ops.point_query import (
+    level_features_plain,
+    level_grad_points_plain,
+    level_grad_vol_plain,
+)
+from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd
 
 torch.set_num_threads(1)
 
@@ -88,10 +106,15 @@ def test_sweep_tables_replay_the_plain_sweep(net_res, dims):
         np.testing.assert_allclose(got, ref[0].numpy(), atol=1e-5)
 
 
+def _rel_err(got, ref):
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
 @pytest.mark.cuda
 def test_scatter_kernel_matches_plain_on_card(cuda_device):
-    """Atomics sum in a run-dependent order: atol 1e-5 after the clamp (see
-    the source note in csrc/voxelize.cu)."""
+    """K1: atomics sum in a run-dependent order, atol 1e-5 after the clamp;
+    K1b (the backward, through autograd): the same gathers in another
+    summation order, 1e-5 of the largest gradient (csrc/voxelize.cu)."""
     rng = np.random.default_rng(3)
     pts = torch.tensor(rng.uniform(-0.7, 0.7, (2, 76800, 3)).astype(np.float32),
                        device=cuda_device)
@@ -101,10 +124,57 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert scatter_voxels_cuda.launches == before + 1
     torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
-        scatter_voxels_cuda(pts.clone().requires_grad_(), dims)
     with pytest.raises(TypeError):
         scatter_voxels_cuda(pts.double(), dims)
+
+    p = pts.clone().requires_grad_()
+    w = torch.randn((2, *dims), device=cuda_device)
+    before = scatter_voxels_bwd_cuda.launches
+    (scatter_voxels_cuda(p, dims) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert scatter_voxels_bwd_cuda.launches == before + 1
+    raw = scatter_voxels_raw_cuda(pts, dims)
+    assert _rel_err(p.grad, scatter_voxels_bwd(pts, raw, w)) <= 1e-5
+    assert _rel_err(scatter_voxels_bwd_cuda(pts, raw, w), scatter_voxels_bwd(pts, raw, w)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
+@pytest.mark.parametrize("c", [1, 16, 64])
+def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
+    """K4, K7, K8 against their plain versions, both conventions, channel
+    counts that give 1, 2 and 1/2 points per warp; points partly outside the
+    volume.  1e-5 of the largest plain magnitude (summation order; K8's
+    atomics in run-dependent order)."""
+    rng = np.random.default_rng(c)
+    dims = (19, 13, 14)
+    flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
+                        device=cuda_device)
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32), device=cuda_device)
+         for _ in range(3)]
+    g = torch.tensor(rng.standard_normal((2, 333, 7 * c)).astype(np.float32), device=cuda_device)
+    args = (dims, ac, disp)
+    counts = [f.launches for f in (level_features_cuda, level_grad_points_cuda, level_grad_vol_cuda)]
+    assert _rel_err(level_features_cuda(flat, *p, *args), level_features_plain(flat, *p, *args)) <= 1e-5
+    assert _rel_err(level_grad_points_cuda(flat, *p, g, *args),
+                    level_grad_points_plain(flat, *p, g, *args)) <= 1e-5
+    assert _rel_err(level_grad_vol_cuda(*p, g, *args), level_grad_vol_plain(*p, g, *args)) <= 1e-5
+    torch.cuda.synchronize()
+    assert [f.launches for f in (level_features_cuda, level_grad_points_cuda,
+                                 level_grad_vol_cuda)] == [n + 1 for n in counts]
+
+    # through autograd: K4 forward, K8 always, K7 only when a coordinate needs it
+    vol = flat.clone().requires_grad_()
+    (level_features(vol, *p, *args) * g).sum().backward()
+    assert level_grad_points_cuda.launches == counts[1] + 1
+    assert _rel_err(vol.grad, level_grad_vol_plain(*p, g, *args)) <= 1e-5
+    q = [x.clone().requires_grad_() for x in p]
+    (level_features(flat, *q, *args) * g).sum().backward()
+    assert level_grad_points_cuda.launches == counts[1] + 2
+    ref = level_grad_points_plain(flat, *p, g, *args)
+    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= 1e-5
+    with pytest.raises(ValueError):
+        level_features_cuda(flat[:, :, :-1], *p, *args)
 
 
 @pytest.mark.cuda

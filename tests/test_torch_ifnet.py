@@ -1,12 +1,15 @@
-"""Port parity: IF-Net encode and the dense-lattice query of sv3d_tpu_torch
-against sv3d_tpu, eval mode, from converted weights.
+"""Port parity: IF-Net encode, the point queries and the dense-lattice query
+of sv3d_tpu_torch against sv3d_tpu, from converted weights.
 
 The dims are those of tests/test_pallas_sweep.py: (17, 16, 18) at net_res 128
 (align_corners=False) and (12, 9, 10) at net_res 32 (align_corners=True);
 both pool a size-1 dim through the -inf pad.  Conv and contraction sums run
 in another order than XLA's: atol 1e-4 on features and logits.  Against
 JAX's default bf16 sweep the bound is the JAX package's own mixed-precision
-one, atol 2e-2 on sigmoid (tests/test_pallas_sweep.py)."""
+one, atol 2e-2 on sigmoid (tests/test_pallas_sweep.py).  The port's point
+queries (the gather path and the f32 fused path) are held to JAX's exact
+query() at 1e-5, and to JAX's bf16 fused path by gradient cosine > 0.98
+(tests/test_pallas_query_bwd.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -106,3 +109,81 @@ def test_cpu_levels_take_the_plain_sweep():
         b = lattice_sweep_plain(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners, cfg.displacement)
     assert lattice_sweep.launches == before
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_point_queries_match_jax_query(case):
+    """query (gather) and query_fused (plain K4 on the CPU) against JAX's
+    exact query(); points include some outside the volume."""
+    dims, jm, variables, tm, jlev, tlev = case
+    pts = np.random.default_rng(9).uniform(-0.55, 0.55, (1, 300, 3)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda v, lv, p: jm.apply(v, lv, p, method=JIFNet.query))(
+        variables, jlev, jnp.asarray(pts)))
+    with torch.no_grad():
+        for got in (tm.query(tlev, torch.tensor(pts)), tm.query_fused(tlev, torch.tensor(pts))):
+            np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_fused_forward_grads_match_jax_exact_and_fused():
+    """IFNet.forward with fused_query True against JAX (the configuration of
+    tests/test_pallas_query_bwd.py): the port's f32 fused path has the
+    gradients of JAX's exact path (1e-4 relative), and is aligned with JAX's
+    bf16 fused path (cosine > 0.98)."""
+    grid = (np.random.default_rng(0).uniform(0, 1, (1, 18, 13, 14, 1)) > 0.9).astype(np.float32)
+    pts = np.random.default_rng(1).uniform(-0.45, 0.45, (1, 64, 3)).astype(np.float32)
+    occ = (np.random.default_rng(2).uniform(0, 1, (1, 64)) > 0.5).astype(np.float32)
+
+    def jax_grads(fused):
+        model = JIFNet(IFNetConfig.for_net_res(32, fused_query=fused))
+        variables = model.init(jax.random.PRNGKey(3), jnp.asarray(grid), jnp.asarray(pts),
+                               train=False)
+
+        def loss(v, p):
+            logits = model.apply(v, jnp.asarray(grid), p, train=False)
+            return jnp.mean((jax.nn.sigmoid(logits) - occ) ** 2)
+
+        g = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables, jnp.asarray(pts))
+        return variables, np.asarray(g[0]["params"]["fc0_kernel"]), np.asarray(g[1])
+
+    variables, fc0_exact, pts_exact = jax_grads(False)
+    _, fc0_fused, pts_fused = jax_grads(True)
+
+    tm = IFNet(IFNetConfig.for_net_res(32, fused_query=True))
+    tm.load_state_dict(from_flax(variables))
+    tm.eval()
+    p = torch.tensor(pts, requires_grad=True)
+    loss = torch.mean((torch.sigmoid(tm(torch.tensor(grid), p)) - torch.tensor(occ)) ** 2)
+    loss.backward()
+    got = {"fc0": tm.fc0.weight.grad.numpy(), "points": p.grad.numpy()}
+    for name, exact, fused in (("fc0", fc0_exact, fc0_fused), ("points", pts_exact, pts_fused)):
+        np.testing.assert_allclose(got[name], exact, atol=1e-4 * np.abs(exact).max(),
+                                   err_msg=name)
+        a, b = got[name].ravel(), fused.ravel()
+        assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.98, name
+
+
+def test_train_mode_encode_batch_stats_follow_flax():
+    """One train-mode encode at B=2: levels agree (rtol/atol 1e-4: flax takes
+    the batch variance as E[x^2] - E[x]^2, torch in two passes), and the
+    running statistics equal flax's mutated batch_stats to 1e-6 (biased batch
+    variance)."""
+    cfg = IFNetConfig.for_net_res(128)
+    grid = np.random.default_rng(6).normal(size=(2, 17, 16, 18, 1)).astype(np.float32)
+    jm = JIFNet(cfg)
+    init = jax.jit(lambda k: jm.init(k, jnp.asarray(grid), jnp.zeros((2, 8, 3)), train=False))
+    variables = randomized(init(jax.random.PRNGKey(0)), 8)
+    ref, mutated = jax.jit(lambda v, g: jm.apply(v, g, train=True, method=JIFNet.encode,
+                                                 mutable=["batch_stats"]))(
+        variables, jnp.asarray(grid))
+    tm = IFNet(cfg)
+    tm.load_state_dict(from_flax(variables))
+    tm.train()
+    with torch.no_grad():
+        got = tm.encode(torch.tensor(grid))
+    for (gf, _), (rf, _) in zip(got, ref):
+        np.testing.assert_allclose(gf.numpy(), np.asarray(rf), rtol=1e-4, atol=1e-4)
+    want = from_flax({"batch_stats": jax.tree_util.tree_map(np.asarray, mutated["batch_stats"])})
+    state = tm.state_dict()
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 10
+    for k in stats:
+        np.testing.assert_allclose(state[k].numpy(), want[k].numpy(), atol=1e-6, err_msg=k)

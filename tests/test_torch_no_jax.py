@@ -1,5 +1,5 @@
-"""sv3d_tpu_torch imports and serves on the CPU with jax, jaxlib and flax
-blocked, and chip_smoke.py refuses to run without CUDA."""
+"""sv3d_tpu_torch imports, serves and trains on the CPU with jax, jaxlib and
+flax blocked, and chip_smoke.py refuses to run without CUDA."""
 
 import json
 import os
@@ -34,7 +34,13 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.ops.lattice", "sv3d_tpu_torch.ops.cuda.build",
         "sv3d_tpu_torch.ops.cuda.voxelize", "sv3d_tpu_torch.ops.cuda.sweep",
         "sv3d_tpu_torch.models", "sv3d_tpu_torch.inference.dense_grid",
-        "sv3d_tpu_torch.inference.predict",
+        "sv3d_tpu_torch.inference.predict", "sv3d_tpu_torch.ops.point_query",
+        "sv3d_tpu_torch.ops.cuda.point_query", "sv3d_tpu_torch.models.batchnorm",
+        "sv3d_tpu_torch.data.datasets", "sv3d_tpu_torch.preprocessing.occupancies",
+        "sv3d_tpu_torch.preprocessing.waterproofing", "sv3d_tpu_torch.training.cli",
+        "sv3d_tpu_torch.training.logging", "sv3d_tpu_torch.training.optim",
+        "sv3d_tpu_torch.training.state", "sv3d_tpu_torch.training.checkpoint",
+        "sv3d_tpu_torch.training.loop", "sv3d_tpu_torch.training.trainer_scene_net",
     ]
     for m in modules:
         importlib.import_module(m)
@@ -47,6 +53,27 @@ SLICE = BLOCK + textwrap.dedent("""
     values = evaluate_on_grid(model, grid, (9, 7, 8))
     print(json.dumps({
         "shape": list(values.shape), "finite": bool(np.isfinite(values).all()),
+        "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+    }))
+""")
+
+
+TRAIN = BLOCK + textwrap.dedent("""
+    import json, runpy, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    smoke = runpy.run_path("chip_smoke.py")
+    root = smoke["write_smoke_dataset"](sys.argv[1], scale_factor=8, n_points=500)
+    from sv3d_tpu.config import Config
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+
+    cfg = Config(seed=0, scale_factor=8, batch_size=1, num_points=16, subsample_points=32,
+                 fused_query=True, datasetdir=str(root), sanity_steps=0, experiment="t")
+    state = SceneNetTrainer(cfg, device="cpu", experiment_dir=sys.argv[2]).fit(max_steps=1)
+    rec = json.loads(open(sys.argv[2] + "/logs/metrics.jsonl").readline())
+    print(json.dumps({
+        "step": state.step, "finite": bool(np.isfinite(rec["train_loss"])),
         "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
     }))
 """)
@@ -65,6 +92,13 @@ def test_port_imports_and_serves_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"shape": [9, 7, 8], "finite": True, "jax": []}
+
+
+def test_port_trains_one_step_without_jax(tmp_path):
+    proc = _run(["-c", TRAIN, str(tmp_path / "data"), str(tmp_path / "exp")], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"step": 1, "finite": True, "jax": []}
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

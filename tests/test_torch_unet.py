@@ -81,3 +81,29 @@ def test_unet_eval_parity(cls, tcls, hw):
         got = tm.eval()(torch.tensor(x)).numpy()
     assert got.shape == (1, *hw, 1)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cls,tcls", [(JUNetMini, UNetMini)])
+def test_train_mode_batch_stats_follow_flax(cls, tcls):
+    """One train-mode forward: the outputs agree, and the running statistics
+    the port's BatchNorm leaves equal flax's mutated batch_stats (momentum 0.9
+    on the BIASED batch variance) to 1e-6; torch's own BatchNorm folds the
+    unbiased variance in."""
+    x = np.random.default_rng(4).uniform(-1, 1, (2, 48, 64, 3)).astype(np.float32)
+    jm = cls(channels_out=1)
+    variables = randomized(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False), 5)
+    ref, mutated = jax.jit(lambda v, a: jm.apply(v, a, train=True, mutable=["batch_stats"]))(
+        variables, jnp.asarray(x))
+
+    tm = tcls(channels_out=1)
+    tm.load_state_dict(from_flax(variables))
+    tm.train()
+    with torch.no_grad():
+        got = tm(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-4, atol=1e-4)
+    want = from_flax({"batch_stats": jax.tree_util.tree_map(np.asarray, mutated["batch_stats"])})
+    state = tm.state_dict()
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 10
+    for k in stats:
+        np.testing.assert_allclose(state[k].numpy(), want[k].numpy(), atol=1e-6, err_msg=k)
