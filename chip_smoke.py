@@ -2,24 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from sv3d_tpu_torch/csrc and holds each
-against its plain torch version at the shapes of the path that runs it.
-Then drives the port's two paths through their own entry points, at full
-width with seeded random weights, and checks that each ran its kernels:
+Builds the hand-written kernels from sv3d_tpu_torch/csrc (and the host
+geometry library) and holds each kernel against its plain torch version at
+the shapes of the path that runs it.  Then drives the port's paths through
+their own entry points, at full width with seeded random weights, and checks
+that each ran its kernels:
 
   serving   one seeded 240x320 RGB array to a mesh (load_model -> predict ->
             implicit_to_mesh), net_res 128, scale_factor 1, dims
             (139, 104, 112): kernels K1 (scatter) and K2 (dense sweep);
+  points    evaluate_points on the served model and grid at 262,144 uniform
+            points in [-0.45, 0.45]^3: kernel K6 (bands="auto", fc0 in the
+            kernel), kernel K4 (bands=None) and the exact gather path, which
+            must agree; then the unfused dense sweep
+            (query_lattice(fused_tail=False)): kernel K3 (decoder);
   training  SceneNetTrainer(...).fit on a seeded one-scene dataset tree that
             the script writes, B=4, 2x2048 supervision + 4096 projected
             points, fused_query: kernels K1, K1b (scatter backward), K4
             (point features), K7 and K8 (their backward).
 
+K5 (bf16 point features) is on no path of the port, as in the JAX package:
+it is held against its plain version at the points path's shapes.
+
 It also resumes the fit from its checkpoint, checks that the loss drops over
 10 steps on one fixed batch, holds one f32 train step on the card (kernels)
 and on the CPU (plain versions) against the same step in float64 on the
-CPU, and times kernels, paths and the
-train step with CUDA events.  Imports nothing of JAX.  Exits non-zero
+CPU, and times kernels, paths and the train step with CUDA events, beside
+each kernel's bound on the card and the time of one PyTorch library call that
+computes the same function, where there is one.  Imports nothing of JAX.  Exits non-zero
 without CUDA and when any phase fails.  The last line is
 {"ok": true, "device": {...}}.
 """
@@ -70,6 +80,15 @@ GRID_GRAD_RTOL = 2e-2
 # held to 1e-4 of their weight's gradient, and step up to lr either way.
 BN_FED_BIASES = ("unet.down.1.bias", "unet.down.2.bias", "unet.same.0.bias",
                  "unet.same.1.bias", "unet.same.2.bias")
+K3_TOL = 1e-4  # f32 FMA vs plain f32 contractions: summation order only (csrc/mlp.cu)
+K6_RTOL = 1e-5  # FMA order over at most 7 * 128 terms, of the largest |partial|
+K5_ULP = 2.0 ** -7  # one bf16 ulp: |d| <= 2^-7 |ref| + 1e-6
+POINTS_TOL = 1e-5  # the three evaluate_points routes, and card vs CPU, on the sigmoid
+N_POINTS = 262144  # the JAX package's arbitrary-point measurement (bench.py)
+# the H100 SXM's published peaks at its full 700 W limit (NVIDIA's data
+# sheet): f32 outside the tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 WORK = Path(__file__).resolve().parent / "build" / "sv3d_tpu_torch" / "smoke"
 
 # the one-scene dataset: an axis-aligned box (camera space, metres) in front
@@ -133,10 +152,10 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     10% uniform points, labelled against the mesh.  Returns root."""
     from PIL import Image
 
-    from sv3d_tpu.config import Config
-    from sv3d_tpu.data.splits import write_split
-    from sv3d_tpu.io.exr import write_exr
-    from sv3d_tpu.io.mesh import TriMesh, save_obj
+    from sv3d_tpu_torch.config import Config
+    from sv3d_tpu_torch.data.splits import write_split
+    from sv3d_tpu_torch.io.exr import write_exr
+    from sv3d_tpu_torch.io.mesh import TriMesh, save_obj
     from sv3d_tpu_torch.geometry.camera import parse_intrinsics
     from sv3d_tpu_torch.geometry.frustum import FrustumGrid
     from sv3d_tpu_torch.preprocessing.occupancies import _normalize_mesh, determine_occupancy
@@ -185,6 +204,218 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
         np.savez(proc / f"occupancy_{sigma}.npz", points=pts.astype(np.float32),
                  occupancies=occ[0])
     return root
+
+
+def bound(n_bytes: float, flops: float) -> tuple:
+    """The least time the card could take for work that moves n_bytes
+    (each input read once, each output written once) and does flops f32
+    operations: (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def grid_sample_inputs(levels, p, align_corners, displacement) -> list:
+    """The library yardstick's inputs for the point-query kernels: per level
+    the (B, C, g0, g1, g2) volume and the (B, 1, 1, 7N, 3) grid of the
+    displaced points, coordinates reversed to grid_sample's (x = axis 2,
+    y = axis 1, z = axis 0)."""
+    from sv3d_tpu_torch.ops.grid_sample import displacement_axes
+
+    pd = displacement_axes(p, displacement)
+    grid = torch.stack(pd[::-1], dim=-1)[:, None, None].contiguous()
+    return [(flat.view(*flat.shape[:2], *dims), grid) for flat, dims in levels]
+
+
+def grid_sample_ms(inputs, align_corners, backward=None) -> float:
+    """CUDA-event median of F.grid_sample(bilinear, zeros) over every level;
+    backward "points" or "level" times instead the backward of that call for
+    the grid's or the volume's gradient alone, against a random cotangent."""
+    import torch.nn.functional as F
+
+    sample = lambda v, g: F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                                        align_corners=align_corners)
+    if backward is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: [sample(v, g) for v, g in inputs])
+    graphs = []
+    with torch.enable_grad():
+        for v, g in inputs:
+            wrt = (g if backward == "points" else v).detach().requires_grad_()
+            out = sample(wrt, g) if backward == "level" else sample(v, wrt)
+            graphs.append((out, wrt, torch.randn_like(out)))
+        return cuda_ms(lambda: [torch.autograd.grad(o, w, c, retain_graph=True)
+                                for o, w, c in graphs])
+
+
+def point_kernel_checks(ifnet, levels, pts) -> dict:
+    """K6 and K5 against their plain versions on every level of the served
+    pyramid at the points path's (1, N_POINTS) query.  Returns {name: (max
+    abs err, max err as a fraction of its bound)}."""
+    from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features_banded_cuda
+    from sv3d_tpu_torch.ops.point_query import level_fc0_plain, level_features_banded_plain
+
+    cfg = ifnet.config
+    p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
+    errs = {"K6": [0.0, 0.0], "K5": [0.0, 0.0]}
+    with torch.inference_mode():
+        for (flat, dims), w0l in zip(levels, [w.contiguous() for w in ifnet.fc0_blocks()]):
+            args = (dims, cfg.align_corners, cfg.displacement)
+            a, r = rel_err(level_fc0_cuda(flat, w0l, *p, *args),
+                           level_fc0_plain(flat, w0l, *p, *args))
+            errs["K6"] = [max(errs["K6"][0], a), max(errs["K6"][1], r / K6_RTOL)]
+            got = level_features_banded_cuda(flat, *p, *args).float()
+            ref = level_features_banded_plain(flat, *p, *args).float()
+            d = (got - ref).abs()
+            ratio = float((d / (K5_ULP * ref.abs() + 1e-6)).max())
+            errs["K5"] = [max(errs["K5"][0], float(d.max())), max(errs["K5"][1], ratio)]
+            del got, ref, d
+        torch.cuda.synchronize()
+    return {k: tuple(v) for k, v in errs.items()}
+
+
+def points_path(served, vox, pts_np, smi) -> dict:
+    """The arbitrary-point path through evaluate_points: the three routes,
+    their launches and agreement, K6/K5/K3 checks and timings, the unfused
+    sweep through K3, and a profile.  Returns what the kernels line needs."""
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_points
+    from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
+    from sv3d_tpu_torch.ops.cuda.point_query import (
+        level_fc0_cuda,
+        level_features_banded_cuda,
+        level_features_cuda,
+    )
+    from sv3d_tpu_torch.ops.lattice import slab_features
+    from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
+    from sv3d_tpu_torch.ops.point_query import level_fc0_plain, level_features_banded_plain
+
+    ifnet = served.ifnet
+    cfg = ifnet.config
+    dims = tuple(vox.shape[1:4])
+    dev = vox.device
+    n_tiles = -(-len(pts_np) // 65536)
+
+    # -- the three routes through the entry point ---------------------------
+    routes, launches = {}, {}
+    counters = (level_fc0_cuda, level_features_cuda, level_features_banded_cuda)
+    for name, kw in (("K6", dict(bands="auto")), ("K4", dict(bands=None)),
+                     ("gather", dict(use_kernel=False))):
+        for counter in counters:
+            counter.launches = 0
+        routes[name] = evaluate_points(ifnet, vox, pts_np, **kw)
+        torch.cuda.synchronize()
+        launches[name] = tuple(counter.launches for counter in counters)
+    diffs = {f"{a} vs {b}": float(np.abs(routes[a] - routes[b]).max())
+             for a, b in (("K6", "gather"), ("K4", "gather"), ("K6", "K4"))}
+    print(f"points path: evaluate_points at {len(pts_np)} points ({n_tiles} tiles of 65536), "
+          f"launches (K6, K4, K5) by route {launches}, largest sigmoid differences {diffs} "
+          f"(tol {POINTS_TOL:g}), sigmoid in [{routes['K6'].min():.4f}, "
+          f"{routes['K6'].max():.4f}]", flush=True)
+    for name, v in routes.items():
+        check(v.shape == (len(pts_np),) and v.dtype == np.float32 and bool(np.isfinite(v).all()),
+              f"evaluate_points route {name}: {v.shape} {v.dtype}")
+    check(max(diffs.values()) <= POINTS_TOL, f"evaluate_points routes disagree: {diffs}")
+    n_levels = len(cfg.feature_channels)
+    check(launches["K6"] == (n_levels * n_tiles, 0, 0)
+          and launches["K4"] == (0, n_levels * n_tiles, 0)
+          and launches["gather"] == (0, 0, 0), f"point kernels ran {launches}")
+
+    # -- the kernels against their plain versions at full width -------------
+    with torch.inference_mode():
+        levels = ifnet.encode(vox)
+    pts = torch.tensor(pts_np[None], device=dev)
+    checks = point_kernel_checks(ifnet, levels, pts)
+    for name, (a, frac) in checks.items():
+        print(f"{name}: max_abs_err {a:.3e}, {frac:.3f} of its bound "
+              f"({'1e-5 of the largest |partial|' if name == 'K6' else 'one bf16 ulp'})",
+              flush=True)
+        check(frac <= 1.0, f"{name} disagrees with its plain version: {frac} of its bound")
+    weights = [t.detach() for layer in ifnet.mlp for t in layer]
+    with torch.inference_mode():
+        f = slab_features(levels, dims, 1, 69, cfg.align_corners, cfg.displacement)[0]
+        k3_err = float((fused_point_mlp(f, *weights) - fused_point_mlp_plain(f, *weights))
+                       .abs().max())
+    print(f"K3 fused_point_mlp on one full-width row, f {tuple(f.shape)}: max_abs_err "
+          f"{k3_err:.3e} (tol {K3_TOL:g})", flush=True)
+    check(k3_err <= K3_TOL, f"K3 disagrees with its plain version: {k3_err}")
+
+    # -- the unfused sweep through K3, against the K2 default ---------------
+    fused_point_mlp.launches = 0
+    sweep_err = 0.0
+    with torch.inference_mode():
+        for rows, off in ((1, 0), (1, 69), (2, 137)):
+            got = ifnet.query_lattice(levels, dims, 1, rows, off, fused_tail=False)
+            ref = ifnet.query_lattice(levels, dims, 1, rows, off)
+            check(bool(torch.isfinite(got).all()), f"unfused sweep non-finite at {off}+{rows}")
+            sweep_err = max(sweep_err, float((got - ref).abs().max()))
+        torch.cuda.synchronize()
+    k3_launches = fused_point_mlp.launches
+    print(f"unfused sweep: query_lattice(fused_tail=False) rows 0, 69, 137-138 against K2: "
+          f"max_abs_err {sweep_err:.3e} (tol {K3_TOL:g}), K3 launches {k3_launches}", flush=True)
+    check(sweep_err <= K3_TOL and k3_launches == 3, "the unfused sweep did not run through K3")
+
+    # -- timings -------------------------------------------------------------
+    p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
+    w0ls = [w.contiguous() for w in ifnet.fc0_blocks()]
+    lv = list(levels)
+    args = (cfg.align_corners, cfg.displacement)
+    with torch.inference_mode():
+        route_ms = {name: cuda_ms(lambda kw=kw: evaluate_points(ifnet, vox, pts_np, **kw),
+                                  warmup=1, reps=3)
+                    for name, kw in (("K6", dict(bands="auto")), ("K4", dict(bands=None)),
+                                     ("gather", dict(use_kernel=False)))}
+        timed = {
+            "K6": (cuda_ms(lambda: [level_fc0_cuda(fl, w, *p, d, *args)
+                                    for (fl, d), w in zip(lv, w0ls)]),
+                   cuda_ms(lambda: [level_fc0_plain(fl, w, *p, d, *args)
+                                    for (fl, d), w in zip(lv, w0ls)], warmup=1, reps=3)),
+            "K5": (cuda_ms(lambda: [level_features_banded_cuda(fl, *p, d, *args) for fl, d in lv]),
+                   cuda_ms(lambda: [level_features_banded_plain(fl, *p, d, *args)
+                                    for fl, d in lv], warmup=1, reps=3)),
+            "K3": (cuda_ms(lambda: fused_point_mlp(f, *weights)),
+                   cuda_ms(lambda: fused_point_mlp_plain(f, *weights))),
+        }
+    library = {"K5": grid_sample_ms(grid_sample_inputs(lv, p, *args), cfg.align_corners)}
+    prof = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np), steps=2)
+    print(f"points timings on {smi}:", flush=True)
+    for name, ms in route_ms.items():
+        print(f"  evaluate_points route {name}: median {ms:.3f} ms of 3, "
+              f"{len(pts_np) / (ms / 1e3):.4g} points/s", flush=True)
+    for name, (ms, plain) in timed.items():
+        what = "1 row, 11,648 points" if name == "K3" else f"all 6 levels, {len(pts_np)} points"
+        print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
+    print(f"  K5 library F.grid_sample over the 6 levels: {library['K5']:.4f} ms", flush=True)
+    print(f"  profiled evaluate_points (bands=\"auto\", {len(pts_np)} points):", flush=True)
+    for line in prof:
+        print(f"    {line}", flush=True)
+
+    # -- bounds from this run's inputs ----------------------------------------
+    n = len(pts_np)
+    sum_c = sum(cfg.feature_channels)
+    lvl_bytes = nbytes(*(fl for fl, _ in lv))
+    pts_bytes = nbytes(*p)
+    h0 = weights[0].shape[0]
+    bounds = {
+        # levels, fc0 blocks, coordinates in; six (1, N, H) f32 partials out;
+        # fc0 (2 * 7 * sumC * H a point) plus the features (16 a tap)
+        "K6": bound(lvl_bytes + nbytes(*w0ls) + pts_bytes + 6 * n * h0 * 4,
+                    2.0 * n * 7 * sum_c * h0 + 16.0 * n * 7 * sum_c),
+        # levels and coordinates in; (1, N, 7 * sumC) bf16 out; 8 taps a feature
+        "K5": bound(lvl_bytes + pts_bytes + n * 7 * sum_c * 2, 16.0 * n * 7 * sum_c),
+        "K3": bound(nbytes(f, *weights) + f.shape[1] * 4,
+                    2.0 * f.shape[1] * sum(w.shape[0] * w.shape[1] for w in weights[::2])),
+    }
+    del levels, f
+    # K5 is on no route, as in the JAX package: its count over the three
+    # routes, checked 0 above
+    k5_launches = sum(route[2] for route in launches.values())
+    return {"launches": {"K6": launches["K6"][0], "K5": k5_launches, "K3": k3_launches},
+            "err": {"K6": checks["K6"][0], "K5": checks["K5"][0], "K3": k3_err},
+            "ms": timed, "bounds": bounds, "library": library}
 
 
 def _counters():
@@ -263,7 +494,7 @@ def train_kernel_checks(model, dev, rng) -> dict:
 
 def parity_config(data_root):
     """The configuration of the card-vs-CPU train step."""
-    from sv3d_tpu.config import Config
+    from sv3d_tpu_torch.config import Config
 
     return Config(seed=0, scale_factor=8, batch_size=2, num_points=256, subsample_points=512,
                   fused_query=True, datasetdir=str(data_root), splitsdir="overfit")
@@ -275,7 +506,7 @@ def parity_step(cfg, device, dtype=torch.float32, labels=None) -> dict:
     the subsample, or None (on the CPU) to label this run's eval-mode cloud,
     so that every run trains on one set of labels.  Returns the loss, the
     gradients, the state after the step (on the CPU) and the labels."""
-    from sv3d_tpu.data.loader import collate
+    from sv3d_tpu_torch.data.loader import collate
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer, to_device, train_step
 
     trainer = SceneNetTrainer(cfg, device=device, experiment_dir=WORK / f"parity_{device}")
@@ -348,33 +579,58 @@ def _against_exact(cfg, run, exact) -> dict:
     return out
 
 
-def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
-    """Where a warm full-width fused_query train step spends its time: the
-    host-clock step, the summed device self time of torch.profiler's CUDA
-    activity, the host labelling of the projected cloud alone, and the top
-    kernels by device time.  Returns printable lines."""
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _profile(fn, steps: int):
+    """torch.profiler over steps warm calls of fn (two warm-up calls first).
+    Returns (profile, host-clock ms a call, device kernel ms a call, kernel
+    events by device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    state = trainer.build_state()
     for _ in range(2):
-        trainer.train_step(state, batch, gen)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_step(state, batch, gen)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # the kernels themselves (device events), not the CPU ops that launched them
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    events = sorted(kernels, key=dev_us, reverse=True)
-    device = sum(dev_us(e) for e in events) / 1e3 / steps
+               if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0]
+    events = sorted(kernels, key=_dev_us, reverse=True)
+    return prof, wall, sum(_dev_us(e) for e in events) / 1e3 / steps, events
+
+
+def _top_lines(events, device: float, steps: int, top: int = 15) -> list:
+    lines = []
+    for e in events[:top]:
+        ms = _dev_us(e) / 1e3 / steps
+        lines.append(f"  {ms:9.3f} ms {100.0 * ms / device:5.1f}%  x{e.count // steps:<4d} "
+                     f"{e.key[:90]}")
+    return lines
+
+
+def profile_lines(fn, steps: int) -> list:
+    """Host-clock ms, device kernel ms, the device's idle share and the top
+    kernels by device time of one warm call of fn.  Returns printable lines."""
+    _, wall, device, events = _profile(fn, steps)
+    return [f"{wall:.3f} ms host clock, {device:.3f} ms device self time, device idle "
+            f"{100.0 * (1.0 - device / wall):.1f}% (torch.profiler, {steps} calls)",
+            *_top_lines(events, device, steps, top=10)]
+
+
+def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
+    """Where a warm full-width fused_query train step spends its time: the
+    host-clock step, the summed device self time of torch.profiler's CUDA
+    activity, the host labelling of the projected cloud alone, and the top
+    kernels by device time.  Returns printable lines."""
+    state = trainer.build_state()
+    prof, wall, device, events = _profile(lambda: trainer.train_step(state, batch, gen), steps)
     pc = torch.tensor(np.random.default_rng(0).uniform(-0.5, 0.5, (4, 4096, 3)).astype(np.float32))
     label_ms = []
     for _ in range(5):
@@ -384,10 +640,7 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     lines = [f"profiled fused_query step: {wall:.3f} ms host clock, {device:.3f} ms device self "
              f"time, device idle {100.0 * (1.0 - device / wall):.1f}%; host labelling of "
              f"4x4096 points {statistics.median(label_ms):.3f} ms (median of 5)"]
-    for e in events[:15]:
-        ms = dev_us(e) / 1e3 / steps
-        lines.append(f"  {ms:9.3f} ms {100.0 * ms / device:5.1f}%  x{e.count // steps:<4d} "
-                     f"{e.key[:90]}")
+    lines += _top_lines(events, device, steps)
     # which convolutions the backward time belongs to (device time of the
     # kernels each aten op launched, by input shapes)
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -409,10 +662,11 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
 
-    from sv3d_tpu.config import Config
+    from sv3d_tpu_torch.config import Config
     from sv3d_tpu_torch.inference.dense_grid import (
         evaluate_on_grid,
         evaluate_on_grid_device,
+        evaluate_points,
         implicit_to_mesh,
     )
     from sv3d_tpu_torch.inference.predict import build_parser, load_model, predict
@@ -445,7 +699,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    from sv3d_tpu_torch import native
+
+    geom = native.build()  # the host geometry library
+    print(f"build: {lib.name} and {geom.name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     config = Config(seed=0)  # net_res 128, scale_factor 1, inf_res 1, UNetMini
     dims = config.dims
@@ -532,6 +790,14 @@ def main() -> int:
     print(f"slice at scale_factor 8, card vs CPU plain: max_abs_err {slice_err:.3e} "
           f"(tol {SLICE_TOL:g})", flush=True)
     check(slice_err <= SLICE_TOL, f"card slice disagrees with the CPU slice: {slice_err}")
+    # arbitrary points on the CPU's grid: the card's K6 route against the CPU's gathers
+    small_pts = np.random.default_rng(4).uniform(-0.45, 0.45, (16384, 3)).astype(np.float32)
+    card_pts = evaluate_points(small_gpu.ifnet, v, small_pts, tile_points=4096)
+    cpu_pts = evaluate_points(small_cpu.ifnet, v, small_pts, tile_points=4096)
+    pts_err = float(np.abs(card_pts - cpu_pts).max())
+    print(f"evaluate_points at scale_factor 8, 16384 points, card (K6) vs CPU plain: "
+          f"max_abs_err {pts_err:.3e} (tol {POINTS_TOL:g})", flush=True)
+    check(pts_err <= POINTS_TOL, f"card evaluate_points disagrees with the CPU's: {pts_err}")
 
     # -- phase 6: serving timings --------------------------------------------
     with torch.inference_mode():
@@ -564,7 +830,22 @@ def main() -> int:
               flush=True)
     print(f"  warm image->mesh: median {statistics.median(e2e):.4f} s over {len(e2e)} runs "
           f"({', '.join(f'{t:.4f}' for t in e2e)})", flush=True)
-    del levels, served, vox
+    n_slab = dims[1] * dims[2]
+    mlp_flops = 2.0 * n_slab * sum(w.shape[0] * w.shape[1] for w, _ in ifnet.mlp)
+    bounds = {
+        # points in, grid out; 8 corners of 4 flops a point
+        "K1": bound(nbytes(pts, k1), 32.0 * pts.shape[1]),
+        # levels and weights in, one row of logits out; the decoder plus 8
+        # taps of 2 flops a feature
+        "K2": bound(nbytes(*levels.flats, *(t for layer in ifnet.mlp for t in layer))
+                    + n_slab * 4, mlp_flops + 16.0 * n_slab * ifnet.feature_size),
+    }
+    del levels
+
+    # -- phase 6b: the arbitrary-point path on the served grid ----------------
+    pts_np = np.random.default_rng(3).uniform(-0.45, 0.45, (N_POINTS, 3)).astype(np.float32)
+    pp = points_path(served, vox, pts_np, smi)
+    del served, vox
 
     # -- phase 7: training kernels against their plain versions -------------
     tk = train_kernel_checks(model, dev, rng)
@@ -609,7 +890,7 @@ def main() -> int:
     del state, state_r
 
     # -- phase 9: the loss drops over 10 steps on one fixed batch ------------
-    from sv3d_tpu.data.loader import collate
+    from sv3d_tpu_torch.data.loader import collate
 
     ds = trainer.train_dataset()
     batch = collate([ds[i] for i in range(4)])
@@ -652,6 +933,24 @@ def main() -> int:
                cuda_ms(lambda: [level_grad_vol_plain(*p, g, d, ac, disp)
                                 for (_, d), g in zip(lv, gs)])),
     }
+    gs_inputs = grid_sample_inputs(lv, p, ac, disp)
+    library = {"K4": grid_sample_ms(gs_inputs, ac), "K7": grid_sample_ms(gs_inputs, ac, "points"),
+               "K8": grid_sample_ms(gs_inputs, ac, "level"), **pp["library"]}
+    del gs_inputs
+    n_feat = p[0].numel() * 7 * sum(f.shape[1] for f, _ in lv)  # B * N * 7 * sumC
+    k1b_pts = tk["K1b"][2][0]
+    bounds.update(pp["bounds"])
+    bounds.update({
+        # points, raw grid and cotangent in, the points' gradient out; 8
+        # corners of 6 flops a point
+        "K1b": bound(nbytes(*tk["K1b"][2], k1b_pts), 48.0 * k1b_pts.shape[0] * k1b_pts.shape[1]),
+        # levels and coordinates in, f32 features out; 8 taps of 2 flops
+        "K4": bound(nbytes(*levels.flats, *p) + 4 * n_feat, 16.0 * n_feat),
+        # levels, coordinates and cotangent in, (B, N, 3) out; 8 taps of 8 flops
+        "K7": bound(nbytes(*levels.flats, *p, *gs) + 3 * 4 * p[0].numel(), 64.0 * n_feat),
+        # coordinates and cotangent in, the levels' gradient out; 8 taps of 2 flops
+        "K8": bound(nbytes(*p, *gs, *levels.flats), 16.0 * n_feat),
+    })
     prof_lines = profile_train_step(trainer, batch, gen)
     print(f"training timings on {smi}:", flush=True)
     for fused, ms in step_ms.items():
@@ -662,28 +961,36 @@ def main() -> int:
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
     for line in prof_lines:
         print(f"  {line}", flush=True)
+    print(f"  library calls: K4 F.grid_sample {library['K4']:.4f} ms, its backward for the "
+          f"points K7 {library['K7']:.4f} ms and for the levels K8 {library['K8']:.4f} ms "
+          "(all 6 levels, B=4 x 8192 points)", flush=True)
 
-    kernels = [
-        {"name": "scatter_voxels", "route": "cuda", "source": "sv3d_tpu_torch/csrc/voxelize.cu",
-         "replaces": "sv3d_tpu/ops/pallas/voxelize.py:130",
-         "launches": launches["scatter_voxels"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "lattice_sweep", "route": "cuda", "source": "sv3d_tpu_torch/csrc/sweep.cu",
-         "replaces": "sv3d_tpu/ops/pallas/sweep.py:162",
-         "launches": launches["lattice_sweep"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
-    ]
-    for name, key, source, replaces in (
-        ("scatter_voxels_bwd", "K1b", "voxelize.cu", "sv3d_tpu/ops/pallas/voxelize.py:224"),
-        ("level_features", "K4", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:439"),
-        ("level_grad_points", "K7", "point_query.cu",
+    measured = {
+        "K1": (launches["scatter_voxels"], k1_err, k1_ms, k1_plain_ms),
+        "K2": (launches["lattice_sweep"], k2_err, k2_ms, k2_plain_ms),
+        **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K1b", "K4", "K7", "K8")},
+        **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k]) for k in ("K3", "K5", "K6")},
+    }
+    kernels = []
+    for key, name, source, replaces in (
+        ("K1", "scatter_voxels", "voxelize.cu", "sv3d_tpu/ops/pallas/voxelize.py:130"),
+        ("K1b", "scatter_voxels_bwd", "voxelize.cu", "sv3d_tpu/ops/pallas/voxelize.py:224"),
+        ("K2", "lattice_sweep", "sweep.cu", "sv3d_tpu/ops/pallas/sweep.py:162"),
+        ("K3", "fused_point_mlp", "mlp.cu", "sv3d_tpu/ops/pallas/mlp.py:41"),
+        ("K4", "level_features", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:439"),
+        ("K5", "level_features_banded", "point_query.cu",
+         "sv3d_tpu/ops/pallas/point_query.py:692"),
+        ("K6", "level_fc0", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:968"),
+        ("K7", "level_grad_points", "point_query.cu",
          "sv3d_tpu/ops/pallas/point_query_bwd.py:172"),
-        ("level_grad_vol", "K8", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),
+        ("K8", "level_grad_vol", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),
     ):
+        n, err, ms, plain = measured[key]
         kernels.append({
             "name": name, "route": "cuda", "source": f"sv3d_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": train_launches[key], "max_abs_err": tk[key][0],
-            "ms": kernel_ms[key][0], "plain_ms": kernel_ms[key][1]})
+            "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": library.get(key)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,14 @@
 
 The JAX package ``sv3d_tpu`` is the reference; this package mirrors its layout
 and names so each module's counterpart is easy to find.  It imports torch and
-never jax or flax.  Public layouts match the JAX package: grids are
+never jax or flax, and nothing of sv3d_tpu: what it needs of the JAX
+package's host modules it keeps as its own copies (config, io, native,
+utils, data).  Public layouts match the JAX package: grids are
 (B, D0, D1, D2, 1), points (B, N, 3) with points[..., i] addressing grid axis
 i, images (B, H, W, 3).
 
-Layout (the serving slice, image -> mesh, and the training slice):
+Layout (the serving slice, image -> mesh; the training slice; arbitrary-point
+inference):
   geometry      - camera / frustum / grid-space transforms
   ops           - voxelization, Gaussian smoothing, the gather sampler,
                   point-query features, pyramid flattening, lattice
@@ -15,10 +18,15 @@ Layout (the serving slice, image -> mesh, and the training slice):
                   autograd.Functions, and the nvcc build
   models        - UNet / UNetMini / Projection / IFNet / SceneNet nn.Modules
                   and the flax-semantics BatchNorm
-  data          - SceneNetDataset (JAX-free intrinsics reading)
+  config        - Config / IFNetConfig / ProjectionConfig
+  io, native,   - EXR / image / OBJ / .df formats, the host C++ geometry
+  utils           library (marching cubes, triangle hash, KD-tree), meshing
+                  dumps, the step timer
+  data          - datasets, the batching loader, split files
   preprocessing - occupancy labelling of point clouds against GT meshes
   training      - SceneNetTrainer, the loop, checkpoints, optimizer, CLI
-  inference     - dense-grid sweep, meshing and the serving CLI
+  inference     - dense-grid sweep, arbitrary-point evaluation, meshing and
+                  the serving CLI
   convert       - flax {"params", "batch_stats"} tree -> this package's state_dict
 """
 

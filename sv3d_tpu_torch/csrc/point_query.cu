@@ -1,10 +1,12 @@
 // Fused IF-Net point query for Hopper: one pyramid level's trilinear features
-// at the 7 displaced copies of arbitrary query points, and both halves of its
-// backward.
+// at the 7 displaced copies of arbitrary query points, both halves of its
+// backward, and the inference-only variants.
 //
-//   K4 level_features_kernel   replaces sv3d_tpu/ops/pallas/point_query.py::level_features
-//   K7 level_grad_points_kernel replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
-//   K8 level_grad_vol_kernel   replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
+//   K4 level_features_kernel<float>  replaces sv3d_tpu/ops/pallas/point_query.py::level_features
+//   K5 level_features_kernel<bf16>   replaces sv3d_tpu/ops/pallas/point_query.py::level_features_banded
+//   K6 level_fc0_kernel              replaces sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
+//   K7 level_grad_points_kernel      replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
+//   K8 level_grad_vol_kernel         replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
 //
 // Contract (the plain versions in sv3d_tpu_torch/ops/point_query.py): the
 // level is the port's channel-major flat (B, C, G0*G1*G2) f32; coordinates are
@@ -47,7 +49,29 @@
 // touch differs between orders by about k * 2^-24 of its magnitude, so the
 // kernel is held to its plain version at 1e-5 relative to the gradient's
 // largest magnitude (chip_smoke.py, tests/test_torch_cuda.py).
+//
+// K5 is K4 with its features stored as bf16 (round to nearest even), the
+// output type of the TPU's 2-D (slab, band) bucketed kernel; the bucketing
+// itself, and with it the band count, has no counterpart here.  It writes
+// (B, N, 7C) bf16, so it is bound by the same gathers as K4 plus half of K4's
+// output bytes.  No port path calls it (as in the JAX package).
+//
+// K6 is K4 with the level's block of fc0 contracted in the kernel: out[b, n, h]
+// = sum_{d, c} feat[b, n, d*C + c] * w0l[d*C + c, h], feat being K4's exact
+// f32 features, so the (B, N, 7C) features never reach device memory (what
+// the TPU kernel keeps out of HBM).  A block owns kFc0Points consecutive
+// points and all H outputs, one thread per h, a register accumulator per
+// point.  Per displacement, the first warp computes the points' 8 corners
+// (K4's arithmetic) into shared memory; the block gathers the (C, T)
+// features of that copy into shared memory, kFc0Chans channels a round; then
+// every thread contracts them with rows d*C + c of w0l, read coalesced along
+// h, the feature reads being shared-memory broadcasts.  It does 2 * 7C * H
+// flop per point in f32 FMA (no tensor cores yet): at H = 256 and the six
+// net_res-128 levels that is 1.3 MFLOP a point, so it is bound by the card's
+// f32 rate, not by its bytes.  With accumulate set it adds into out, so the
+// caller sums the six levels' partials in one (B, N, H) buffer.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,11 +134,17 @@ __device__ __forceinline__ void corners(const Level& L, float p0, float p1,
   }
 }
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename OutT>
 __global__ void level_features_kernel(const float* __restrict__ vol,
                                       const float* __restrict__ q0,
                                       const float* __restrict__ q1,
                                       const float* __restrict__ q2,
-                                      float* __restrict__ out, int batch, int n,
+                                      OutT* __restrict__ out, int batch, int n,
                                       Level L, int lanes) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t pt = t / lanes;
@@ -123,7 +153,7 @@ __global__ void level_features_kernel(const float* __restrict__ vol,
   const int b = (int)(pt / n);
   const float p0 = q0[pt], p1 = q1[pt], p2 = q2[pt];
   const float* v = vol + (int64_t)b * L.c * L.gsize;
-  float* o = out + pt * 7 * L.c;
+  OutT* o = out + pt * 7 * L.c;
   Corners k;
   for (int d = 0; d < 7; ++d) {
     corners(L, p0, p1, p2, d, k);
@@ -132,7 +162,7 @@ __global__ void level_features_kernel(const float* __restrict__ vol,
       float acc = 0.0f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc += k.w[j] * vc[k.lin[j]];
-      o[d * L.c + c] = acc;
+      store(o + d * L.c + c, acc);
     }
   }
 }
@@ -214,6 +244,87 @@ __global__ void level_grad_vol_kernel(const float* __restrict__ q0,
   }
 }
 
+constexpr int kFc0Points = 32;  // points per block (register accumulators)
+constexpr int kFc0Chans = 128;  // channels gathered per shared-memory round
+
+// K6: blockDim.x >= h_dim threads; thread h owns output column h for the
+// block's kFc0Points points (of the B*N flattened).
+__global__ void level_fc0_kernel(const float* __restrict__ vol,
+                                 const float* __restrict__ w0l,
+                                 const float* __restrict__ q0,
+                                 const float* __restrict__ q1,
+                                 const float* __restrict__ q2,
+                                 float* __restrict__ out, int batch, int n,
+                                 Level L, int h_dim, int accumulate) {
+  __shared__ __align__(16) float feat[kFc0Chans][kFc0Points];
+  __shared__ int64_t lin[kFc0Points][8];
+  __shared__ float wt[kFc0Points][8];
+  __shared__ int64_t base[kFc0Points];
+  const int h = threadIdx.x;
+  const int64_t total = (int64_t)batch * n;
+  const int64_t pt0 = (int64_t)blockIdx.x * kFc0Points;
+  float acc[kFc0Points];
+#pragma unroll
+  for (int t = 0; t < kFc0Points; ++t) acc[t] = 0.0f;
+
+  for (int d = 0; d < 7; ++d) {
+    // corners of copy d (the previous copy's gathers are done: every thread
+    // passed the barrier before its contraction)
+    if (threadIdx.x < kFc0Points) {
+      const int t = threadIdx.x;
+      const int64_t pt = pt0 + t;
+      if (pt < total) {
+        Corners k;
+        corners(L, q0[pt], q1[pt], q2[pt], d, k);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          lin[t][j] = k.lin[j];
+          wt[t][j] = k.w[j];
+        }
+        base[t] = (pt / n) * L.c * L.gsize;
+      } else {  // padding lanes read voxel 0 with weight 0
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          lin[t][j] = 0;
+          wt[t][j] = 0.0f;
+        }
+        base[t] = 0;
+      }
+    }
+    for (int c0 = 0; c0 < L.c; c0 += kFc0Chans) {
+      const int cc = min(kFc0Chans, L.c - c0);
+      __syncthreads();  // corners written; the previous round's readers done
+      for (int i = threadIdx.x; i < cc * kFc0Points; i += blockDim.x) {
+        const int c = i / kFc0Points, t = i % kFc0Points;
+        const float* vc = vol + base[t] + (int64_t)(c0 + c) * L.gsize;
+        float v = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v += wt[t][j] * vc[lin[t][j]];
+        feat[c][t] = v;
+      }
+      __syncthreads();
+      if (h < h_dim) {
+        const float* wrow = w0l + ((int64_t)d * L.c + c0) * h_dim + h;
+        for (int c = 0; c < cc; ++c) {
+          const float w = wrow[(int64_t)c * h_dim];
+#pragma unroll
+          for (int t = 0; t < kFc0Points; ++t) acc[t] = fmaf(feat[c][t], w, acc[t]);
+        }
+      }
+    }
+  }
+  if (h < h_dim) {
+#pragma unroll
+    for (int t = 0; t < kFc0Points; ++t) {
+      const int64_t pt = pt0 + t;
+      if (pt < total) {
+        float* o = out + pt * h_dim + h;
+        *o = accumulate ? *o + acc[t] : acc[t];
+      }
+    }
+  }
+}
+
 int lanes_for(int c) {
   int l = 1;
   while (l < c && l < 32) l <<= 1;
@@ -237,10 +348,48 @@ extern "C" int sv3d_level_features(const void* vol, const void* q0,
   const int lanes = lanes_for(c);
   const int64_t total = (int64_t)batch * n * lanes;
   if (total > 0) {
-    level_features_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                            (cudaStream_t)stream>>>(
+    level_features_kernel<float><<<blocks_for(total, kThreads), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
         (const float*)vol, (const float*)q0, (const float*)q1, (const float*)q2,
         (float*)out, batch, n, L, lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sv3d_level_features_bf16(const void* vol, const void* q0,
+                                        const void* q1, const void* q2,
+                                        void* out, int batch, int n, int c,
+                                        int g0, int g1, int g2,
+                                        int align_corners, float disp,
+                                        void* stream) {
+  const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
+  const int lanes = lanes_for(c);
+  const int64_t total = (int64_t)batch * n * lanes;
+  if (total > 0) {
+    level_features_kernel<__nv_bfloat16><<<blocks_for(total, kThreads), kThreads,
+                                           0, (cudaStream_t)stream>>>(
+        (const float*)vol, (const float*)q0, (const float*)q1, (const float*)q2,
+        (__nv_bfloat16*)out, batch, n, L, lanes);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sv3d_level_fc0(const void* vol, const void* w0l, const void* q0,
+                              const void* q1, const void* q2, void* out,
+                              int h_dim, int accumulate, int batch, int n,
+                              int c, int g0, int g1, int g2, int align_corners,
+                              float disp, void* stream) {
+  if (h_dim < 1 || h_dim > 1024) return (int)cudaErrorInvalidValue;
+  const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
+  const int64_t total = (int64_t)batch * n;
+  if (total > 0) {
+    // whole warps, and at least one warp for the corner pass
+    const int threads = (h_dim + 31) / 32 * 32;
+    level_fc0_kernel<<<blocks_for(total, kFc0Points), threads, 0,
+                       (cudaStream_t)stream>>>(
+        (const float*)vol, (const float*)w0l, (const float*)q0,
+        (const float*)q1, (const float*)q2, (float*)out, batch, n, L, h_dim,
+        accumulate);
   }
   return (int)cudaGetLastError();
 }

@@ -1,2 +1,2 @@
-"""Datasets of the port: the JAX package's host-side datasets with JAX-free
-camera reading."""
+"""Host-side data layer of the port: datasets, batching loader, split files
+(copies of sv3d_tpu/data)."""

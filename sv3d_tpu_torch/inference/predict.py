@@ -24,7 +24,7 @@ import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from sv3d_tpu.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z
+    from sv3d_tpu_torch.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z
 
     p = argparse.ArgumentParser(description="sv3d_tpu_torch image->mesh serving")
     p.add_argument("--checkpoint", required=True,
@@ -80,7 +80,7 @@ def resolve_device(name: str) -> torch.device:
 def load_model(args):
     """Build (config, model) for serving from CLI args + checkpoint; the
     model is in eval mode on args.device."""
-    from sv3d_tpu.config import Config
+    from sv3d_tpu_torch.config import Config
     from sv3d_tpu_torch.geometry.camera import read_intrinsics
     from sv3d_tpu_torch.geometry.frustum import FrustumGrid
     from sv3d_tpu_torch.models.scene_net import SceneNet
@@ -154,12 +154,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         if args.rgb:
             # PIL is imported only here: loading a PNG is the one step that needs it
-            from sv3d_tpu.data.datasets import _load_normalized_rgb
+            from sv3d_tpu_torch.data.datasets import _load_normalized_rgb
 
             rgb = _load_normalized_rgb(path, False, config.resize_input, config.W)
             vox, depth = predict(config, model, rgb=rgb)
         else:
-            from sv3d_tpu.io.exr import read_exr_channel
+            from sv3d_tpu_torch.io.exr import read_exr_channel
 
             vox, depth = predict(
                 config, model, distance=read_exr_channel(path, "R"), intrinsics=intrinsics,
@@ -171,7 +171,7 @@ def main(argv=None):
             res_increase=config.inf_res,
         )
         if args.dump_depth:
-            from sv3d_tpu.utils.visualize import visualize_depthmap
+            from sv3d_tpu_torch.utils.visualize import visualize_depthmap
 
             visualize_depthmap(depth, out_dir / f"{base}_depth", flip=True)
         print(f"{path} -> {mesh_path}  ({time.perf_counter() - t0:.2f}s)")

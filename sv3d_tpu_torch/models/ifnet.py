@@ -16,21 +16,27 @@ permutation.
 Two arbitrary-point queries, picked by IFNetConfig.fused_query as the JAX
 package picks them: query() is the exact f32 gather path; query_fused()
 runs the point-query kernels (K4 forward, K7/K8 backward) level by level and
-contracts fc0 per level, so the (B, N, 7*sumC) feature tensor never exists.
-The port's fused path is f32 throughout, exact like query(); the JAX fused
-path is bf16 with f32 accumulation.  No mesh / shard_map routing: one device.
+contracts fc0 per level, so the (B, N, 7*sumC) feature tensor never exists;
+with bands= set it runs the inference-only K6, which contracts fc0 inside the
+kernel.  The port's fused paths are f32 throughout, exact like query(); the
+JAX fused paths are bf16 with f32 accumulation.  query_lattice() sweeps the
+dense lattice through K2 by default, or materializes the slab's features
+and runs the decoder through K3 (fused_tail=False).  No mesh / shard_map
+routing: one device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sv3d_tpu.config import IFNetConfig
+from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
-from sv3d_tpu_torch.ops.cuda.point_query import level_features
+from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
+from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features
 from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep
 from sv3d_tpu_torch.ops.grid_sample import (
     Pyramid,
@@ -38,6 +44,7 @@ from sv3d_tpu_torch.ops.grid_sample import (
     flatten_grid,
     sample_trilinear_flat,
 )
+from sv3d_tpu_torch.ops.lattice import slab_features
 
 
 class _ConvBlock(nn.Module):
@@ -98,6 +105,19 @@ class IFNet(nn.Module):
         """[(weight (out, in), bias)] for fc0, fc1, fc2, fc_out."""
         return [(m.weight, m.bias) for m in (self.fc0, self.fc1, self.fc2, self.fc_out)]
 
+    def fc0_blocks(self) -> list:
+        """Per pyramid level, its (7*C, H) block of fc0, rows d*C + c (K4's
+        feature order), as the transpose of an (H, 7*C) copy: a matmul takes
+        it as it is, K6 after .contiguous().  fc0's columns are
+        displacement-major over the global channels, d * sumC + cg + c."""
+        chans = list(self.config.feature_channels)
+        h_dim = self.fc0.weight.shape[0]
+        w0 = self.fc0.weight.view(h_dim, 7, sum(chans))
+        return [
+            w0[:, :, cg:cg + c].reshape(h_dim, 7 * c).t()
+            for cg, c in zip(np.cumsum([0, *chans[:-1]]).tolist(), chans)
+        ]
+
     def encode(self, grid: torch.Tensor) -> Pyramid:
         """Run the conv pyramid once; level 0 is the raw input grid.
         Returns a Pyramid of channel-major (B, C, G) levels."""
@@ -140,22 +160,40 @@ class IFNet(nn.Module):
         f = f.reshape(b, f.shape[1], 7, n).permute(0, 3, 2, 1).reshape(b, n, -1)
         return self._mlp_tail(F.linear(f, self.fc0.weight, self.fc0.bias))
 
-    def query_fused(self, levels: Pyramid, points: torch.Tensor) -> torch.Tensor:
-        """query() through the point-query kernels: per level, K4 features
-        (B, N, 7*C_l) contracted at once with that level's (H, 7*C_l) block of
-        fc0 (a plain torch.matmul, as the JAX package leaves it to XLA), then
-        the MLP tail.  K8 and K7 carry the gradient back to the level and the
-        points."""
+    def query_fused(self, levels: Pyramid, points: torch.Tensor, bands=None,
+                    w0_blocks=None) -> torch.Tensor:
+        """query() through the point-query kernels.
+
+        bands=None: per level, K4 features (B, N, 7*C_l) contracted at once
+        with that level's (H, 7*C_l) block of fc0 (a plain torch.matmul, as
+        the JAX package leaves it to XLA), then the MLP tail.  K8 and K7
+        carry the gradient back to the level and the points.
+
+        bands set (an int or "auto", as the JAX package takes it): per level,
+        K6 contracts the features with the level's fc0 block inside the
+        kernel, adding into one (B, N, H) buffer that starts as the fc0 bias;
+        then the MLP tail.  Inference-only: under autograd it raises
+        NotImplementedError.  The band count only sizes the TPU's 2-D query
+        bucketing (bucket_queries_2d, ops/pallas/cost.py::choose_bands), which
+        the port does not have, so any band count gives the same result.
+
+        w0_blocks: fc0_blocks() made contiguous, from a caller that queries
+        many tiles with unchanged weights (evaluate_points); made anew on each
+        call when None."""
         cfg = self.config
-        p0, p1, p2 = (2.0 * points[..., i] for i in range(3))
-        chans = [flat.shape[1] for flat in levels.flats]
-        # fc0's columns are displacement-major, d * sum_c + c
-        w0 = self.fc0.weight.view(self.fc0.weight.shape[0], 7, sum(chans))
+        p0, p1, p2 = ((2.0 * points[..., i]).contiguous() for i in range(3))
+        args = (cfg.align_corners, cfg.displacement)
+        if bands:
+            if w0_blocks is None:
+                w0_blocks = [w.contiguous() for w in self.fc0_blocks()]
+            b, n = points.shape[:2]
+            h = self.fc0.bias.expand(b, n, self.fc0.bias.shape[0]).contiguous()
+            for (flat, dims), w0l in zip(levels, w0_blocks):
+                h = level_fc0_cuda(flat, w0l, p0, p1, p2, dims, *args, out=h)
+            return self._mlp_tail(h)
         h = self.fc0.bias
-        for li, (flat, dims) in enumerate(levels):
-            cg, c = sum(chans[:li]), chans[li]
-            feat = level_features(flat, p0, p1, p2, dims, cfg.align_corners, cfg.displacement)
-            h = h + torch.matmul(feat, w0[:, :, cg:cg + c].reshape(-1, 7 * c).t())
+        for (flat, dims), w0l in zip(levels, w0_blocks or self.fc0_blocks()):
+            h = h + torch.matmul(level_features(flat, p0, p1, p2, dims, *args), w0l)
         return self._mlp_tail(h)
 
     def forward(self, grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -167,17 +205,30 @@ class IFNet(nn.Module):
 
     def query_lattice(
         self, levels: Pyramid, resolution, res_increase: int = 1, slab_rows: int = 4,
-        row_offset: int = 0,
+        row_offset: int = 0, fused_tail: bool | None = None,
     ) -> torch.Tensor:
         """Occupancy logits on rows [row_offset, row_offset + slab_rows) of
         the dense lattice over [-0.5, 0.5]^3 whose axis i has
         resolution[i] * res_increase points: (B, slab_rows, r1, r2).
 
-        Runs the CUDA sweep kernel for CUDA levels and its plain f32 torch
-        version for CPU levels (sv3d_tpu_torch/ops/cuda/sweep.py)."""
+        fused_tail None or True (the counterpart of the JAX package's fused
+        tail): the sweep kernel K2 for CUDA levels, its plain f32 torch
+        version for CPU levels (sv3d_tpu_torch/ops/cuda/sweep.py).
+        fused_tail=False: the unfused branch -- the slab's displacement-major
+        (B, 7*sumC, n_slab) features are materialized (ops/lattice.py
+        slab_features), then the decoder runs through K3 once per batch
+        element (its plain f32 version for CPU levels).  The feature matrix is 7 * sumC * n_slab * 4 bytes (120 MB a lattice row
+        at full width), so keep slab_rows small there."""
         cfg = self.config
         r = tuple(int(x) * res_increase for x in resolution)
-        return lattice_sweep(
-            levels, self.mlp, r, slab_rows, int(row_offset), cfg.align_corners,
-            cfg.displacement,
-        )
+        if fused_tail is None or fused_tail:
+            return lattice_sweep(
+                levels, self.mlp, r, slab_rows, int(row_offset), cfg.align_corners,
+                cfg.displacement,
+            )
+        f = slab_features(levels, r, slab_rows, int(row_offset), cfg.align_corners,
+                          cfg.displacement)
+        b = f.shape[0]
+        weights = [t for layer in self.mlp for t in layer]
+        logits = torch.stack([fused_point_mlp(f[i], *weights) for i in range(b)])
+        return logits.reshape(b, slab_rows, r[1], r[2])

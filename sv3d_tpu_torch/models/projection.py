@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sv3d_tpu.config import ProjectionConfig
+from sv3d_tpu_torch.config import ProjectionConfig
 from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda
 from sv3d_tpu_torch.ops.voxelize import gaussian_kernels_1d, smooth_voxels
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sv3d_tpu.config import Config
+from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.geometry.camera import Intrinsics
 from sv3d_tpu_torch.geometry.frustum import FrustumGrid
 from sv3d_tpu_torch.geometry.transforms import depthmap_to_gridspace, norm_grid_space

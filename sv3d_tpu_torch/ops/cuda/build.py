@@ -9,6 +9,11 @@ reused.  Each source compiles in its own nvcc process, all started together,
 and one more nvcc links the objects.  Building with nvcc alone takes seconds;
 a source that includes PyTorch's headers would take minutes, so the C entries
 take raw pointers.
+
+    python -m sv3d_tpu_torch.ops.cuda.build --report
+
+compiles each source once more with ``-Xptxas -v`` and prints every kernel's
+registers, shared memory and spills.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -100,3 +107,23 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry returned a CUDA error (its cudaGetLastError())."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def report() -> str:
+    """ptxas's resource usage (registers, shared memory, spills) of every
+    kernel, one nvcc -Xptxas -v per source, all started together."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / f"{src.stem}.o"),
+                 str(src)] for src in _sources()]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        return "\n".join(f"== {src.name}\n{p.communicate()[0]}"
+                         for src, p in zip(_sources(), procs))
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--report"]:
+        print(report())
+    else:
+        print(build())

@@ -1,15 +1,19 @@
 """Wrappers of the CUDA point-query kernels (sv3d_tpu_torch/csrc/point_query.cu).
 
-  level_features_cuda     K4, replaces sv3d_tpu/ops/pallas/point_query.py::level_features
-  level_grad_points_cuda  K7, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
-  level_grad_vol_cuda     K8, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
+  level_features_cuda         K4, replaces sv3d_tpu/ops/pallas/point_query.py::level_features
+  level_features_banded_cuda  K5, replaces sv3d_tpu/ops/pallas/point_query.py::level_features_banded
+  level_fc0_cuda              K6, replaces sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
+  level_grad_points_cuda      K7, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
+  level_grad_vol_cuda         K8, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
 
 level_features is the differentiable entry (the counterpart of the JAX
 package's level_features_diff custom VJP): an autograd.Function whose forward
 runs K4 and whose backward runs K8 for the level's gradient and K7 for the
 coordinates' when autograd asks for it.  Each wrapper runs its plain version
 (sv3d_tpu_torch/ops/point_query.py) for a CPU tensor and launches its kernel
-for a CUDA tensor, or raises.
+for a CUDA tensor, or raises.  K5 and K6 are inference-only, as their TPU
+kernels have no VJP: under autograd (grad enabled and an input that requires
+grad) they raise NotImplementedError rather than return a gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 
 from sv3d_tpu_torch.ops.cuda import build
 from sv3d_tpu_torch.ops.point_query import (
+    level_fc0_plain,
+    level_features_banded_plain,
     level_features_plain,
     level_grad_points_plain,
     level_grad_vol_plain,
@@ -30,9 +36,9 @@ _TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _bind(name: str, n_ptr: int):
+def _bind(name: str, n_ptr: int, n_int: int = 0):
     fn = getattr(build.load(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + _TAIL
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + _TAIL
     fn.restype = ctypes.c_int
     return fn
 
@@ -44,6 +50,16 @@ def _on_cuda(t: torch.Tensor, who: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {t.device}")
     return True
+
+
+def _inference_only(who: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{who} (the bands= point-query kernel) is INFERENCE-ONLY: it has no "
+            "backward kernel.  For training/gradients use the 1-D path (bands=None), "
+            "which routes through level_features and its backward kernels; for "
+            "inference run under torch.no_grad() or torch.inference_mode()."
+        )
 
 
 def _check(who: str, device, **tensors) -> None:
@@ -78,6 +94,63 @@ def level_features_cuda(flat, p0, p1, p2, dims, align_corners: bool, displacemen
     )
     build.check(rc, "sv3d_level_features")
     level_features_cuda.launches += 1
+    return out
+
+
+def level_features_banded_cuda(flat, p0, p1, p2, dims, align_corners: bool,
+                               displacement: float):
+    """K5: K4's features stored as bfloat16, (B, N, 7*C).  Inference-only."""
+    _inference_only("level_features_banded", flat, p0, p1, p2)
+    if not _on_cuda(flat, "level_features_banded"):
+        return level_features_banded_plain(flat, p0, p1, p2, dims, align_corners, displacement)
+    b, c, g = flat.shape
+    n = p0.shape[1]
+    if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
+        raise ValueError(f"level_features_banded: level of {g} voxels for dims {dims}")
+    _check("level_features_banded", flat.device, flat=(flat, (b, c, g)), p0=(p0, (b, n)),
+           p1=(p1, (b, n)), p2=(p2, (b, n)))
+    out = torch.empty((b, n, 7 * c), dtype=torch.bfloat16, device=flat.device)
+    rc = _bind("sv3d_level_features_bf16", 5)(
+        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
+        *_tail(b, n, c, dims, align_corners, displacement, flat.device),
+    )
+    build.check(rc, "sv3d_level_features_bf16")
+    level_features_banded_cuda.launches += 1
+    return out
+
+
+def level_fc0_cuda(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacement: float,
+                   out=None):
+    """K6: one level's fc0 partial, K4's features (B, N, 7*C) times w0l (7*C,
+    H) (rows d*C + c), contracted in the kernel: (B, N, H) f32.  With out
+    (B, N, H) given, the partial is added into out in place and out is
+    returned, so the caller sums the levels in one buffer.  Inference-only."""
+    _inference_only("level_fc0", flat, w0l, p0, p1, p2)
+    if not _on_cuda(flat, "level_fc0"):
+        part = level_fc0_plain(flat, w0l, p0, p1, p2, dims, align_corners, displacement)
+        return part if out is None else out.add_(part)
+    b, c, g = flat.shape
+    n = p0.shape[1]
+    h = w0l.shape[1]
+    if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
+        raise ValueError(f"level_fc0: level of {g} voxels for dims {dims}")
+    if not 1 <= h <= 1024:
+        raise ValueError(f"level_fc0: the kernel takes 1 to 1024 outputs, got {h}")
+    tensors = dict(flat=(flat, (b, c, g)), w0l=(w0l, (7 * c, h)), p0=(p0, (b, n)),
+                   p1=(p1, (b, n)), p2=(p2, (b, n)))
+    if out is not None:
+        tensors["out"] = (out, (b, n, h))
+    _check("level_fc0", flat.device, **tensors)
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty((b, n, h), dtype=torch.float32, device=flat.device)
+    rc = _bind("sv3d_level_fc0", 6, 2)(
+        flat.data_ptr(), w0l.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+        out.data_ptr(), h, int(accumulate),
+        *_tail(b, n, c, dims, align_corners, displacement, flat.device),
+    )
+    build.check(rc, "sv3d_level_fc0")
+    level_fc0_cuda.launches += 1
     return out
 
 
@@ -155,5 +228,7 @@ def level_features(vol, p0, p1, p2, dims, align_corners: bool, displacement: flo
 
 
 level_features_cuda.launches = 0
+level_features_banded_cuda.launches = 0
+level_fc0_cuda.launches = 0
 level_grad_points_cuda.launches = 0
 level_grad_vol_cuda.launches = 0

@@ -5,7 +5,7 @@ logits of the unfused IF-Net lattice query (sv3d_tpu/models/ifnet.py:648-735)
 for lattice rows [row_offset, row_offset + rows): 7 displaced trilinear
 resizes of every pyramid level, fc0 over the displacement-major feature
 vector (index d * sumC + c), then the decoder MLP.  lattice_sweep_plain is
-that math in plain f32 torch (displaced_resizes_cm + fc0 + MLP); a CPU tensor
+that math in plain f32 torch (slab_features + the decoder); a CPU tensor
 runs it, a CUDA tensor launches the kernel or raises.  Inference only.
 """
 
@@ -17,16 +17,8 @@ import numpy as np
 import torch
 
 from sv3d_tpu_torch.ops.cuda import build
-from sv3d_tpu_torch.ops.lattice import axis_matrices, axis_taps, displaced_resizes_cm
-
-
-def _axis0_rows(m: np.ndarray, rows: int, row_offset: int) -> np.ndarray:
-    """Rows [row_offset, row_offset + rows) of an axis-0 table; lattice rows
-    past the end (the padded edge slab) are zero, so their features are 0."""
-    need = row_offset + rows
-    if need > m.shape[0]:
-        m = np.pad(m, ((0, need - m.shape[0]),) + ((0, 0),) * (m.ndim - 1))
-    return m[row_offset:need]
+from sv3d_tpu_torch.ops.lattice import axis0_rows, axis_taps, slab_features
+from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
 
 
 def lattice_sweep_plain(
@@ -37,30 +29,9 @@ def lattice_sweep_plain(
 
     levels: iterable of (flat (B, C, g0*g1*g2), dims); mlp: [(weight (out,
     in), bias (out,))] for fc0, fc1, fc2, fc_out; r: lattice (r0, r1, r2)."""
-    feats = [[] for _ in range(7)]
-    b = None
-    for flat, dims in levels:
-        b, c = flat.shape[:2]
-        vol = flat.reshape(b, c, *dims)
-        kw = dict(dtype=flat.dtype, device=flat.device)
-        mats0 = tuple(
-            torch.tensor(_axis0_rows(m, rows, row_offset), **kw)
-            for m in axis_matrices(r[0], dims[0], align_corners, displacement)
-        )
-        mats1, mats2 = (
-            tuple(torch.tensor(m, **kw)
-                  for m in axis_matrices(r[ax], dims[ax], align_corners, displacement))
-            for ax in (1, 2)
-        )
-        for d, vd in enumerate(displaced_resizes_cm(vol, mats0, mats1, mats2)):
-            feats[d].append(vd.reshape(b, c, -1))
-    f = torch.cat([x for fd in feats for x in fd], dim=1)  # (B, 7*sumC, n)
-    h = f
-    for i, (w, bias) in enumerate(mlp):
-        h = torch.einsum("hf,bfn->bhn", w, h) + bias[None, :, None]
-        if i < len(mlp) - 1:
-            h = torch.relu(h)
-    return h[:, 0, :].reshape(b, rows, r[1], r[2])
+    f = slab_features(levels, r, rows, row_offset, align_corners, displacement)
+    return fused_point_mlp_plain(f, *(t for layer in mlp for t in layer)).reshape(
+        f.shape[0], rows, r[1], r[2])
 
 
 def sweep_tables(chans, dims_list, r, rows, row_offset, align_corners, displacement):
@@ -80,8 +51,8 @@ def sweep_tables(chans, dims_list, r, rows, row_offset, align_corners, displacem
         i0, w0, i1, w1 = axis_taps(r[ax], dims[:, ax, None, None], align_corners, shifts)
         i, w = np.stack([i0, i1], axis=-1), np.stack([w0, w1], axis=-1)
         if ax == 0:
-            i = np.moveaxis(_axis0_rows(np.moveaxis(i, 2, 0), rows, row_offset), 0, 2)
-            w = np.moveaxis(_axis0_rows(np.moveaxis(w, 2, 0), rows, row_offset), 0, 2)
+            i = np.moveaxis(axis0_rows(np.moveaxis(i, 2, 0), rows, row_offset), 0, 2)
+            w = np.moveaxis(axis0_rows(np.moveaxis(w, 2, 0), rows, row_offset), 0, 2)
         idx.append(i.reshape(len(dims), -1, 2))
         wts.append(w.reshape(len(dims), -1, 2))
     block = 3 * (rows + r[1] + r[2])

@@ -9,7 +9,8 @@ axis a small (r_out, g_in) matrix with at most two nonzeros per row, and
 
 The 7 displaced query copies shift the sampling coordinates along one axis
 each, so each displacement swaps in a shifted matrix for that axis.  The
-numpy half is a copy of the JAX package's; displaced_resizes_cm is torch.
+numpy half is a copy of the JAX package's; displaced_resizes_cm and
+slab_features (the unfused sweep's materialized feature matrix) are torch.
 """
 
 from __future__ import annotations
@@ -106,3 +107,39 @@ def displaced_resizes_cm(vol: torch.Tensor, mats0, mats1, mats2) -> list:
     out[1] = ax2(c2, ax1(c1, ax0(m0, vol)))
     out[2] = ax2(c2, ax1(c1, ax0(p0, vol)))
     return out
+
+
+def axis0_rows(m: np.ndarray, rows: int, row_offset: int) -> np.ndarray:
+    """Rows [row_offset, row_offset + rows) of an axis-0 table; lattice rows
+    past the end (the padded edge slab) are zero, so their features are 0."""
+    need = row_offset + rows
+    if need > m.shape[0]:
+        m = np.pad(m, ((0, need - m.shape[0]),) + ((0, 0),) * (m.ndim - 1))
+    return m[row_offset:need]
+
+
+def slab_features(levels, r: tuple, rows: int, row_offset: int, align_corners: bool,
+                  displacement: float) -> torch.Tensor:
+    """The dense sweep's materialized feature matrix for lattice rows
+    [row_offset, row_offset + rows) of the (r0, r1, r2) lattice: (B,
+    7*sumC, rows*r1*r2) f32, displacement-major (index d * sumC + c, fc0's
+    input order).  levels: iterable of (flat (B, C, g0*g1*g2), dims).  The
+    JAX package's 8-channel pad of level 0 and its axis-0 input window are
+    TPU layout and are not ported: every level contracts over all its rows."""
+    feats = [[] for _ in range(7)]
+    for flat, dims in levels:
+        b, c = flat.shape[:2]
+        vol = flat.reshape(b, c, *dims)
+        kw = dict(dtype=flat.dtype, device=flat.device)
+        mats0 = tuple(
+            torch.tensor(axis0_rows(m, rows, row_offset), **kw)
+            for m in axis_matrices(r[0], dims[0], align_corners, displacement)
+        )
+        mats1, mats2 = (
+            tuple(torch.tensor(m, **kw)
+                  for m in axis_matrices(r[ax], dims[ax], align_corners, displacement))
+            for ax in (1, 2)
+        )
+        for d, vd in enumerate(displaced_resizes_cm(vol, mats0, mats1, mats2)):
+            feats[d].append(vd.reshape(b, c, -1))
+    return torch.cat([x for fd in feats for x in fd], dim=1)

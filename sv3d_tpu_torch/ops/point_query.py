@@ -2,15 +2,18 @@
 trilinear features at the 7 displaced copies of arbitrary points, and the
 two halves of its backward.
 
-  level_features_plain     <- sv3d_tpu/ops/pallas/point_query.py::level_features (K4)
-  level_grad_points_plain  <- sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points (K7)
-  level_grad_vol_plain     <- sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol (K8)
+  level_features_plain        <- sv3d_tpu/ops/pallas/point_query.py::level_features (K4)
+  level_features_banded_plain <- sv3d_tpu/ops/pallas/point_query.py::level_features_banded (K5)
+  level_fc0_plain             <- sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded (K6)
+  level_grad_points_plain     <- sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points (K7)
+  level_grad_vol_plain        <- sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol (K8)
 
 Levels are the port's channel-major flats (B, C, G0*G1*G2); coordinates are
 three (B, N) arrays in [-1, 1]; features are (B, N, 7*C) f32,
 displacement-major within the level (index d * C + c).  The TPU kernels'
 query bucketing (bucket_queries, tile padding, the sentinel slots) is TPU
-layout and has no counterpart here.
+layout and has no counterpart here; so is the 2-D (slab, band) bucketing of
+K5 and K6, whose band count has no meaning in the port.
 
 The forward is the exact f32 gather sampler; the backward halves are its
 autograd, so the derivative convention is the floor/frac one of the XLA
@@ -34,6 +37,19 @@ def level_features_plain(flat, p0, p1, p2, dims, align_corners: bool, displaceme
     f = sample_trilinear_flat(flat, dims, pd, align_corners)  # (B, C, 7N)
     return f.reshape(b, c, 7, n).permute(0, 3, 2, 1).reshape(b, n, 7 * c)
 
+
+
+def level_features_banded_plain(flat, p0, p1, p2, dims, align_corners: bool,
+                                displacement: float):
+    """K4's features rounded to bfloat16 (round to nearest even): (B, N, 7*C)."""
+    return level_features_plain(flat, p0, p1, p2, dims, align_corners,
+                                displacement).to(torch.bfloat16)
+
+
+def level_fc0_plain(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacement: float):
+    """One level's fc0 partial: K4's features (B, N, 7*C) times the level's
+    (7*C, H) block of fc0, rows d*C + c (K4's feature order): (B, N, H) f32."""
+    return level_features_plain(flat, p0, p1, p2, dims, align_corners, displacement) @ w0l
 
 def level_grad_points_plain(flat, p0, p1, p2, g, dims, align_corners: bool,
                             displacement: float):

@@ -1,2 +1,2 @@
-"""JAX-free copies of the host-side labelling code that training needs
-(sv3d_tpu.preprocessing imports jax through its package __init__)."""
+"""Copies of the host-side labelling code that training needs (the port
+imports nothing of sv3d_tpu)."""

@@ -4,8 +4,8 @@ sv3d_tpu/preprocessing/occupancies.py.
 
 A copy, not an import, because importing any module of sv3d_tpu.preprocessing
 runs that package's __init__, which imports process_sample -> sv3d_tpu.geometry
--> jax, and the port never imports jax.  The code is numpy plus the JAX-free
-sv3d_tpu.io.mesh and the port's copy of implicit_waterproofing, unchanged.
+-> jax, and the port never imports jax.  The code is numpy plus the port's
+copies of io.mesh and implicit_waterproofing, unchanged.
 
 Meshes live in voxel-index space (0..dims); translate(-dims/2) +
 scale(1/dims) puts them in normed grid space [-0.5, 0.5]^3, coordinate i =
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sv3d_tpu.io.mesh import TriMesh, load_obj
+from sv3d_tpu_torch.io.mesh import TriMesh, load_obj
 from sv3d_tpu_torch.preprocessing.waterproofing import implicit_waterproofing
 
 

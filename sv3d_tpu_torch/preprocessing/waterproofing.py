@@ -5,7 +5,7 @@ MeshIntersector it runs on).
 A copy, not an import, because importing any module of sv3d_tpu.preprocessing
 runs that package's __init__, which imports process_sample -> sv3d_tpu.geometry
 -> jax, and the port never imports jax.  The code itself is numpy plus the
-JAX-free native triangle hash (sv3d_tpu.native), unchanged.
+port's copy of the native triangle hash (sv3d_tpu_torch.native), unchanged.
 
 Ray-parity point-in-mesh testing with the native C++ triangle spatial hash,
 plus the hole-repair loop that re-tests parity-inconsistent points under
@@ -19,8 +19,8 @@ import math
 
 import numpy as np
 
-from sv3d_tpu.io.mesh import TriMesh
-from sv3d_tpu.native import TriangleHash
+from sv3d_tpu_torch.io.mesh import TriMesh
+from sv3d_tpu_torch.native import TriangleHash
 
 
 class MeshIntersector:

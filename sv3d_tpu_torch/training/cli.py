@@ -14,7 +14,7 @@ import argparse
 
 import torch
 
-from sv3d_tpu.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
+from sv3d_tpu_torch.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
 
 MULTI_GPU = "multi-GPU training is not ported yet (ROADMAP.md queue 1, item 10)"
 

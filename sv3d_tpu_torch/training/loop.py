@@ -6,8 +6,8 @@ checkpoints ranked only at validation, resume, and --profiler.
 Randomness is explicit: the subsample draws of the train steps come from one
 torch.Generator seeded with config.seed (the JAX loop splits one PRNGKey),
 model initialization from another; the data order and per-item draws are the
-seeded numpy ones of sv3d_tpu.data.  One device, given by the caller: the
-multi-device mesh of the JAX loop is not ported yet.
+seeded numpy ones of the data layer (sv3d_tpu_torch.data).  One device, given
+by the caller: the multi-device mesh of the JAX loop is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sv3d_tpu.config import Config
+from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.training.checkpoint import CheckpointManager, load_state_from_checkpoint
 from sv3d_tpu_torch.training.cli import MULTI_GPU
 from sv3d_tpu_torch.training.logging import MetricLogger
@@ -94,7 +94,7 @@ class BaseTrainer:
 
     # -- loop ----------------------------------------------------------------
     def _loader(self, dataset, shuffle: bool, drop_last: bool):
-        from sv3d_tpu.data.loader import DataLoader
+        from sv3d_tpu_torch.data.loader import DataLoader
 
         return DataLoader(dataset, batch_size=self.config.batch_size, shuffle=shuffle,
                           drop_last=drop_last, num_workers=self.config.num_workers,
@@ -169,7 +169,7 @@ class BaseTrainer:
         if cfg.sanity_steps > 0:
             self.validate(state, val_loader_fn(), max_batches=cfg.sanity_steps)
 
-        from sv3d_tpu.utils.profiling import StepTimer
+        from sv3d_tpu_torch.utils.profiling import StepTimer
 
         timer = StepTimer() if cfg.profiler else None
         prof = self._profiler() if cfg.profiler == "advanced" else None

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sv3d_tpu.config import Config
+from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.data.datasets import SceneNetDataset
 from sv3d_tpu_torch.geometry import FrustumGrid, read_intrinsics
 from sv3d_tpu_torch.models.scene_net import SceneNet
@@ -193,7 +193,7 @@ class SceneNetTrainer(BaseTrainer):
 
     def vis_datasets(self):
         """The train_vis / val_vis splits whose files exist."""
-        from sv3d_tpu.data.splits import split_path
+        from sv3d_tpu_torch.data.splits import split_path
 
         c = self.config
         return {
@@ -243,7 +243,7 @@ class SceneNetTrainer(BaseTrainer):
         return _prefixed("val", metrics)
 
     def visualize(self, state, batch, out_dir: Path):
-        from sv3d_tpu.utils.visualize import (
+        from sv3d_tpu_torch.utils.visualize import (
             visualize_depthmap,
             visualize_grid,
             visualize_point_list,

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K1b, K2, K4, K7, K8) against their plain
-torch versions.
+"""The port's CUDA kernels (K1, K1b, K2, K3, K4, K5, K6, K7, K8) against
+their plain torch versions.
 
 This file imports only sv3d_tpu_torch (the card machine has no flax).  The
 tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
@@ -11,10 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from sv3d_tpu.config import IFNetConfig
+from sv3d_tpu_torch.config import IFNetConfig
+from sv3d_tpu_torch.inference.dense_grid import evaluate_points
 from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
 from sv3d_tpu_torch.ops.cuda.point_query import (
+    level_fc0_cuda,
     level_features,
+    level_features_banded_cuda,
     level_features_cuda,
     level_grad_points_cuda,
     level_grad_vol_cuda,
@@ -26,7 +30,10 @@ from sv3d_tpu_torch.ops.cuda.voxelize import (
     scatter_voxels_cuda,
     scatter_voxels_raw_cuda,
 )
+from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
 from sv3d_tpu_torch.ops.point_query import (
+    level_fc0_plain,
+    level_features_banded_plain,
     level_features_plain,
     level_grad_points_plain,
     level_grad_vol_plain,
@@ -193,3 +200,82 @@ def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
             ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
                                       cfg.displacement)
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
+@pytest.mark.parametrize("c,h", [(1, 256), (16, 512), (64, 256), (160, 256)])
+def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device):
+    """K6 against its plain version, alone and adding into a buffer: 1e-5 of
+    the largest plain magnitude (FMA order over 7*C terms).  K5: at most one
+    bf16 ulp, |d| <= 2^-7 |ref| + 1e-6 (the kernel's and the plain f32
+    features may round either way of a bf16 boundary).  C = 160 takes two
+    channel rounds in K6.  Both raise under autograd."""
+    rng = np.random.default_rng(c + h)
+    dims = (19, 13, 14)
+    flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
+                        device=cuda_device)
+    w0l = torch.tensor((rng.standard_normal((7 * c, h)) / np.sqrt(7 * c)).astype(np.float32),
+                       device=cuda_device)
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32), device=cuda_device)
+         for _ in range(3)]
+    args = (dims, ac, disp)
+    counts = [level_fc0_cuda.launches, level_features_banded_cuda.launches]
+    ref = level_fc0_plain(flat, w0l, *p, *args)
+    assert _rel_err(level_fc0_cuda(flat, w0l, *p, *args), ref) <= 1e-5
+    acc = torch.randn((2, 333, h), device=cuda_device)
+    got = level_fc0_cuda(flat, w0l, *p, *args, out=acc.clone())
+    assert _rel_err(got, acc + ref) <= 1e-5
+    got = level_features_banded_cuda(flat, *p, *args)
+    ref = level_features_banded_plain(flat, *p, *args)
+    assert got.dtype == torch.bfloat16
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all()), float(diff.max())
+    torch.cuda.synchronize()
+    assert [level_fc0_cuda.launches, level_features_banded_cuda.launches] == [
+        counts[0] + 2, counts[1] + 1]
+    with pytest.raises(NotImplementedError):
+        level_fc0_cuda(flat.clone().requires_grad_(), w0l, *p, *args)
+    with pytest.raises(NotImplementedError):
+        level_features_banded_cuda(flat, p[0].clone().requires_grad_(), *p[1:], *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
+    """K3 against its plain version at F 2583 (H0 256) and 2247 (H0 512), N
+    not a multiple of the block's points: atol 1e-4 on logits (summation
+    order), as K2."""
+    model = IFNet(IFNetConfig.for_net_res(net_res), device=cuda_device,
+                  generator=torch.Generator().manual_seed(net_res)).eval()
+    weights = [t.detach() for layer in model.mlp for t in layer]
+    f = torch.tensor(np.random.default_rng(net_res).standard_normal(
+        (model.feature_size, 1001)).astype(np.float32), device=cuda_device)
+    before = fused_point_mlp.launches
+    got = fused_point_mlp(f, *weights)
+    torch.cuda.synchronize()
+    assert fused_point_mlp.launches == before + 1
+    torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_points_and_unfused_sweep_on_card_match_cpu(net_res, dims, cuda_device):
+    """evaluate_points on the card through K6 (bands="auto"), K4 (bands=None)
+    and the gather path against the CPU's plain run: 1e-5 on the sigmoid;
+    query_lattice(fused_tail=False) through K3 against K2: atol 1e-4."""
+    cfg, cpu_model, _ = _encoded(net_res, dims)
+    card = IFNet(cfg, device=cuda_device, generator=torch.Generator().manual_seed(net_res)).eval()
+    grid = (np.random.default_rng(1).uniform(0, 1, (1, *dims, 1)) > 0.9).astype(np.float32)
+    pts = np.random.default_rng(2).uniform(-0.55, 0.55, (1000, 3)).astype(np.float32)
+    ref = evaluate_points(cpu_model, grid, pts, tile_points=384, use_kernel=False)
+    for kw in (dict(), dict(bands=None), dict(use_kernel=False)):
+        got = evaluate_points(card, grid, pts, tile_points=384, **kw)
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    with torch.inference_mode():
+        levels = card.encode(torch.tensor(grid, device=cuda_device))
+        before = fused_point_mlp.launches
+        got = card.query_lattice(levels, dims, 2, 3, 5, fused_tail=False)
+        assert fused_point_mlp.launches == before + 1
+        torch.testing.assert_close(got, card.query_lattice(levels, dims, 2, 3, 5),
+                                   atol=1e-4, rtol=0)

@@ -1,6 +1,9 @@
-"""sv3d_tpu_torch imports, serves and trains on the CPU with jax, jaxlib and
-flax blocked, and chip_smoke.py refuses to run without CUDA."""
+"""sv3d_tpu_torch imports, serves, evaluates arbitrary points and trains on
+the CPU with sv3d_tpu, jax, jaxlib and flax blocked; no source of the port
+or chip_smoke.py imports them; and chip_smoke.py refuses to run without
+CUDA."""
 
+import ast
 import json
 import os
 import shutil
@@ -11,14 +14,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-BLOCK = textwrap.dedent("""
+FORBIDDEN = ("sv3d_tpu", "jax", "jaxlib", "flax")  # top-level names, matched exactly
+
+BLOCK = textwrap.dedent(f"""
     import sys
+
+    FORBIDDEN = {FORBIDDEN!r}
 
     class _Blocked:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax"):
-                raise ImportError(f"{name} is blocked")
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError(f"{{name}} is blocked")
             return None
+
+    def loaded_forbidden():
+        return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
     sys.meta_path.insert(0, _Blocked())
 """)
@@ -41,19 +51,27 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.training.logging", "sv3d_tpu_torch.training.optim",
         "sv3d_tpu_torch.training.state", "sv3d_tpu_torch.training.checkpoint",
         "sv3d_tpu_torch.training.loop", "sv3d_tpu_torch.training.trainer_scene_net",
+        "sv3d_tpu_torch.config", "sv3d_tpu_torch.io.exr", "sv3d_tpu_torch.io.mesh",
+        "sv3d_tpu_torch.io.image", "sv3d_tpu_torch.io.volume", "sv3d_tpu_torch.native",
+        "sv3d_tpu_torch.utils.visualize", "sv3d_tpu_torch.utils.profiling",
+        "sv3d_tpu_torch.data.loader", "sv3d_tpu_torch.data.splits", "sv3d_tpu_torch.ops.mlp", "sv3d_tpu_torch.ops.cuda.mlp",
     ]
     for m in modules:
         importlib.import_module(m)
-    from sv3d_tpu.config import IFNetConfig
-    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
+    from sv3d_tpu_torch.config import IFNetConfig
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid, evaluate_points
     from sv3d_tpu_torch.models.ifnet import IFNet
 
     model = IFNet(IFNetConfig.for_net_res(128), generator=torch.Generator().manual_seed(0)).eval()
     grid = torch.tensor(np.random.default_rng(0).uniform(0, 1, (1, 9, 7, 8, 1)), dtype=torch.float32)
     values = evaluate_on_grid(model, grid, (9, 7, 8))
+    pts = np.random.default_rng(1).uniform(-0.5, 0.5, (100, 3))
+    routes = [evaluate_points(model, grid, pts, 64, use_kernel=True, bands=b) for b in (None, 4)]
     print(json.dumps({
         "shape": list(values.shape), "finite": bool(np.isfinite(values).all()),
-        "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+        "points": [list(r.shape) for r in routes],
+        "agree": bool(np.abs(routes[0] - routes[1]).max() <= 1e-5),
+        "loaded": loaded_forbidden(),
     }))
 """)
 
@@ -65,7 +83,7 @@ TRAIN = BLOCK + textwrap.dedent("""
     torch.set_num_threads(1)
     smoke = runpy.run_path("chip_smoke.py")
     root = smoke["write_smoke_dataset"](sys.argv[1], scale_factor=8, n_points=500)
-    from sv3d_tpu.config import Config
+    from sv3d_tpu_torch.config import Config
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
     cfg = Config(seed=0, scale_factor=8, batch_size=1, num_points=16, subsample_points=32,
@@ -74,7 +92,7 @@ TRAIN = BLOCK + textwrap.dedent("""
     rec = json.loads(open(sys.argv[2] + "/logs/metrics.jsonl").readline())
     print(json.dumps({
         "step": state.step, "finite": bool(np.isfinite(rec["train_loss"])),
-        "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+        "loaded": loaded_forbidden(),
     }))
 """)
 
@@ -91,14 +109,34 @@ def test_port_imports_and_serves_without_jax():
     proc = _run(SLICE, ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"shape": [9, 7, 8], "finite": True, "jax": []}
+    assert out == {"shape": [9, 7, 8], "finite": True, "points": [[100], [100]],
+                   "agree": True, "loaded": []}
 
 
 def test_port_trains_one_step_without_jax(tmp_path):
     proc = _run(["-c", TRAIN, str(tmp_path / "data"), str(tmp_path / "exp")], ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"step": 1, "finite": True, "jax": []}
+    assert out == {"step": 1, "finite": True, "loaded": []}
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    """Every import statement of every .py under sv3d_tpu_torch/ and of
+    chip_smoke.py, at any depth, names none of sv3d_tpu, jax, jaxlib, flax."""
+    sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 40
+    offenders = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                          if n.split(".")[0] in FORBIDDEN]
+    assert not offenders, offenders
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
