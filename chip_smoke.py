@@ -22,7 +22,12 @@ that each ran its kernels:
             (point features), K7 and K8 (their backward).
 
 K5 (bf16 point features) is on no path of the port, as in the JAX package:
-it is held against its plain version at the points path's shapes.
+it is held against its plain version at the points path's and the training
+path's shapes.  K4 and K5 read a channels-last copy of each level that
+their wrappers stage (evaluate_points stages its pyramid once a call); the
+script times the staging and the kernels apart,
+at both shapes, and prints the layout in which cuDNN returns the conv
+outputs that the levels come from.
 
 It also resumes the fit from its checkpoint, checks that the loss drops over
 10 steps on one fixed batch, holds one f32 train step on the card (kernels)
@@ -219,6 +224,40 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def gathered_bytes(levels, p, align_corners, displacement) -> int:
+    """The least bytes that a gather of the 7 displaced copies x 8 corners
+    of these points must read from the (B, C, G) f32 levels, on this run's
+    points: per level, the distinct 32-byte sectors that hold the in-range
+    corners' channels, with the level laid out channels-last (a corner's C
+    channels one run: the layout that needs the fewest sectors).  Never
+    more than the levels' own bytes."""
+    from sv3d_tpu_torch.ops.grid_sample import displacement_axes
+
+    pd = displacement_axes(p, displacement)  # three (B, 7N)
+    total = 0
+    with torch.no_grad():
+        for flat, dims in levels:
+            b, c, g = flat.shape
+            idx, ok = [], []
+            for q, size in zip(pd, dims):
+                ix = ((q + 1.0) * 0.5 * (size - 1.0) if align_corners
+                      else ((q + 1.0) * size - 1.0) * 0.5)
+                i = torch.floor(ix).long()
+                idx.append(torch.stack([i, i + 1]))  # (2, B, 7N): both corners
+                ok.append((idx[-1] >= 0) & (idx[-1] < size))
+            rows = (idx[0][:, None, None] * dims[1] + idx[1][None, :, None]) * dims[2] \
+                + idx[2][None, None, :]  # (2, 2, 2, B, 7N)
+            rows = rows + g * torch.arange(b, device=rows.device)[:, None]
+            valid = ok[0][:, None, None] & ok[1][None, :, None] & ok[2][None, None, :]
+            rows = torch.unique(rows[valid])  # sorted
+            # a row's bytes [4C r, 4C (r + 1)) span sectors first..last; two
+            # neighbouring rows may share one sector
+            first, last = rows * (4 * c) // 32, ((rows + 1) * (4 * c) - 1) // 32
+            sectors = int((last - first + 1).sum()) - int((last[:-1] == first[1:]).sum())
+            total += min(32 * sectors, nbytes(flat))
+    return total
+
+
 def grid_sample_inputs(levels, p, align_corners, displacement) -> list:
     """The library yardstick's inputs for the point-query kernels: per level
     the (B, C, g0, g1, g2) volume and the (B, 1, 1, 7N, 3) grid of the
@@ -252,46 +291,122 @@ def grid_sample_ms(inputs, align_corners, backward=None) -> float:
                                 for o, w, c in graphs])
 
 
+def k5_error(got, ref) -> tuple:
+    """(max abs error, max error as a fraction of the one-bf16-ulp bound)."""
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()), float((d / (K5_ULP * ref.float().abs() + 1e-6)).max())
+
+
 def point_kernel_checks(ifnet, levels, pts) -> dict:
-    """K6 and K5 against their plain versions on every level of the served
-    pyramid at the points path's (1, N_POINTS) query.  Returns {name: (max
-    abs err, max err as a fraction of its bound)}."""
-    from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features_banded_cuda
-    from sv3d_tpu_torch.ops.point_query import level_fc0_plain, level_features_banded_plain
+    """K6, K5 and K4 against their plain versions on every level of the
+    served pyramid at the points path's (1, N_POINTS) query.  Returns
+    {name: (max abs err, max err as a fraction of its bound)}."""
+    from sv3d_tpu_torch.ops.cuda.point_query import (
+        level_fc0_cuda,
+        level_features_banded_cuda,
+        level_features_cuda,
+    )
+    from sv3d_tpu_torch.ops.point_query import (
+        level_fc0_plain,
+        level_features_banded_plain,
+        level_features_plain,
+    )
 
     cfg = ifnet.config
     p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
-    errs = {"K6": [0.0, 0.0], "K5": [0.0, 0.0]}
+    errs = {"K6": [0.0, 0.0], "K5": [0.0, 0.0], "K4": [0.0, 0.0]}
+
+    def worst(name, a, frac):
+        errs[name] = [max(errs[name][0], a), max(errs[name][1], frac)]
+
     with torch.inference_mode():
         for (flat, dims), w0l in zip(levels, [w.contiguous() for w in ifnet.fc0_blocks()]):
             args = (dims, cfg.align_corners, cfg.displacement)
             a, r = rel_err(level_fc0_cuda(flat, w0l, *p, *args),
                            level_fc0_plain(flat, w0l, *p, *args))
-            errs["K6"] = [max(errs["K6"][0], a), max(errs["K6"][1], r / K6_RTOL)]
-            got = level_features_banded_cuda(flat, *p, *args).float()
-            ref = level_features_banded_plain(flat, *p, *args).float()
-            d = (got - ref).abs()
-            ratio = float((d / (K5_ULP * ref.abs() + 1e-6)).max())
-            errs["K5"] = [max(errs["K5"][0], float(d.max())), max(errs["K5"][1], ratio)]
-            del got, ref, d
+            worst("K6", a, r / K6_RTOL)
+            worst("K5", *k5_error(level_features_banded_cuda(flat, *p, *args),
+                                  level_features_banded_plain(flat, *p, *args)))
+            a, r = rel_err(level_features_cuda(flat, *p, *args),
+                           level_features_plain(flat, *p, *args))
+            worst("K4", a, r / TRAIN_KERNEL_RTOL["K4"])
         torch.cuda.synchronize()
     return {k: tuple(v) for k, v in errs.items()}
 
 
+def conv_output_layouts(ifnet, vox) -> list:
+    """The memory layout in which cuDNN hands back each conv output of
+    IFNet.encode, and each stage's output (what flatten_grid receives):
+    "channels_last_3d", "contiguous" (NCDHW), "both" (C = 1 or a 1-voxel
+    grid) or "other"."""
+    def layout(x):
+        cl = x.is_contiguous(memory_format=torch.channels_last_3d)
+        return {(True, True): "both", (True, False): "contiguous",
+                (False, True): "channels_last_3d"}.get((x.is_contiguous(), cl), "other")
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o, name=name: seen.append(
+        f"{name} C={o.shape[1]}: {layout(o)}"))
+        for name, m in ifnet.stages.named_modules()
+        if isinstance(m, torch.nn.Conv3d) or name.isdigit()]
+    try:
+        with torch.inference_mode():
+            ifnet.encode(vox)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def feature_staging_ms(levels, p, args) -> dict:
+    """K4 and K5 over every level, taken apart (CUDA-event medians): the
+    staging alone (stage_channels_last, torch's transpose copy), and each
+    kernel alone on levels that already lie channels-last (its wrapper
+    reads them without staging)."""
+    from sv3d_tpu_torch.ops.cuda.point_query import (
+        level_features_banded_cuda,
+        level_features_cuda,
+        stage_channels_last,
+    )
+
+    cl = [(stage_channels_last(fl).transpose(1, 2), d) for fl, d in levels]
+    return {
+        # every level but a C = 1 one read once and written once
+        "staging bound": bound(2 * nbytes(*(fl for fl, _ in levels if fl.shape[1] > 1)), 0)[0],
+        "staging": cuda_ms(lambda: [stage_channels_last(fl) for fl, _ in levels]),
+        "K4 kernel": cuda_ms(lambda: [level_features_cuda(v, *p, d, *args) for v, d in cl]),
+        "K5 kernel": cuda_ms(lambda: [level_features_banded_cuda(v, *p, d, *args)
+                                      for v, d in cl]),
+    }
+
+
+def print_staging(label: str, t: dict) -> None:
+    print(f"  K4/K5 apart at the {label}: staging {t['staging']:.4f} ms over the 6 levels, "
+          f"bound {t['staging bound']:.4f} ms (bytes); kernel alone on channels-last levels "
+          f"K4 {t['K4 kernel']:.4f} ms, K5 {t['K5 kernel']:.4f} ms", flush=True)
+
+
 def points_path(served, vox, pts_np, smi) -> dict:
     """The arbitrary-point path through evaluate_points: the three routes,
-    their launches and agreement, K6/K5/K3 checks and timings, the unfused
-    sweep through K3, and a profile.  Returns what the kernels line needs."""
+    their launches and agreement, K6/K5/K4/K3 checks and timings (K4 and K5
+    with their staging apart), the layout of cuDNN's conv outputs, the
+    unfused sweep through K3, and profiles.  Returns what the kernels line
+    needs."""
     from sv3d_tpu_torch.inference.dense_grid import evaluate_points
     from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
     from sv3d_tpu_torch.ops.cuda.point_query import (
         level_fc0_cuda,
         level_features_banded_cuda,
         level_features_cuda,
+        stage_channels_last,
     )
     from sv3d_tpu_torch.ops.lattice import slab_features
     from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
-    from sv3d_tpu_torch.ops.point_query import level_fc0_plain, level_features_banded_plain
+    from sv3d_tpu_torch.ops.point_query import (
+        level_fc0_plain,
+        level_features_banded_plain,
+        level_features_plain,
+    )
 
     ifnet = served.ifnet
     cfg = ifnet.config
@@ -300,21 +415,23 @@ def points_path(served, vox, pts_np, smi) -> dict:
     n_tiles = -(-len(pts_np) // 65536)
 
     # -- the three routes through the entry point ---------------------------
-    routes, launches = {}, {}
+    routes, launches, stagings = {}, {}, {}
     counters = (level_fc0_cuda, level_features_cuda, level_features_banded_cuda)
     for name, kw in (("K6", dict(bands="auto")), ("K4", dict(bands=None)),
                      ("gather", dict(use_kernel=False))):
         for counter in counters:
             counter.launches = 0
+        stage_channels_last.copies = 0
         routes[name] = evaluate_points(ifnet, vox, pts_np, **kw)
         torch.cuda.synchronize()
         launches[name] = tuple(counter.launches for counter in counters)
+        stagings[name] = stage_channels_last.copies
     diffs = {f"{a} vs {b}": float(np.abs(routes[a] - routes[b]).max())
              for a, b in (("K6", "gather"), ("K4", "gather"), ("K6", "K4"))}
     print(f"points path: evaluate_points at {len(pts_np)} points ({n_tiles} tiles of 65536), "
-          f"launches (K6, K4, K5) by route {launches}, largest sigmoid differences {diffs} "
-          f"(tol {POINTS_TOL:g}), sigmoid in [{routes['K6'].min():.4f}, "
-          f"{routes['K6'].max():.4f}]", flush=True)
+          f"launches (K6, K4, K5) by route {launches}, K4/K5 stagings by route {stagings}, "
+          f"largest sigmoid differences {diffs} (tol {POINTS_TOL:g}), sigmoid in "
+          f"[{routes['K6'].min():.4f}, {routes['K6'].max():.4f}]", flush=True)
     for name, v in routes.items():
         check(v.shape == (len(pts_np),) and v.dtype == np.float32 and bool(np.isfinite(v).all()),
               f"evaluate_points route {name}: {v.shape} {v.dtype}")
@@ -323,17 +440,24 @@ def points_path(served, vox, pts_np, smi) -> dict:
     check(launches["K6"] == (n_levels * n_tiles, 0, 0)
           and launches["K4"] == (0, n_levels * n_tiles, 0)
           and launches["gather"] == (0, 0, 0), f"point kernels ran {launches}")
+    # the K4 route stages its pyramid once a call: every level but C = 1
+    staged_levels = sum(c > 1 for c in cfg.feature_channels)
+    check(stagings == {"K6": 0, "K4": staged_levels, "gather": 0},
+          f"K4/K5 stagings by route {stagings}, not {staged_levels} on the K4 route alone")
 
     # -- the kernels against their plain versions at full width -------------
     with torch.inference_mode():
         levels = ifnet.encode(vox)
     pts = torch.tensor(pts_np[None], device=dev)
     checks = point_kernel_checks(ifnet, levels, pts)
+    what = {"K6": "1e-5 of the largest |partial|", "K5": "one bf16 ulp",
+            "K4": "1e-5 of the largest |feature|"}
     for name, (a, frac) in checks.items():
-        print(f"{name}: max_abs_err {a:.3e}, {frac:.3f} of its bound "
-              f"({'1e-5 of the largest |partial|' if name == 'K6' else 'one bf16 ulp'})",
-              flush=True)
+        print(f"{name} on the served pyramid, {len(pts_np)} points: max_abs_err {a:.3e}, "
+              f"{frac:.3f} of its bound ({what[name]})", flush=True)
         check(frac <= 1.0, f"{name} disagrees with its plain version: {frac} of its bound")
+    print("cuDNN's conv outputs in IFNet.encode (served grid): "
+          + ", ".join(conv_output_layouts(ifnet, vox)), flush=True)
     weights = [t.detach() for layer in ifnet.mlp for t in layer]
     with torch.inference_mode():
         f = slab_features(levels, dims, 1, 69, cfg.align_corners, cfg.displacement)[0]
@@ -379,8 +503,13 @@ def points_path(served, vox, pts_np, smi) -> dict:
             "K3": (cuda_ms(lambda: fused_point_mlp(f, *weights)),
                    cuda_ms(lambda: fused_point_mlp_plain(f, *weights))),
         }
+        k4_ms = (cuda_ms(lambda: [level_features_cuda(fl, *p, d, *args) for fl, d in lv]),
+                 cuda_ms(lambda: [level_features_plain(fl, *p, d, *args) for fl, d in lv],
+                         warmup=1, reps=3))
+        staged = feature_staging_ms(lv, p, args)
     library = {"K5": grid_sample_ms(grid_sample_inputs(lv, p, *args), cfg.align_corners)}
     prof = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np), steps=2)
+    prof_k4 = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np, bands=None), steps=2)
     print(f"points timings on {smi}:", flush=True)
     for name, ms in route_ms.items():
         print(f"  evaluate_points route {name}: median {ms:.3f} ms of 3, "
@@ -388,23 +517,35 @@ def points_path(served, vox, pts_np, smi) -> dict:
     for name, (ms, plain) in timed.items():
         what = "1 row, 11,648 points" if name == "K3" else f"all 6 levels, {len(pts_np)} points"
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
+    # the levels' gathered sectors and the coordinates in; (1, N, 7 * sumC)
+    # f32 out; 8 taps a feature
+    lvl_bytes = gathered_bytes(lv, p, *args)
+    pts_bytes = nbytes(*p)
+    k4_bound = bound(lvl_bytes + pts_bytes + 4 * len(pts_np) * ifnet.feature_size,
+                     16.0 * len(pts_np) * ifnet.feature_size)
+    print(f"  K4 at the points shapes: {k4_ms[0]:.4f} ms, bound {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}), plain {k4_ms[1]:.4f} ms, F.grid_sample {library['K5']:.4f} ms "
+          f"(all 6 levels, {len(pts_np)} points, B=1; gathered bytes {lvl_bytes} of the "
+          f"levels' {nbytes(*(fl for fl, _ in lv))})", flush=True)
     print(f"  K5 library F.grid_sample over the 6 levels: {library['K5']:.4f} ms", flush=True)
-    print(f"  profiled evaluate_points (bands=\"auto\", {len(pts_np)} points):", flush=True)
-    for line in prof:
-        print(f"    {line}", flush=True)
+    print_staging("points shapes, B=1", staged)
+    for route, lines in (("bands=\"auto\"", prof), ("bands=None", prof_k4)):
+        print(f"  profiled evaluate_points ({route}, {len(pts_np)} points):", flush=True)
+        for line in lines:
+            print(f"    {line}", flush=True)
 
     # -- bounds from this run's inputs ----------------------------------------
     n = len(pts_np)
     sum_c = sum(cfg.feature_channels)
-    lvl_bytes = nbytes(*(fl for fl, _ in lv))
-    pts_bytes = nbytes(*p)
     h0 = weights[0].shape[0]
     bounds = {
-        # levels, fc0 blocks, coordinates in; six (1, N, H) f32 partials out;
+        # the levels' gathered sectors, fc0 blocks, coordinates in; six (1, N,
+        # H) f32 partials out;
         # fc0 (2 * 7 * sumC * H a point) plus the features (16 a tap)
         "K6": bound(lvl_bytes + nbytes(*w0ls) + pts_bytes + 6 * n * h0 * 4,
                     2.0 * n * 7 * sum_c * h0 + 16.0 * n * 7 * sum_c),
-        # levels and coordinates in; (1, N, 7 * sumC) bf16 out; 8 taps a feature
+        # the levels' gathered sectors and the coordinates in; (1, N, 7 *
+        # sumC) bf16 out; 8 taps a feature
         "K5": bound(lvl_bytes + pts_bytes + n * 7 * sum_c * 2, 16.0 * n * 7 * sum_c),
         "K3": bound(nbytes(f, *weights) + f.shape[1] * 4,
                     2.0 * f.shape[1] * sum(w.shape[0] * w.shape[1] for w in weights[::2])),
@@ -430,15 +571,19 @@ def train_kernel_checks(model, dev, rng) -> dict:
     """K1b, K4, K7 and K8 against their plain versions: the full-width
     net_res 128 pyramid (every level, align_corners False) at B=4 with 4096
     supervision + 4096 projected points, plus small dims with both
-    align_corners conventions.  Returns {name: (max abs err, rel err, args)}
-    with args the full-width arguments for the timings."""
+    align_corners conventions and channel counts that take K4's scalar path,
+    its float4 path and its masked tail.  Returns {name: (max abs err, rel
+    err, args)} with args the full-width arguments for the timings; and K5
+    on the same levels, {"K5": (max abs err, fraction of one bf16 ulp)}."""
     from sv3d_tpu_torch.ops.cuda.point_query import (
+        level_features_banded_cuda,
         level_features_cuda,
         level_grad_points_cuda,
         level_grad_vol_cuda,
     )
     from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_raw_cuda
     from sv3d_tpu_torch.ops.point_query import (
+        level_features_banded_plain,
         level_features_plain,
         level_grad_points_plain,
         level_grad_vol_plain,
@@ -465,8 +610,9 @@ def train_kernel_checks(model, dev, rng) -> dict:
         p = tuple((2.0 * q[..., i]).contiguous() for i in range(3))
         gs = [torch.randn((4, q.shape[1], 7 * flat.shape[1]), device=dev) for flat in levels.flats]
         errs = {"K4": [0.0, 0.0], "K7": [0.0, 0.0], "K8": [0.0, 0.0]}
+        k5 = [0.0, 0.0]
         cases = [(list(levels), gs, p, cfg.align_corners, cfg.displacement)]
-        for c in (1, 64):  # small dims, both conventions
+        for c in (1, 3, 16, 64, 160):  # small dims, both conventions
             small = torch.randn((2, c, 12 * 9 * 10), device=dev)
             ps = tuple(torch.tensor(rng.uniform(-1.2, 1.2, (2, 300)).astype(np.float32),
                                     device=dev) for _ in range(3))
@@ -486,9 +632,13 @@ def train_kernel_checks(model, dev, rng) -> dict:
                 ):
                     a, r = rel_err(got, ref)
                     errs[name] = [max(errs[name][0], a), max(errs[name][1], r)]
+                a, frac = k5_error(level_features_banded_cuda(flat, *pp, *args),
+                                   level_features_banded_plain(flat, *pp, *args))
+                k5 = [max(k5[0], a), max(k5[1], frac)]
         torch.cuda.synchronize()
     for name, (a, r) in errs.items():
         out[name] = (a, r, (levels, p, gs, cfg.align_corners, cfg.displacement))
+    out["K5"] = tuple(k5)
     return out
 
 
@@ -849,6 +999,10 @@ def main() -> int:
 
     # -- phase 7: training kernels against their plain versions -------------
     tk = train_kernel_checks(model, dev, rng)
+    k5_train = tk.pop("K5")
+    print(f"K5 at the training shapes: max_abs_err {k5_train[0]:.3e}, {k5_train[1]:.3f} of its "
+          "bound (one bf16 ulp)", flush=True)
+    check(k5_train[1] <= 1.0, f"K5 disagrees with its plain version: {k5_train[1]}")
     for name, (a, r, _) in tk.items():
         print(f"{name}: max_abs_err {a:.3e}, relative {r:.3e} (tol {TRAIN_KERNEL_RTOL[name]:g} "
               f"of the largest plain magnitude)", flush=True)
@@ -933,22 +1087,29 @@ def main() -> int:
                cuda_ms(lambda: [level_grad_vol_plain(*p, g, d, ac, disp)
                                 for (_, d), g in zip(lv, gs)])),
     }
+    train_staged = feature_staging_ms(lv, p, (ac, disp))
     gs_inputs = grid_sample_inputs(lv, p, ac, disp)
     library = {"K4": grid_sample_ms(gs_inputs, ac), "K7": grid_sample_ms(gs_inputs, ac, "points"),
                "K8": grid_sample_ms(gs_inputs, ac, "level"), **pp["library"]}
     del gs_inputs
     n_feat = p[0].numel() * 7 * sum(f.shape[1] for f, _ in lv)  # B * N * 7 * sumC
+    train_gathered = gathered_bytes(lv, p, ac, disp)
+    print(f"  K4/K7 gathered bytes at the training shapes: {train_gathered} of the levels' "
+          f"{nbytes(*levels.flats)}", flush=True)
     k1b_pts = tk["K1b"][2][0]
     bounds.update(pp["bounds"])
     bounds.update({
         # points, raw grid and cotangent in, the points' gradient out; 8
         # corners of 6 flops a point
         "K1b": bound(nbytes(*tk["K1b"][2], k1b_pts), 48.0 * k1b_pts.shape[0] * k1b_pts.shape[1]),
-        # levels and coordinates in, f32 features out; 8 taps of 2 flops
-        "K4": bound(nbytes(*levels.flats, *p) + 4 * n_feat, 16.0 * n_feat),
-        # levels, coordinates and cotangent in, (B, N, 3) out; 8 taps of 8 flops
-        "K7": bound(nbytes(*levels.flats, *p, *gs) + 3 * 4 * p[0].numel(), 64.0 * n_feat),
-        # coordinates and cotangent in, the levels' gradient out; 8 taps of 2 flops
+        # the levels' gathered sectors and the coordinates in, f32 features
+        # out; 8 taps of 2 flops
+        "K4": bound(train_gathered + nbytes(*p) + 4 * n_feat, 16.0 * n_feat),
+        # the levels' gathered sectors, coordinates and cotangent in, (B, N,
+        # 3) out; 8 taps of 8 flops
+        "K7": bound(train_gathered + nbytes(*p, *gs) + 3 * 4 * p[0].numel(), 64.0 * n_feat),
+        # coordinates and cotangent in, the levels' whole (dense) gradient
+        # out; 8 taps of 2 flops
         "K8": bound(nbytes(*p, *gs, *levels.flats), 16.0 * n_feat),
     })
     prof_lines = profile_train_step(trainer, batch, gen)
@@ -959,6 +1120,7 @@ def main() -> int:
     for name, (ms, plain) in kernel_ms.items():
         what = "80,896 points" if name == "K1b" else "all 6 levels, B=4 x 8192 points"
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
+    print_staging("training shapes, B=4 x 8192", train_staged)
     for line in prof_lines:
         print(f"  {line}", flush=True)
     print(f"  library calls: K4 F.grid_sample {library['K4']:.4f} ms, its backward for the "

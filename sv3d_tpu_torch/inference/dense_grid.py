@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.ops.cuda.point_query import stage_channels_last
+from sv3d_tpu_torch.ops.grid_sample import Pyramid
 
 
 def evaluate_on_grid_device(
@@ -85,7 +87,8 @@ def evaluate_points(
     one shape; fc0's per-level blocks are cut once for all tiles.  use_kernel (default: on for a CUDA model, off on the CPU, as
     the JAX package's use_pallas defaults to the TPU) routes each tile
     through IFNet.query_fused with bands (default "auto": kernel K6, fc0 in
-    the kernel; None: kernel K4, its features contracted by a matmul);
+    the kernel; None: kernel K4 on the pyramid staged channels-last once,
+    its features contracted by a matmul);
     otherwise through the exact f32 gather path IFNet.query.  Everything
     runs on the model's device; only the result comes back."""
     device = next(model.parameters()).device
@@ -99,6 +102,12 @@ def evaluate_points(
     padded.reshape(-1, 3)[:m] = pts
     with torch.inference_mode():
         levels = model.encode(torch.as_tensor(grid, dtype=torch.float32, device=device))
+        if use_kernel and not bands:
+            # K4 reads each level channels-last: stage the pyramid once for
+            # all tiles, as channel-major views that K4's wrapper takes as
+            # they are
+            levels = Pyramid([stage_channels_last(f).transpose(1, 2) for f in levels.flats],
+                             levels.dims)
         tiles = torch.from_numpy(padded).to(device)
         w0_blocks = [w.contiguous() for w in model.fc0_blocks()] if use_kernel else None
         out = torch.cat([

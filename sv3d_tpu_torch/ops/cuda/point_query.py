@@ -11,7 +11,11 @@ package's level_features_diff custom VJP): an autograd.Function whose forward
 runs K4 and whose backward runs K8 for the level's gradient and K7 for the
 coordinates' when autograd asks for it.  Each wrapper runs its plain version
 (sv3d_tpu_torch/ops/point_query.py) for a CPU tensor and launches its kernel
-for a CUDA tensor, or raises.  K5 and K6 are inference-only, as their TPU
+for a CUDA tensor, or raises.  Every wrapper takes the level as the
+channel-major flat (B, C, G) that flatten_grid makes; K4 and K5 read it
+channels-last, (B, G, C): their wrapper reads a level that already lies so
+as it is and stages any other (stage_channels_last), while K6, K7 and K8
+read the flat as it is.  K5 and K6 are inference-only, as their TPU
 kernels have no VJP: under autograd (grad enabled and an input that requires
 grad) they raise NotImplementedError rather than return a gradient.
 """
@@ -77,44 +81,60 @@ def _tail(b, n, c, dims, align_corners, displacement, device):
             torch.cuda.current_stream(device).cuda_stream)
 
 
-def level_features_cuda(flat, p0, p1, p2, dims, align_corners: bool, displacement: float):
-    """K4: (B, C, G) level, three (B, N) coords in [-1, 1] -> (B, N, 7*C)."""
-    if not _on_cuda(flat, "level_features"):
-        return level_features_plain(flat, p0, p1, p2, dims, align_corners, displacement)
+def stage_channels_last(flat: torch.Tensor) -> torch.Tensor:
+    """The contiguous channels-last (B, G, C) level that K4 and K5 read, from
+    a (B, C, G) level in any memory layout: a view when the level already
+    lies channels-last (C = 1 always does), else torch's transpose copy,
+    counted in stage_channels_last.copies."""
+    cl = flat.transpose(1, 2)
+    if not cl.is_contiguous():
+        stage_channels_last.copies += 1
+    return cl.contiguous()
+
+
+def _features_kernel(who: str, entry: str, dtype, flat, p0, p1, p2, dims, align_corners,
+                     displacement):
+    """K4 or K5 on a CUDA level: stage the channels-last copy, launch."""
     b, c, g = flat.shape
     n = p0.shape[1]
     if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
-        raise ValueError(f"level_features: level of {g} voxels for dims {dims}")
-    _check("level_features", flat.device, flat=(flat, (b, c, g)), p0=(p0, (b, n)),
-           p1=(p1, (b, n)), p2=(p2, (b, n)))
-    out = torch.empty((b, n, 7 * c), dtype=torch.float32, device=flat.device)
-    rc = _bind("sv3d_level_features", 5)(
-        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
+        raise ValueError(f"{who}: level of {g} voxels for dims {dims}")
+    if g * c >= 2**31:
+        raise ValueError(f"{who}: G * C = {g * c} exceeds the kernel's 32-bit offsets")
+    if flat.dtype != torch.float32:
+        raise TypeError(f"{who}: flat must be float32, got {flat.dtype}")
+    _check(who, flat.device, p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)))
+    vol = stage_channels_last(flat)
+    out = torch.empty((b, n, 7 * c), dtype=dtype, device=flat.device)
+    rc = _bind(entry, 5)(
+        vol.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
         *_tail(b, n, c, dims, align_corners, displacement, flat.device),
     )
-    build.check(rc, "sv3d_level_features")
+    build.check(rc, entry)
+    return out
+
+
+def level_features_cuda(flat, p0, p1, p2, dims, align_corners: bool, displacement: float):
+    """K4: (B, C, G) level, three (B, N) coords in [-1, 1] -> (B, N, 7*C).
+    A level that lies channels-last in memory is read as it is; any other is
+    staged channels-last here (stage_channels_last)."""
+    if not _on_cuda(flat, "level_features"):
+        return level_features_plain(flat, p0, p1, p2, dims, align_corners, displacement)
+    out = _features_kernel("level_features", "sv3d_level_features", torch.float32, flat,
+                           p0, p1, p2, dims, align_corners, displacement)
     level_features_cuda.launches += 1
     return out
 
 
 def level_features_banded_cuda(flat, p0, p1, p2, dims, align_corners: bool,
                                displacement: float):
-    """K5: K4's features stored as bfloat16, (B, N, 7*C).  Inference-only."""
+    """K5: K4's features stored as bfloat16, (B, N, 7*C); the level as K4
+    takes it.  Inference-only."""
     _inference_only("level_features_banded", flat, p0, p1, p2)
     if not _on_cuda(flat, "level_features_banded"):
         return level_features_banded_plain(flat, p0, p1, p2, dims, align_corners, displacement)
-    b, c, g = flat.shape
-    n = p0.shape[1]
-    if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
-        raise ValueError(f"level_features_banded: level of {g} voxels for dims {dims}")
-    _check("level_features_banded", flat.device, flat=(flat, (b, c, g)), p0=(p0, (b, n)),
-           p1=(p1, (b, n)), p2=(p2, (b, n)))
-    out = torch.empty((b, n, 7 * c), dtype=torch.bfloat16, device=flat.device)
-    rc = _bind("sv3d_level_features_bf16", 5)(
-        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
-        *_tail(b, n, c, dims, align_corners, displacement, flat.device),
-    )
-    build.check(rc, "sv3d_level_features_bf16")
+    out = _features_kernel("level_features_banded", "sv3d_level_features_bf16", torch.bfloat16,
+                           flat, p0, p1, p2, dims, align_corners, displacement)
     level_features_banded_cuda.launches += 1
     return out
 
@@ -219,14 +239,16 @@ def level_features(vol, p0, p1, p2, dims, align_corners: bool, displacement: flo
     and the coordinates.
 
     vol: contiguous channel-major flat level (B, C, G0*G1*G2), as
-    flatten_grid makes it; returns (B, N, 7*C) f32, displacement-major within
-    the level (index d*C + c).  The level's gradient comes back in the same
-    flat layout."""
+    flatten_grid makes it (a channels-last view of it serves the forward
+    alone: K7 reads the channel-major flat); returns (B, N, 7*C) f32,
+    displacement-major within the level (index d*C + c).  The level's
+    gradient comes back in the channel-major flat layout."""
     dims = tuple(int(d) for d in dims)
     p0, p1, p2 = (p.contiguous() for p in (p0, p1, p2))
     return _LevelFeatures.apply(vol, p0, p1, p2, dims, bool(align_corners), float(displacement))
 
 
+stage_channels_last.copies = 0
 level_features_cuda.launches = 0
 level_features_banded_cuda.launches = 0
 level_fc0_cuda.launches = 0

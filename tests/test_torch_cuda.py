@@ -22,6 +22,7 @@ from sv3d_tpu_torch.ops.cuda.point_query import (
     level_features_cuda,
     level_grad_points_cuda,
     level_grad_vol_cuda,
+    stage_channels_last,
 )
 from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain, sweep_tables
 from sv3d_tpu_torch.ops.cuda.voxelize import (
@@ -145,14 +146,19 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     assert _rel_err(scatter_voxels_bwd_cuda(pts, raw, w), scatter_voxels_bwd(pts, raw, w)) <= 1e-5
 
 
+FEATURE_CHANNELS = [1, 3, 16, 64, 128, 160]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
-@pytest.mark.parametrize("c", [1, 16, 64])
+@pytest.mark.parametrize("c", FEATURE_CHANNELS)
 def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
-    """K4, K7, K8 against their plain versions, both conventions, channel
-    counts that give 1, 2 and 1/2 points per warp; points partly outside the
-    volume.  1e-5 of the largest plain magnitude (summation order; K8's
-    atomics in run-dependent order)."""
+    """K4, K7, K8 against their plain versions, both conventions, B = 2,
+    points partly outside the volume.  K4's channel counts take its scalar
+    path (1, 3: 32 and 8 points a warp) and its float4 path (16: 8 points a
+    warp; 64, 128: 2 and 1; 160: one point a warp with a masked tail).  1e-5
+    of the largest plain magnitude (summation order; K8's atomics in
+    run-dependent order)."""
     rng = np.random.default_rng(c)
     dims = (19, 13, 14)
     flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
@@ -184,6 +190,102 @@ def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
         level_features_cuda(flat[:, :, :-1], *p, *args)
 
 
+def _k5_within_one_ulp(got, ref):
+    diff = (got.float() - ref.float()).abs()
+    return bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 16, 160])
+def test_feature_kernels_read_channels_last_levels_on_card(c, cuda_device):
+    """K4 and K5 read a channels-last copy of the level, staged by their
+    wrapper (C = 1 needs no copy); a level that already lies channels-last
+    is read as it is (no copy) with the same result, also from a pointer
+    that is not 16-byte aligned (the scalar path); a level in any other
+    layout (every other channel of a wider one) is staged, never misread."""
+    rng = np.random.default_rng(100 + c)
+    dims = (19, 13, 14)
+    g = 19 * 13 * 14
+    flat = torch.tensor(rng.standard_normal((2, c, g)).astype(np.float32), device=cuda_device)
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32), device=cuda_device)
+         for _ in range(3)]
+    args = (dims, False, 0.0722)
+    before = stage_channels_last.copies
+    staged = stage_channels_last(flat)
+    assert stage_channels_last.copies == before + (c > 1)
+    assert torch.equal(staged, flat.transpose(1, 2).contiguous())
+
+    ref4 = level_features_plain(flat, *p, *args)
+    ref5 = level_features_banded_plain(flat, *p, *args)
+    got4 = level_features_cuda(flat, *p, *args)
+    assert _rel_err(got4, ref4) <= 1e-5
+    buf = torch.empty(2 * g * c + 1, device=cuda_device)
+    buf[1:] = staged.reshape(-1)
+    before = stage_channels_last.copies
+    for level in (staged.transpose(1, 2), buf[1:].view(2, g, c).transpose(1, 2)):
+        assert torch.equal(level_features_cuda(level, *p, *args), got4)
+        assert _k5_within_one_ulp(level_features_banded_cuda(level, *p, *args), ref5)
+    torch.cuda.synchronize()
+    assert stage_channels_last.copies == before
+
+    wide = torch.tensor(rng.standard_normal((2, 2 * c, g)).astype(np.float32),
+                        device=cuda_device)
+    strided = wide[:, ::2]
+    assert torch.equal(level_features_cuda(strided, *p, *args),
+                       level_features_cuda(strided.contiguous(), *p, *args))
+    assert torch.equal(level_features_banded_cuda(strided, *p, *args),
+                       level_features_banded_cuda(strided.contiguous(), *p, *args))
+
+
+@pytest.mark.parametrize("c", [1, 3, 16])
+def test_channels_last_staging_on_cpu(c):
+    """stage_channels_last on a CPU level: the transpose of a contiguous
+    channel-major level (one copy counted, none for C = 1), the level itself
+    (a view, no copy) when it already lies channels-last, and the same
+    transpose of a level in any other layout.  The K4/K5 wrappers give a
+    channels-last CPU level the same features as its channel-major twin."""
+    rng = np.random.default_rng(200 + c)
+    dims = (5, 6, 7)
+    flat = torch.tensor(rng.standard_normal((2, c, 5 * 6 * 7)).astype(np.float32))
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 40)).astype(np.float32)) for _ in range(3)]
+    before = stage_channels_last.copies
+    staged = stage_channels_last(flat)
+    assert stage_channels_last.copies == before + (c > 1)
+    assert staged.is_contiguous() and torch.equal(staged, flat.transpose(1, 2))
+    level = staged.transpose(1, 2)
+    assert stage_channels_last(level).data_ptr() == staged.data_ptr()
+    args = (dims, False, 0.0722)
+    assert torch.equal(level_features_cuda(level, *p, *args), level_features_cuda(flat, *p, *args))
+    assert torch.equal(level_features_banded_cuda(level, *p, *args),
+                       level_features_banded_cuda(flat, *p, *args))
+    strided = torch.tensor(rng.standard_normal((2, 2 * c, 5 * 6 * 7)).astype(np.float32))[:, ::2]
+    cl = stage_channels_last(strided)
+    assert cl.is_contiguous() and torch.equal(cl, strided.transpose(1, 2))
+
+
+@pytest.mark.parametrize("bands", [None, 4])
+def test_evaluate_points_stages_the_pyramid_once(bands):
+    """evaluate_points' K4 route (bands=None) stages each level of C > 1
+    channels-last once a call, not once a tile, and gives the gather path's
+    values; the K6 route (bands set) reads the channel-major levels and
+    stages none.  On the CPU the wrappers run their plain versions."""
+    cfg = IFNetConfig.for_net_res(128)
+    model = IFNet(cfg, generator=torch.Generator().manual_seed(7)).eval()
+    rng = np.random.default_rng(7)
+    grid = rng.uniform(0, 1, (1, 17, 16, 18, 1)).astype(np.float32)
+    pts = rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
+    before = stage_channels_last.copies
+    got = evaluate_points(model, grid, pts, tile_points=100, use_kernel=True, bands=bands)
+    with torch.inference_mode():
+        flats = model.encode(torch.tensor(grid)).flats
+    # a level of one channel or one voxel lies channels-last already
+    staged = sum(f.shape[1] > 1 and f.shape[2] > 1 for f in flats) if bands is None else 0
+    assert staged == (4 if bands is None else 0)
+    assert stage_channels_last.copies == before + staged
+    ref = evaluate_points(model, grid, pts, use_kernel=False)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
@@ -204,13 +306,15 @@ def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
-@pytest.mark.parametrize("c,h", [(1, 256), (16, 512), (64, 256), (160, 256)])
+@pytest.mark.parametrize("c,h", [(1, 256), (3, 256), (16, 512), (64, 256), (128, 256),
+                                 (160, 256)])
 def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device):
     """K6 against its plain version, alone and adding into a buffer: 1e-5 of
     the largest plain magnitude (FMA order over 7*C terms).  K5: at most one
     bf16 ulp, |d| <= 2^-7 |ref| + 1e-6 (the kernel's and the plain f32
-    features may round either way of a bf16 boundary).  C = 160 takes two
-    channel rounds in K6.  Both raise under autograd."""
+    features may round either way of a bf16 boundary), on K4's scalar and
+    float4 paths (channel counts as there).  C = 160 takes two channel
+    rounds in K6.  Both raise under autograd."""
     rng = np.random.default_rng(c + h)
     dims = (19, 13, 14)
     flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
@@ -229,8 +333,7 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     got = level_features_banded_cuda(flat, *p, *args)
     ref = level_features_banded_plain(flat, *p, *args)
     assert got.dtype == torch.bfloat16
-    diff = (got.float() - ref.float()).abs()
-    assert bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all()), float(diff.max())
+    assert _k5_within_one_ulp(got, ref), float((got.float() - ref.float()).abs().max())
     torch.cuda.synchronize()
     assert [level_fc0_cuda.launches, level_features_banded_cuda.launches] == [
         counts[0] + 2, counts[1] + 1]
