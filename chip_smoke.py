@@ -10,7 +10,10 @@ that each ran its kernels:
 
   serving   one seeded 240x320 RGB array to a mesh (load_model -> predict ->
             implicit_to_mesh), net_res 128, scale_factor 1, dims
-            (139, 104, 112): kernels K1 (scatter) and K2 (dense sweep);
+            (139, 104, 112): kernels K1 (scatter) and K2 bf16 (dense sweep,
+            the JAX package's compute dtype); K2 f32 (compute_dtype
+            float32, the parity route) is held to its plain version, timed
+            and run on the card-vs-CPU slice;
   points    evaluate_points on the served model and grid at 262,144 uniform
             points in [-0.45, 0.45]^3: kernel K6 (bands="auto", fc0 in the
             kernel), kernel K4 (bands=None) and the exact gather path, which
@@ -41,7 +44,9 @@ without CUDA and when any phase fails.  The last line is
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,8 +58,24 @@ import torch
 
 INTRINSICS = "[[277.128, 0., 159.5, 0.], [0., 277.128, 119.5, 0.], [0., 0., 1., 0.], [0., 0., 0., 1.]]"
 K1_TOL = 1e-5  # atomics sum in run-dependent order (csrc/voxelize.cu)
-K2_TOL = 1e-4  # f32 FMA vs plain f32 contractions: summation order only (csrc/sweep.cu)
-SLICE_TOL = 1e-4  # card vs CPU sigmoid grid of the small-scale slice
+K2_TOL = 1e-4  # K2 f32: FMA vs plain f32 contractions, summation order only (csrc/sweep.cu)
+# K2 bf16 against its plain bf16 version: the same rounding points (levels,
+# features, weights and hidden activations to bf16), f32 sums in another
+# order, so a value within f32 noise of a bf16 rounding boundary may round
+# either way: one bf16 ulp of a feature or a hidden activation.  atol on
+# logits; measured 4.8e-4 at |logit| <= 0.10 on the H100.  Such flips touch
+# a few of a point's roundings, so over the lattice the mean error stays far
+# below the logits' own scale: mean |error| <= K2_BF16_REL_MEAN_TOL x mean
+# |logit| (measured 1.2e-4).  A sweep that rounds at other points is off at
+# every point by about a rounding error, within the max limit but above the
+# mean one (plain_bf16_sweep with a rounding point left out; phase 3 shows
+# that both such sweeps fail).
+K2_BF16_TOL = 2e-3
+K2_BF16_REL_MEAN_TOL = 1e-3
+SLICE_TOL = 1e-4  # card vs CPU sigmoid grid of the small-scale slice, float32
+# the same in bf16 (the default); measured 9.2e-5 on the H100, the JAX
+# package's own mixed-precision bound is 2e-2
+SLICE_BF16_TOL = 1e-3
 # K1b, K4, K7, K8: the same f32 arithmetic in another summation order (FMA,
 # corner and channel order; K8's atomics add in a run-dependent order on
 # both sides, as the plain version's index_add is atomic too), 1e-5 of the
@@ -94,6 +115,7 @@ N_POINTS = 262144  # the JAX package's arbitrary-point measurement (bench.py)
 # sheet): f32 outside the tensor cores, and device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_TENSOR_FLOPS = 989e12  # dense, on the tensor cores
 WORK = Path(__file__).resolve().parent / "build" / "sv3d_tpu_torch" / "smoke"
 
 # the one-scene dataset: an axis-aligned box (camera space, metres) in front
@@ -211,12 +233,13 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     return root
 
 
-def bound(n_bytes: float, flops: float) -> tuple:
+def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0) -> tuple:
     """The least time the card could take for work that moves n_bytes
-    (each input read once, each output written once) and does flops f32
-    operations: (ms, "bytes" or "operations")."""
+    (each input read once, each output written once), does flops f32
+    operations outside the tensor cores and tensor_flops bf16 operations on
+    them, the two units at work at once: (ms, "bytes" or "operations")."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, tensor_flops / PEAK_BF16_TENSOR_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -256,6 +279,89 @@ def gathered_bytes(levels, p, align_corners, displacement) -> int:
             sectors = int((last - first + 1).sum()) - int((last[:-1] == first[1:]).sum())
             total += min(32 * sectors, nbytes(flat))
     return total
+
+
+def touched_slices(levels, r, rows, row_offset, align_corners, displacement) -> list:
+    """Per level, how many axis-0 slices the displaced axis-0 taps of nonzero
+    weight of lattice rows [row_offset, row_offset + rows) touch."""
+    from sv3d_tpu_torch.ops.cuda.sweep import sweep_tables
+
+    chans = [flat.shape[1] for flat, _ in levels]
+    meta, idx, w = sweep_tables(chans, [d for _, d in levels], r, rows, row_offset,
+                                align_corners, displacement)
+    blocks = [slice(m[4], m[4] + 3 * rows) for m in meta]
+    return [len(np.unique(idx[b][w[b] != 0])) for b in blocks]
+
+
+def separable_interp_flops(size_in, size_out) -> float:
+    """The least f32 operations that resizing one channel of a level
+    (size_in) to the 7 displaced copies of a lattice (size_out) needs: one
+    axis at a time, as the JAX kernel's resize matrices do, 3 operations (a
+    2-tap lerp) an output value, the copies sharing every pass they have in
+    common (3 distinct results after the first axis, 5 after the second, 7
+    after the third), in the cheapest axis order."""
+    best = float("inf")
+    for order in itertools.permutations(range(3)):
+        size, ops = list(size_in), 0.0
+        for copies, ax in zip((3, 5, 7), order):
+            size[ax] = size_out[ax]
+            ops += 3.0 * copies * math.prod(size)
+        best = min(best, ops)
+    return best
+
+
+def sweep_bound(ifnet, levels, r, rows, row_offset, dtype) -> tuple:
+    """K2's bound on this run's levels for lattice rows [row_offset,
+    row_offset + rows): the levels' touched axis-0 slices (bf16 or f32) and
+    the weights in, the logits out; the decoder's products (on the tensor
+    cores in bf16, beside the f32 units) and the interpolation's f32
+    operations at the separable minimum (separable_interp_flops)."""
+    cfg = ifnet.config
+    lv = list(levels)
+    b = lv[0][0].shape[0]
+    n = b * rows * r[1] * r[2]
+    el = 2 if dtype == torch.bfloat16 else 4
+    slices = touched_slices(lv, r, rows, row_offset, cfg.align_corners, cfg.displacement)
+    weights = [t for layer in ifnet.mlp for t in layer]
+    n_bytes = (sum(b * s * g1 * g2 * flat.shape[1] * el
+                   for (flat, (_, g1, g2)), s in zip(lv, slices))
+               + sum(w.numel() for w in weights[::2]) * el + nbytes(*weights[1::2]) + n * 4)
+    mlp = 2.0 * n * sum(w.shape[0] * w.shape[1] for w, _ in ifnet.mlp)
+    interp = sum(b * flat.shape[1] * separable_interp_flops((s, g1, g2), (rows, r[1], r[2]))
+                 for (flat, (_, g1, g2)), s in zip(lv, slices))
+    if dtype == torch.bfloat16:
+        fc_out = 2.0 * n * ifnet.mlp[3][0].numel()
+        return bound(n_bytes, interp + fc_out, mlp - fc_out)
+    return bound(n_bytes, interp + mlp)
+
+
+def plain_bf16_sweep(levels, mlp, r, rows, row_offset, align_corners, displacement,
+                     skip=()) -> torch.Tensor:
+    """lattice_sweep_plain's bf16 arithmetic with the rounding points named
+    in skip left out: "feature" keeps the interpolated feature in f32,
+    "hidden" the ReLU outputs.  With skip=() it is lattice_sweep_plain(...,
+    torch.bfloat16) bit for bit; with a point left out, what a K2 bf16 that
+    rounds at the wrong points would give, to show that K2's limits fail it."""
+    from sv3d_tpu_torch.ops.lattice import slab_features
+
+    rounded = lambda t: t.to(torch.bfloat16).float()
+    keep = lambda t, point: t if point in skip else rounded(t)
+    levels = [(rounded(flat), dims) for flat, dims in levels]
+    mlp = [(rounded(w), b) for w, b in mlp]
+    out = []
+    for row in range(row_offset, row_offset + rows):
+        h = keep(slab_features(levels, r, 1, row, align_corners, displacement), "feature")
+        for i, (w, b) in enumerate(mlp):
+            h = torch.einsum("hf,bfn->bhn", w, h) + b[:, None]
+            if i < len(mlp) - 1:
+                h = keep(torch.relu(h), "hidden")
+        out.append(h[:, 0].reshape(h.shape[0], 1, r[1], r[2]))
+    return torch.cat(out, dim=1)
+
+
+def rel_mean_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """mean |got - ref| / max(1e-30, mean |ref|)."""
+    return float((got - ref).abs().mean()) / max(float(ref.abs().mean()), 1e-30)
 
 
 def grid_sample_inputs(levels, p, align_corners, displacement) -> list:
@@ -467,18 +573,20 @@ def points_path(served, vox, pts_np, smi) -> dict:
           f"{k3_err:.3e} (tol {K3_TOL:g})", flush=True)
     check(k3_err <= K3_TOL, f"K3 disagrees with its plain version: {k3_err}")
 
-    # -- the unfused sweep through K3, against the K2 default ---------------
+    # -- the unfused sweep through K3, against K2 f32 ------------------------
     fused_point_mlp.launches = 0
     sweep_err = 0.0
     with torch.inference_mode():
         for rows, off in ((1, 0), (1, 69), (2, 137)):
-            got = ifnet.query_lattice(levels, dims, 1, rows, off, fused_tail=False)
-            ref = ifnet.query_lattice(levels, dims, 1, rows, off)
+            got = ifnet.query_lattice(levels, dims, 1, rows, off, torch.float32,
+                                      fused_tail=False)
+            ref = ifnet.query_lattice(levels, dims, 1, rows, off, torch.float32)
             check(bool(torch.isfinite(got).all()), f"unfused sweep non-finite at {off}+{rows}")
             sweep_err = max(sweep_err, float((got - ref).abs().max()))
         torch.cuda.synchronize()
     k3_launches = fused_point_mlp.launches
-    print(f"unfused sweep: query_lattice(fused_tail=False) rows 0, 69, 137-138 against K2: "
+    print(f"unfused sweep at float32: query_lattice(fused_tail=False) rows 0, 69, 137-138 "
+          f"against K2 f32: "
           f"max_abs_err {sweep_err:.3e} (tol {K3_TOL:g}), K3 launches {k3_launches}", flush=True)
     check(sweep_err <= K3_TOL and k3_launches == 3, "the unfused sweep did not run through K3")
 
@@ -802,6 +910,39 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     return lines
 
 
+def step_peak_memory(trainer, batch, gen) -> dict:
+    """Peak device memory (torch.cuda.max_memory_allocated) of one warm
+    full-width train step as the port runs it (level_features saves the
+    flat for its backward, and K7's wrapper stages it again), and with
+    level_features saving instead the channels-last copy that K4 read."""
+    from sv3d_tpu_torch.ops.cuda import point_query as pq
+
+    class SavesCopy(pq._LevelFeatures):
+        @staticmethod
+        def forward(ctx, flat, p0, p1, p2, dims, align_corners, displacement):
+            level = pq.stage_channels_last(flat).transpose(1, 2)
+            ctx.save_for_backward(level, p0, p1, p2)
+            ctx.args = (dims, align_corners, displacement)
+            return pq.level_features_cuda(level, p0, p1, p2, dims, align_corners, displacement)
+
+    saves_flat = pq._LevelFeatures
+    out = {}
+    state = trainer.build_state()
+    try:
+        for name, fn in (("saves the flat (the port)", saves_flat),
+                         ("saves the channels-last copy", SavesCopy)):
+            pq._LevelFeatures = fn
+            trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            out[name] = torch.cuda.max_memory_allocated()
+    finally:
+        pq._LevelFeatures = saves_flat
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -825,8 +966,15 @@ def main() -> int:
         level_features_cuda,
         level_grad_points_cuda,
         level_grad_vol_cuda,
+        stage_channels_last,
     )
-    from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain
+    from sv3d_tpu_torch.ops.cuda.sweep import (
+        SweepPlan,
+        lattice_sweep,
+        lattice_sweep_bf16_cuda,
+        lattice_sweep_f32_cuda,
+        lattice_sweep_plain,
+    )
     from sv3d_tpu_torch.ops.cuda.voxelize import (
         scatter_voxels,
         scatter_voxels_bwd_cuda,
@@ -874,24 +1022,52 @@ def main() -> int:
           f"max_abs_err {k1_err:.3e} (tol {K1_TOL:g}), occupied {int((k1 > 0).sum())}", flush=True)
     check(k1_err <= K1_TOL, f"K1 disagrees with its plain version: {k1_err}")
 
-    # -- phase 3: K2 against its plain version at net_res 128 full scale -----
+    # -- phase 3: K2, both routes, against their plain versions at full scale -
     ifnet = model.ifnet
     cfg = ifnet.config
+    k2_err = {}
+    sweep_args = (cfg.align_corners, cfg.displacement)
+    slabs = ((1, 0), (1, 69), (1, 138), (8, 136))
     with torch.inference_mode():
         levels = ifnet.encode(model.project(pts))
-        k2_err = 0.0
-        for rows, off in ((1, 0), (1, 69), (1, 138), (8, 136)):
-            got = lattice_sweep(levels, ifnet.mlp, dims, rows, off, cfg.align_corners,
-                                cfg.displacement)
-            ref = lattice_sweep_plain(levels, ifnet.mlp, dims, rows, off, cfg.align_corners,
-                                      cfg.displacement)
+        for key, dtype, tol in (("K2", torch.bfloat16, K2_BF16_TOL),
+                                ("K2f32", torch.float32, K2_TOL)):
+            plan = SweepPlan(levels, ifnet.mlp, dims, *sweep_args, dtype)
+            # the serving path's launch: the whole lattice at once
+            whole = lattice_sweep(plan, dims[0], 0)
+            ref = lattice_sweep_plain(levels, ifnet.mlp, dims, dims[0], 0, *sweep_args, dtype)
             torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            check(bool(torch.isfinite(got).all()), f"K2 non-finite logits at rows {off}+{rows}")
-            print(f"K2 lattice_sweep rows [{off}, {off + rows}): max_abs_err {err:.3e} "
-                  f"(|logit| <= {float(ref.abs().max()):.3f})", flush=True)
-            k2_err = max(k2_err, err)
-    check(k2_err <= K2_TOL, f"K2 disagrees with its plain version: {k2_err}")
+            check(bool(torch.isfinite(whole).all()), f"{key} non-finite logits")
+            k2_err[key] = float((whole - ref).abs().max())
+            rel_mean = rel_mean_err(whole, ref)
+            for rows, off in slabs:
+                got = lattice_sweep(plan, rows, off)
+                inside = min(rows, dims[0] - off)
+                check(torch.equal(got[:, :inside], whole[:, off:off + inside]),
+                      f"{key} rows [{off}, {off + inside}) differ from the whole-lattice launch")
+            mean_tol = (f" (tol {K2_BF16_REL_MEAN_TOL:g})" if dtype == torch.bfloat16 else "")
+            print(f"{key} {str(dtype)[6:]} lattice_sweep over the whole {dims} lattice in one "
+                  f"launch: max_abs_err {k2_err[key]:.3e} (tol {tol:g}), mean_abs_err / mean "
+                  f"|logit| {rel_mean:.3e}{mean_tol}, |logit| <= {float(ref.abs().max()):.3f}, "
+                  f"mean |logit| {float(ref.abs().mean()):.3e}; the slabs of rows {slabs} "
+                  f"(rows, offset) equal it bit for bit", flush=True)
+            check(k2_err[key] <= tol, f"{key} disagrees with its plain version: {k2_err[key]}")
+            if dtype == torch.bfloat16:
+                check(rel_mean <= K2_BF16_REL_MEAN_TOL,
+                      f"K2 bf16's mean error is {rel_mean} of the mean logit")
+                for skip in ("hidden", "feature"):
+                    wrong = plain_bf16_sweep(levels, ifnet.mlp, dims, dims[0], 0, *sweep_args,
+                                             (skip,))
+                    wrong_err = (float((wrong - ref).abs().max()), rel_mean_err(wrong, ref))
+                    print(f"  the plain bf16 sweep with its {skip} rounding left out, against "
+                          f"the plain version: max_abs_err {wrong_err[0]:.3e}, mean_abs_err / "
+                          f"mean |logit| {wrong_err[1]:.3e}: K2 bf16's limits fail it",
+                          flush=True)
+                    check(wrong_err[0] > tol or wrong_err[1] > K2_BF16_REL_MEAN_TOL,
+                          f"K2 bf16's limits would pass a sweep without its {skip} rounding: "
+                          f"{wrong_err}")
+                del wrong
+            del plan, whole, ref
 
     # -- phase 4: the serving path, through its entry points -----------------
     WORK.mkdir(parents=True, exist_ok=True)
@@ -904,7 +1080,8 @@ def main() -> int:
          "--device", "cuda"])
 
     scatter_voxels_cuda.launches = 0
-    lattice_sweep.launches = 0
+    lattice_sweep_bf16_cuda.launches = 0
+    lattice_sweep_f32_cuda.launches = 0
     served_config, served = load_model(args)
     vox, depth_np = predict(served_config, served, rgb=rgb)
     verts, tris = implicit_to_mesh(
@@ -912,11 +1089,14 @@ def main() -> int:
         res_increase=served_config.inf_res)
     torch.cuda.synchronize()
     launches = {"scatter_voxels": scatter_voxels_cuda.launches,
-                "lattice_sweep": lattice_sweep.launches}
+                "lattice_sweep_bf16": lattice_sweep_bf16_cuda.launches,
+                "lattice_sweep_f32": lattice_sweep_f32_cuda.launches}
     print(f"serving path: launches {launches}, depth {depth_np.shape} in "
           f"[{depth_np.min():.3f}, {depth_np.max():.3f}], mesh at {args.threshold}: "
           f"{len(verts)} verts {len(tris)} faces", flush=True)
-    check(all(n > 0 for n in launches.values()), f"a kernel never ran on the serving path: {launches}")
+    check(launches["scatter_voxels"] > 0 and launches["lattice_sweep_bf16"] > 0
+          and launches["lattice_sweep_f32"] == 0,
+          f"the serving path did not run K1 and K2 bf16 (alone): {launches}")
 
     values = evaluate_on_grid(served.ifnet, vox, served_config.dims, transfer_dtype=torch.float32)
     check(values.shape == dims, f"value grid shape {values.shape}")
@@ -932,14 +1112,21 @@ def main() -> int:
     small_cfg = Config(scale_factor=8, seed=0)
     small_gpu = seeded_scene_net(small_cfg, dev, seed=1)
     small_cpu = seeded_scene_net(small_cfg, "cpu", seed=1)
-    grids = []
+    grids, grids32 = [], []
     for m in (small_gpu, small_cpu):
         v, _ = predict(small_cfg, m, rgb=rgb)
         grids.append(evaluate_on_grid(m.ifnet, v, small_cfg.dims, transfer_dtype=torch.float32))
+        with torch.inference_mode():
+            g32 = evaluate_on_grid_device(m.ifnet, m.ifnet.encode(v), small_cfg.dims,
+                                          compute_dtype=torch.float32)
+        grids32.append(g32[:small_cfg.dims[0]].cpu().numpy())
     slice_err = float(np.abs(grids[0] - grids[1]).max())
-    print(f"slice at scale_factor 8, card vs CPU plain: max_abs_err {slice_err:.3e} "
+    slice_err32 = float(np.abs(grids32[0] - grids32[1]).max())
+    print(f"slice at scale_factor 8, card vs CPU plain: bf16 (the default) max_abs_err "
+          f"{slice_err:.3e} (tol {SLICE_BF16_TOL:g}), float32 max_abs_err {slice_err32:.3e} "
           f"(tol {SLICE_TOL:g})", flush=True)
-    check(slice_err <= SLICE_TOL, f"card slice disagrees with the CPU slice: {slice_err}")
+    check(slice_err <= SLICE_BF16_TOL, f"card bf16 slice disagrees with the CPU's: {slice_err}")
+    check(slice_err32 <= SLICE_TOL, f"card f32 slice disagrees with the CPU's: {slice_err32}")
     # arbitrary points on the CPU's grid: the card's K6 route against the CPU's gathers
     small_pts = np.random.default_rng(4).uniform(-0.45, 0.45, (16384, 3)).astype(np.float32)
     card_pts = evaluate_points(small_gpu.ifnet, v, small_pts, tile_points=4096)
@@ -950,46 +1137,71 @@ def main() -> int:
     check(pts_err <= POINTS_TOL, f"card evaluate_points disagrees with the CPU's: {pts_err}")
 
     # -- phase 6: serving timings --------------------------------------------
+    routes = (("K2", torch.bfloat16), ("K2f32", torch.float32))
+    slab_sizes = (1, 8, dims[0])
     with torch.inference_mode():
         k1_ms = cuda_ms(lambda: scatter_voxels_cuda(pts, dims))
         k1_plain_ms = cuda_ms(lambda: scatter_voxels(pts, dims))
-        sweep_args = (levels, ifnet.mlp, dims, 1, 69, cfg.align_corners, cfg.displacement)
-        k2_ms = cuda_ms(lambda: lattice_sweep(*sweep_args))
-        k2_plain_ms = cuda_ms(lambda: lattice_sweep_plain(*sweep_args))
+        plan_ms, k2_ms, k2_plain_ms, k2_whole_ms, k2_plain_whole_ms = {}, {}, {}, {}, {}
+        for key, dtype in routes:
+            plan_ms[key] = cuda_ms(lambda dtype=dtype: ifnet.sweep_plan(levels, dims, 1, dtype),
+                                   warmup=1, reps=5)
+            plan = ifnet.sweep_plan(levels, dims, 1, dtype)
+            # the kernel alone on a prebuilt plan: one row, and the whole
+            # lattice (the serving path's one launch)
+            k2_ms[key] = cuda_ms(lambda plan=plan: lattice_sweep(plan, 1, 69))
+            k2_whole_ms[key] = cuda_ms(lambda plan=plan: lattice_sweep(plan, dims[0], 0),
+                                       warmup=1, reps=5)
+            k2_plain_ms[key] = cuda_ms(lambda dtype=dtype: lattice_sweep_plain(
+                levels, ifnet.mlp, dims, 1, 69, *sweep_args, dtype))
+            k2_plain_whole_ms[key] = cuda_ms(lambda dtype=dtype: lattice_sweep_plain(
+                levels, ifnet.mlp, dims, dims[0], 0, *sweep_args, dtype), warmup=0, reps=2)
+            del plan
         n_pts = dims[0] * dims[1] * dims[2]
         sweep_ms = {
-            rows: cuda_ms(lambda rows=rows: evaluate_on_grid_device(ifnet, levels, dims, 1, rows),
-                          warmup=1, reps=5)
-            for rows in (1, dims[0])
+            (key, rows): cuda_ms(lambda rows=rows, dtype=dtype: evaluate_on_grid_device(
+                ifnet, levels, dims, 1, rows, dtype), warmup=1, reps=5)
+            for key, dtype in routes for rows in slab_sizes
         }
+
+    def serve():
+        v, _ = predict(served_config, served, rgb=rgb)
+        implicit_to_mesh(served.ifnet, v, served_config.dims, args.threshold, WORK / "t.obj")
+
     e2e = []
     for i in range(6):
         t0 = time.perf_counter()
-        v, _ = predict(served_config, served, rgb=rgb)
-        implicit_to_mesh(served.ifnet, v, served_config.dims, args.threshold, WORK / "t.obj")
+        serve()
         torch.cuda.synchronize()
         if i:  # the first run is warm-up
             e2e.append(time.perf_counter() - t0)
+    serve_prof = profile_lines(serve, steps=2)
     print(f"serving timings on {smi}:", flush=True)
     print(f"  K1 scatter_voxels {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms "
           f"({pts.shape[1]} points)", flush=True)
-    print(f"  K2 lattice_sweep {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms "
-          f"(1 lattice row, {dims[1] * dims[2]} points)", flush=True)
-    for rows, ms in sweep_ms.items():
-        print(f"  dense sweep slab_rows={rows}: {ms:.3f} ms, {n_pts / (ms / 1e3):.4g} points/s",
-              flush=True)
-    print(f"  warm image->mesh: median {statistics.median(e2e):.4f} s over {len(e2e)} runs "
-          f"({', '.join(f'{t:.4f}' for t in e2e)})", flush=True)
-    n_slab = dims[1] * dims[2]
-    mlp_flops = 2.0 * n_slab * sum(w.shape[0] * w.shape[1] for w, _ in ifnet.mlp)
     bounds = {
         # points in, grid out; 8 corners of 4 flops a point
         "K1": bound(nbytes(pts, k1), 32.0 * pts.shape[1]),
-        # levels and weights in, one row of logits out; the decoder plus 8
-        # taps of 2 flops a feature
-        "K2": bound(nbytes(*levels.flats, *(t for layer in ifnet.mlp for t in layer))
-                    + n_slab * 4, mlp_flops + 16.0 * n_slab * ifnet.feature_size),
+        # K2 at the serving path's shape: the whole lattice in one launch
+        **{key: sweep_bound(ifnet, levels, dims, dims[0], 0, dtype) for key, dtype in routes},
     }
+    row_bounds = {key: sweep_bound(ifnet, levels, dims, 1, 69, dtype) for key, dtype in routes}
+    for key, dtype in routes:
+        print(f"  {key} ({str(dtype)[6:]}) kernel alone on a prebuilt plan: one lattice row "
+              f"({dims[1] * dims[2]} points, row 69) {k2_ms[key]:.4f} ms, bound "
+              f"{row_bounds[key][0]:.4f} ms ({row_bounds[key][1]}), plain "
+              f"{k2_plain_ms[key]:.4f} ms; the whole lattice in one launch "
+              f"{k2_whole_ms[key]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]}), "
+              f"plain {k2_plain_whole_ms[key]:.3f} ms; the plan's build {plan_ms[key]:.3f} ms",
+              flush=True)
+    for (key, rows), ms in sweep_ms.items():
+        print(f"  dense sweep {key} slab_rows={rows}: {ms:.3f} ms, "
+              f"{n_pts / (ms / 1e3):.4g} points/s", flush=True)
+    print(f"  warm image->mesh: median {statistics.median(e2e):.4f} s over {len(e2e)} runs "
+          f"({', '.join(f'{t:.4f}' for t in e2e)})", flush=True)
+    print("  profiled image->mesh (predict + implicit_to_mesh, the defaults):", flush=True)
+    for line in serve_prof:
+        print(f"    {line}", flush=True)
     del levels
 
     # -- phase 6b: the arbitrary-point path on the served grid ----------------
@@ -1073,11 +1285,14 @@ def main() -> int:
         del st
     levels, p, gs, ac, disp = tk["K4"][2]
     lv = list(levels)
+    lv_cl = [(stage_channels_last(f).transpose(1, 2), d) for f, d in lv]
+    peak = step_peak_memory(trainer, batch, gen)
     kernel_ms = {
         "K1b": (cuda_ms(lambda: scatter_voxels_bwd_cuda(*tk["K1b"][2])),
                 cuda_ms(lambda: scatter_voxels_bwd(*tk["K1b"][2]))),
         "K4": (cuda_ms(lambda: [level_features_cuda(f, *p, d, ac, disp) for f, d in lv]),
                cuda_ms(lambda: [level_features_plain(f, *p, d, ac, disp) for f, d in lv])),
+        # as the backward runs it: on the flat, the wrapper staging it
         "K7": (cuda_ms(lambda: [level_grad_points_cuda(f, *p, g, d, ac, disp)
                                 for (f, d), g in zip(lv, gs)]),
                cuda_ms(lambda: [level_grad_points_plain(f, *p, g, d, ac, disp)
@@ -1088,10 +1303,12 @@ def main() -> int:
                                 for (_, d), g in zip(lv, gs)])),
     }
     train_staged = feature_staging_ms(lv, p, (ac, disp))
+    k7_kernel_ms = cuda_ms(lambda: [level_grad_points_cuda(f, *p, g, d, ac, disp)
+                                    for (f, d), g in zip(lv_cl, gs)])
     gs_inputs = grid_sample_inputs(lv, p, ac, disp)
     library = {"K4": grid_sample_ms(gs_inputs, ac), "K7": grid_sample_ms(gs_inputs, ac, "points"),
                "K8": grid_sample_ms(gs_inputs, ac, "level"), **pp["library"]}
-    del gs_inputs
+    del gs_inputs, lv_cl
     n_feat = p[0].numel() * 7 * sum(f.shape[1] for f, _ in lv)  # B * N * 7 * sumC
     train_gathered = gathered_bytes(lv, p, ac, disp)
     print(f"  K4/K7 gathered bytes at the training shapes: {train_gathered} of the levels' "
@@ -1121,6 +1338,12 @@ def main() -> int:
         what = "80,896 points" if name == "K1b" else "all 6 levels, B=4 x 8192 points"
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
     print_staging("training shapes, B=4 x 8192", train_staged)
+    print(f"  K7 apart at the training shapes: kernel alone on channels-last levels "
+          f"{k7_kernel_ms:.4f} ms; the backward's K7 above stages the levels as K4 does",
+          flush=True)
+    print("  peak device memory of a warm fused_query train step (max_memory_allocated): "
+          + ", ".join(f"level_features {k}: {v / 2**20:.1f} MiB" for k, v in peak.items()),
+          flush=True)
     for line in prof_lines:
         print(f"  {line}", flush=True)
     print(f"  library calls: K4 F.grid_sample {library['K4']:.4f} ms, its backward for the "
@@ -1129,7 +1352,9 @@ def main() -> int:
 
     measured = {
         "K1": (launches["scatter_voxels"], k1_err, k1_ms, k1_plain_ms),
-        "K2": (launches["lattice_sweep"], k2_err, k2_ms, k2_plain_ms),
+        # at the serving path's shape: the whole lattice in one launch
+        **{k: (launches[name], k2_err[k], k2_whole_ms[k], k2_plain_whole_ms[k])
+           for k, name in (("K2", "lattice_sweep_bf16"), ("K2f32", "lattice_sweep_f32"))},
         **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K1b", "K4", "K7", "K8")},
         **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k]) for k in ("K3", "K5", "K6")},
     }
@@ -1137,7 +1362,8 @@ def main() -> int:
     for key, name, source, replaces in (
         ("K1", "scatter_voxels", "voxelize.cu", "sv3d_tpu/ops/pallas/voxelize.py:130"),
         ("K1b", "scatter_voxels_bwd", "voxelize.cu", "sv3d_tpu/ops/pallas/voxelize.py:224"),
-        ("K2", "lattice_sweep", "sweep.cu", "sv3d_tpu/ops/pallas/sweep.py:162"),
+        ("K2", "lattice_sweep_bf16", "sweep.cu", "sv3d_tpu/ops/pallas/sweep.py:162"),
+        ("K2f32", "lattice_sweep_f32", "sweep.cu", "sv3d_tpu/ops/pallas/sweep.py:162"),
         ("K3", "fused_point_mlp", "mlp.cu", "sv3d_tpu/ops/pallas/mlp.py:41"),
         ("K4", "level_features", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:439"),
         ("K5", "level_features_banded", "point_query.cu",

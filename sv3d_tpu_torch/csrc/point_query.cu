@@ -49,7 +49,24 @@
 // Offsets are 32-bit inside one sample (the wrapper checks G * C < 2^31),
 // with a 64-bit batch base.
 //
-// K7, K8 and K6 read the channel-major flat as it is.  Their thread mapping:
+// K7 (the coordinates' gradient) reads the same channels-last layout, which
+// its wrapper stages again in the backward: saving the forward's copy would
+// hold it beside the pyramid's flats and raise the train step's peak
+// memory.  It is K4's template -- L lanes a point, lane j computing
+// corner j of each copy once (32-bit offset and the three d w / d ix) and
+// handing the offsets over by __shfl_sync, float4 chunks of the level and of
+// g[pt, d*C + c] (scalar for C % 4 != 0 or a misaligned pointer) -- and
+// contracts in the order e_j = sum_c g[d, c] * v[corner j, c] per lane, a
+// butterfly sum of the 8 e_j over the group, then sum_j e_j * dw_j on the
+// corner's owner lane, one group sum of the three results per point, scaled
+// by dix/dp: (G-1)/2 with align_corners, G/2 without.  Like K4 it is bound by
+// the sectors of the corners it reads; channel-major, each 4-byte read was
+// its own sector and every lane recomputed all 8 corners with 64-bit
+// offsets.  Derivative convention: the floor/frac one of the plain
+// version's autograd (d frac / d ix = 1; +1 at integer ix, where the JAX
+// kernel's _dhat gives 0 -- a set of measure zero).  Deterministic.
+//
+// K8 and K6 read the channel-major flat as it is.  Their thread mapping:
 // lanes go to (point, channel) pairs.  A group of L = min(32, next power of
 // two >= C) lanes owns one point (B*N points in all) and strides over its
 // channels, so C = 1 gives one point per lane, C = 16 two points per warp,
@@ -57,14 +74,7 @@
 // indices and weights per copy.  Lanes of one group read vol[c, corner] at a
 // stride of G: each read is its own 32-byte sector, which bounds these
 // kernels by gather latency and sector traffic, not by arithmetic.  Reads of
-// g in K7/K8 are contiguous across a group's lanes.
-//
-// K7 sums g[d, c] * vol[c, corner] * dw/dix over 7 copies x 8 corners x the
-// lane's channels, reduces the group with shuffles (the tail of the last warp
-// joins with zeros), and scales by dix/dp: (G-1)/2 with align_corners, G/2
-// without.  Derivative convention: the floor/frac one of the plain version's
-// autograd (d frac / d ix = 1; +1 at integer ix, where the JAX kernel's _dhat
-// gives 0 -- a set of measure zero).  Deterministic.
+// g in K8 are contiguous across a group's lanes.
 //
 // K8 adds g[d, c] * w_corner into a zeroed (B, C, G) gradient with atomicAdd.
 // Atomics sum in a run-dependent order: a voxel that k (point, copy) pairs
@@ -132,7 +142,6 @@ __device__ __forceinline__ void axis_tap(float p, int s, float disp, int size,
 struct Corners {
   int64_t lin[8];
   float w[8];       // trilinear weight, 0 when the corner is out of range
-  float dw[8][3];   // d w / d ix per axis, 0 when out of range
 };
 
 __device__ __forceinline__ void corners(const Level& L, float p0, float p1,
@@ -152,9 +161,6 @@ __device__ __forceinline__ void corners(const Level& L, float p0, float p1,
     const float w2 = c2 ? f2 : 1.0f - f2;
     k.lin[j] = valid ? ((int64_t)a * L.g1 + b) * L.g2 + e : 0;
     k.w[j] = valid ? w0 * w1 * w2 : 0.0f;
-    k.dw[j][0] = valid ? (c0 ? 1.0f : -1.0f) * w1 * w2 : 0.0f;
-    k.dw[j][1] = valid ? w0 * (c1 ? 1.0f : -1.0f) * w2 : 0.0f;
-    k.dw[j][2] = valid ? w0 * w1 * (c2 ? 1.0f : -1.0f) : 0.0f;
   }
 }
 
@@ -174,6 +180,23 @@ __device__ __forceinline__ void corner(const Level& L, int j, int i0, int i1,
   const float w2 = c2 ? f2 : 1.0f - f2;
   off = valid ? ((a * L.g1 + b) * L.g2 + e) * L.c : 0;
   w = valid ? w0 * w1 * w2 : 0.0f;
+}
+
+// Corner j's offset, as corner() gives it, and d w / d ix of its weight per
+// axis (the floor/frac convention), all 0 when the corner is out of range.
+__device__ __forceinline__ void corner_grad(const Level& L, int j, int i0, int i1,
+                                            int i2, float f0, float f1, float f2,
+                                            int& off, float (&dw)[3]) {
+  const int c0 = j >> 2, c1 = (j >> 1) & 1, c2 = j & 1;
+  const int a = i0 + c0, b = i1 + c1, e = i2 + c2;
+  const bool valid = a >= 0 && a < L.g0 && b >= 0 && b < L.g1 && e >= 0 && e < L.g2;
+  const float w0 = c0 ? f0 : 1.0f - f0;
+  const float w1 = c1 ? f1 : 1.0f - f1;
+  const float w2 = c2 ? f2 : 1.0f - f2;
+  off = valid ? ((a * L.g1 + b) * L.g2 + e) * L.c : 0;
+  dw[0] = valid ? (c0 ? 1.0f : -1.0f) * w1 * w2 : 0.0f;
+  dw[1] = valid ? w0 * (c1 ? 1.0f : -1.0f) * w2 : 0.0f;
+  dw[2] = valid ? w0 * w1 * (c2 ? 1.0f : -1.0f) : 0.0f;
 }
 
 // Corner j's value of x, held by lane j % kLanes of the group in slot
@@ -199,6 +222,11 @@ __device__ __forceinline__ void fma_into(float w, const float4& v, float4& acc) 
   acc.y = fmaf(w, v.y, acc.y);
   acc.z = fmaf(w, v.z, acc.z);
   acc.w = fmaf(w, v.w, acc.w);
+}
+
+__device__ __forceinline__ float dot(float a, float b) { return a * b; }
+__device__ __forceinline__ float dot(const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
 
 struct alignas(8) Bf16x4 {
@@ -280,44 +308,105 @@ level_features_kernel(const float* __restrict__ vol, const float* __restrict__ q
   }
 }
 
-__global__ void level_grad_points_kernel(const float* __restrict__ vol,
-                                         const float* __restrict__ q0,
-                                         const float* __restrict__ q1,
-                                         const float* __restrict__ q2,
-                                         const float* __restrict__ g,
-                                         float* __restrict__ out, int batch,
-                                         int n, Level L, int lanes) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t pt = t / lanes;
-  const bool active = pt < (int64_t)batch * n;
-  const int lane = (int)(t % lanes);
+// K7 on the channels-last level, K4's template: kLanes lanes own a point,
+// lane j of the group computes corner j of each copy once (its offset before
+// the channel loop, its three d w / d ix after it), a lane reads kW channels
+// of the level and of g at once.
+// Per copy each lane sums e_j = sum_c g[d, c] * v[corner j, c] over its
+// chunks; the group sums the e_j (butterfly: every lane ends with all 8);
+// each corner's owner lane adds e_j * dw_j to the point's three sums, which
+// the group reduces once at the end.  No atomics: deterministic.
+template <typename VecT, int kLanes>
+__global__ void __launch_bounds__(kThreads, kLanes == 1 ? 3 : 4)  // one lane holds all 8 corners
+level_grad_points_kernel(const float* __restrict__ vol, const float* __restrict__ q0,
+                         const float* __restrict__ q1, const float* __restrict__ q2,
+                         const float* __restrict__ g, float* __restrict__ out, int batch,
+                         int n, Level L) {
+  constexpr int kW = sizeof(VecT) / sizeof(float);
+  constexpr int kSlots = kLanes >= 8 ? 1 : 8 / kLanes;
+  const int64_t total = (int64_t)batch * n;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % kLanes;
+  const bool active = t / kLanes < total;
+  const int64_t pt = active ? t / kLanes : total - 1;
+  const int b = (int)(pt / n);
+  const float p0 = q0[pt], p1 = q1[pt], p2 = q2[pt];
+  const float* v = vol + (int64_t)b * L.gsize * L.c;
+  const float* gp = g + pt * 7 * L.c;
+  const int chunks = L.c / kW;
+  int ci0, ci1, ci2;
+  float cf0, cf1, cf2;
+  axis_tap(p0, 0, L.disp, L.g0, L.ac, ci0, cf0);
+  axis_tap(p1, 0, L.disp, L.g1, L.ac, ci1, cf1);
+  axis_tap(p2, 0, L.disp, L.g2, L.ac, ci2, cf2);
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  if (active) {
-    const int b = (int)(pt / n);
-    const float p0 = q0[pt], p1 = q1[pt], p2 = q2[pt];
-    const float* v = vol + (int64_t)b * L.c * L.gsize;
-    const float* gp = g + pt * 7 * L.c;
-    Corners k;
-    for (int d = 0; d < 7; ++d) {
-      corners(L, p0, p1, p2, d, k);
-      for (int c = lane; c < L.c; c += lanes) {
-        const float* vc = v + (int64_t)c * L.gsize;
-        const float gd = gp[d * L.c + c];
+  for (int d = 0; d < 7; ++d) {
+    int i0 = ci0, i1 = ci1, i2 = ci2;
+    float f0 = cf0, f1 = cf1, f2 = cf2;
+    const int s = (d & 1) ? -1 : 1;
+    if (d == 1 || d == 2) {
+      axis_tap(p0, s, L.disp, L.g0, L.ac, i0, f0);
+    } else if (d == 3 || d == 4) {
+      axis_tap(p1, s, L.disp, L.g1, L.ac, i1, f1);
+    } else if (d >= 5) {
+      axis_tap(p2, s, L.disp, L.g2, L.ac, i2, f2);
+    }
+    int off[kSlots];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float common = gd * vc[k.lin[j]];
-          s0 += common * k.dw[j][0];
-          s1 += common * k.dw[j][1];
-          s2 += common * k.dw[j][2];
-        }
+    for (int k = 0; k < kSlots; ++k) {
+      float w;
+      corner(L, (k * kLanes + lane) & 7, i0, i1, i2, f0, f1, f2, off[k], w);
+    }
+    float e[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = 0.0f;
+    for (int c0 = 0; c0 < chunks; c0 += kLanes) {
+      const int ck = c0 + lane;
+      const bool live = ck < chunks;
+      const float* vc = v + (live ? ck : 0) * kW;  // the tail re-reads chunk 0 ...
+      VecT gv;
+      if (live) {
+        load(gp + d * L.c + ck * kW, gv);
+      } else {
+        zero(gv);  // ... against a zero cotangent
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // 4 corners at a time keeps K7 within 64 registers
+        VecT val[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) load(vc + from_corner<kLanes>(off, 4 * h + j), val[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[4 * h + j] += dot(gv, val[j]);
+      }
+    }
+#pragma unroll
+    for (int o = kLanes >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] += __shfl_xor_sync(0xffffffffu, e[j], o);
+    }
+    // corner j's owner: lane j % kLanes, slot j / kLanes (lanes past 8 of a
+    // wider group repeat a corner and add nothing)
+    if (kLanes < 8 || lane < 8) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int j = (k * kLanes + lane) & 7;
+        int unused;
+        float dw[3];  // computed here, not held through the channel loop
+        corner_grad(L, j, i0, i1, i2, f0, f1, f2, unused, dw);
+        float ej = 0.0f;  // e[j] by selects: a lane-dependent index would put e in local memory
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ej = i == j ? e[i] : ej;
+        s0 = fmaf(ej, dw[0], s0);
+        s1 = fmaf(ej, dw[1], s1);
+        s2 = fmaf(ej, dw[2], s2);
       }
     }
   }
-  // reduce within the lane group (groups are aligned, power-of-two wide)
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+#pragma unroll
+  for (int o = kLanes >> 1; o > 0; o >>= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   }
   if (active && lane == 0) {
     const float a0 = L.ac ? 0.5f * (L.g0 - 1.0f) : 0.5f * L.g0;
@@ -465,6 +554,22 @@ void launch_features(int lanes, const float* vol, const float* q0, const float* 
       vol, q0, q1, q2, out, batch, n, L);
 }
 
+template <typename VecT>
+void launch_grad_points(int lanes, const float* const (&a)[5], float* out, int batch, int n,
+                        const Level& L, cudaStream_t stream) {
+  auto kernel = level_grad_points_kernel<VecT, 32>;
+  switch (lanes) {
+    case 1: kernel = level_grad_points_kernel<VecT, 1>; break;
+    case 2: kernel = level_grad_points_kernel<VecT, 2>; break;
+    case 4: kernel = level_grad_points_kernel<VecT, 4>; break;
+    case 8: kernel = level_grad_points_kernel<VecT, 8>; break;
+    case 16: kernel = level_grad_points_kernel<VecT, 16>; break;
+    default: break;
+  }
+  kernel<<<blocks_for((int64_t)batch * n * lanes, kThreads), kThreads, 0, stream>>>(
+      a[0], a[1], a[2], a[3], a[4], out, batch, n, L);
+}
+
 // K4 (OutT float) and K5 (bf16) on a channels-last (B, G, C) level.
 template <typename OutT>
 int level_features_entry(const void* vol, const void* q0, const void* q1,
@@ -530,6 +635,7 @@ extern "C" int sv3d_level_fc0(const void* vol, const void* w0l, const void* q0,
   return (int)cudaGetLastError();
 }
 
+// K7 on a channels-last (B, G, C) level.
 extern "C" int sv3d_level_grad_points(const void* vol, const void* q0,
                                       const void* q1, const void* q2,
                                       const void* g, void* out, int batch,
@@ -537,14 +643,18 @@ extern "C" int sv3d_level_grad_points(const void* vol, const void* q0,
                                       int align_corners, float disp,
                                       void* stream) {
   const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
-  const int lanes = lanes_for(c);
-  // whole warps, so every lane of a warp reaches the shuffles
-  const int64_t total = ((int64_t)batch * n * lanes + 31) / 32 * 32;
-  if (total > 0) {
-    level_grad_points_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)vol, (const float*)q0, (const float*)q1, (const float*)q2,
-        (const float*)g, (float*)out, batch, n, L, lanes);
+  if (L.gsize * c >= (int64_t{1} << 31)) return (int)cudaErrorInvalidValue;
+  if ((int64_t)batch * n > 0) {
+    const bool vec = c % 4 == 0 && (uintptr_t)vol % 16 == 0 && (uintptr_t)g % 16 == 0;
+    const float* args[] = {(const float*)vol, (const float*)q0, (const float*)q1,
+                           (const float*)q2, (const float*)g};
+    if (vec) {
+      launch_grad_points<float4>(lanes_for(c / 4), args, (float*)out, batch, n, L,
+                                 (cudaStream_t)stream);
+    } else {
+      launch_grad_points<float>(lanes_for(c), args, (float*)out, batch, n, L,
+                                (cudaStream_t)stream);
+    }
   }
   return (int)cudaGetLastError();
 }

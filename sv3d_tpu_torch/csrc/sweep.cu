@@ -1,17 +1,24 @@
 // Dense-lattice sweep for Hopper: trilinear features of the 7 displaced
 // lattice copies at every pyramid level, fc0, and the IF-Net decoder MLP,
-// fused per tile of lattice points.
+// fused per tile of lattice points.  Two kernels, one per compute dtype of
+// IFNet.query_lattice:
 //
-// Replaces the TPU kernel sv3d_tpu/ops/pallas/sweep.py::fused_sweep_tail.  The
-// contract is not that kernel's input layout (pre-resized axis-0/1 partials,
-// m2 stacks, 8-channel padding) but the lattice logits of the unfused
-// query_lattice math (sv3d_tpu/models/ifnet.py:648-735) for lattice rows
-// [row_offset, row_offset + rows): the wrapper hands the kernel the per-axis
-// 2-tap tables of the slab (ops/lattice.py::axis_taps, the nonzeros of
-// interp_matrix), so out-of-range taps weigh 0 and both align_corners
-// conventions are the tables' business.
+//   K2 f32   lattice_sweep_kernel       (compute_dtype float32, the parity route)
+//   K2 bf16  lattice_sweep_bf16_kernel  (compute_dtype bfloat16, the serving default)
 //
-// Design: a block owns kTile consecutive lattice points (flattened over
+// Both replace the TPU kernel sv3d_tpu/ops/pallas/sweep.py::fused_sweep_tail.
+// The contract is not that kernel's input layout (pre-resized axis-0/1
+// partials, m2 stacks, 8-channel padding) but the lattice logits of the
+// unfused query_lattice math (sv3d_tpu/models/ifnet.py:648-735) for lattice
+// rows [row_offset, row_offset + rows): the sweep plan
+// (ops/cuda/sweep.py::SweepPlan) hands the kernels the per-axis 2-tap tables
+// of the whole lattice once per sweep (ops/lattice.py::axis_taps, the
+// nonzeros of interp_matrix), indexed on axis 0 by the lattice row, so
+// out-of-range taps and rows past the lattice weigh 0 and both
+// align_corners conventions are the tables' business.  A slab's launch does
+// no host work beyond the launch itself.
+//
+// f32 design: a block owns kTile consecutive lattice points (flattened over
 // (row, r1, r2), so no tile is wasted at a row's end).  For each displacement
 // d (center, -d0, +d0, -d1, +d1, -d2, +d2) and level l it interpolates the
 // tile's C_l features into shared memory and accumulates them straight into
@@ -19,16 +26,53 @@
 // f[c][t]; the 2583-wide feature vector is never whole anywhere.  bias+ReLU,
 // fc1, fc2 and fc_out then run in the block on the hidden tile in shared
 // memory.  Each thread owns 2 fc0 outputs x kTile points of accumulators, so
-// one shared-memory float4 broadcast feeds 8 FMAs.
+// one shared-memory float4 broadcast feeds 8 FMAs.  Bound on the H100: f32
+// FMA issue.  fc0 is 2 * 2583 * 256 flop per point, about 2.1 Tflop for the
+// 1.62M-point full-scale lattice (fc1 + fc2 add 0.4), against 67 Tflop/s of
+// f32 FMA; fc0's weights (2.6 MB) stay in L2 and each block reads them once.
+// It agrees with the plain f32 torch version to f32 summation order.
 //
-// Bound on the H100: f32 FMA issue.  fc0 is 2 * 2583 * 256 flop per point,
-// about 2.1 Tflop for the 1.62M-point full-scale lattice (fc1 + fc2 add 0.4),
-// against 67 Tflop/s of f32 FMA; fc0's weights (2.6 MB) stay in L2 and each
-// block reads them once.  The feature gathers read each level's 2x2x2
-// neighbourhoods through L1/L2.  Tensor cores (bf16 / TF32 wgmma) and TMA
-// are later work; this kernel is plain f32 FMA and agrees with the plain
-// torch version to f32 summation order.
+// bf16 design: the JAX fused tail's precision class -- levels rounded to
+// bf16 (the plan stages them channels-last once a sweep), the feature
+// interpolated in f32 with f32 tap weights and rounded to bf16 once (round
+// to nearest even), fc0/fc1/fc2/fc_out weights in bf16, f32 accumulation and
+// f32 biases, each ReLU output rounded to bf16, fc_out summed in f32; the
+// plain version (lattice_sweep_plain with compute_dtype=torch.bfloat16)
+// applies exactly those rounding points.  On the H100 the f32 kernel is
+// bound by f32 FMA: fc0's 2.1 TFLOP over the lattice take at least 32 ms at
+// 67 TFLOP/s, against 2.2 ms at the tensor cores' 989 TFLOP/s in bf16.  Here
+// fc0, fc1 and fc2 run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate), so what is left is the gather: 8 corners x 2583 features a
+// point, 8 f32 FMAs of interpolation each, at the f32 rate.  A block owns kM =
+// 64 lattice points and all H0 fc0 outputs; warp w owns 32 fc0 columns
+// (64 f32 accumulators a lane) for all 64 points.  fc0's K runs over (d,
+// level) groups in a fixed order (the plan's: each one-channel level's 7
+// copies packed into one k16 chunk, then d-major the levels of C % 16 == 0,
+// C / 16 chunks each), so a point's logits do not depend on the slab it
+// came in.  Per group the tile's 64 x 8 corners (32-bit offset, f32 weight)
+// are computed once into shared memory, then each item -- a point's 8
+// channels -- reads one 16-byte run of each corner from the channels-last
+// bf16 level, sums in f32, rounds, and stores 16 bytes into the A chunk
+// (64 x C bf16, rows padded to 136 for conflict-free ldmatrix).  A chunks and
+// corner tables are double-buffered, so one barrier a group suffices and a
+// warp that finishes its MMAs starts the next group's gather while others
+// still multiply (how far the two phases overlap at the 2 blocks an SM that
+// 128 registers allow is not measured).  B (the weights) arrives in mma fragment order, laid out
+// once by the plan, through a 3-deep cp.async ring per warp: a warp's
+// columns are its own, so shared memory buys no reuse across warps, and
+// each lane copies and reads back only its own 16 bytes, needing no barrier.
+// mma.sync rather than wgmma: a 64-row warpgroup tile would need the 64 x K
+// A chunk in wgmma's swizzled shared-memory layout and descriptors, written
+// by a gather whose rows are points, which this first tensor-core version
+// keeps simple; the MMAs are not what bounds it (a point's 2583 bf16 MACs of
+// fc0 cost less than its 8 x 2583 gathered values).  The tail: bias + ReLU +
+// bf16 into shared memory over the A buffers (64 x (H0 + 8)), fc1 and fc2 as
+// MMAs with their weights streamed the same way, fc_out as a 256-term f32
+// dot per point, the ragged tail's stores masked.  Levels need C = 1 or
+// C % 16 == 0 with C <= 128 (every IF-Net configuration); the wrapper raises
+// otherwise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +131,7 @@ lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restric
                      const float* __restrict__ b1, const float* __restrict__ w2t,
                      const float* __restrict__ b2, const float* __restrict__ w3,
                      const float* __restrict__ b3, float* __restrict__ out, int rows,
-                     int r1, int r2, int sum_c) {
+                     int row_offset, int r0, int r1, int r2, int sum_c) {
   constexpr int NT = H0 / 2;         // threads; each owns fc0 outputs tid, tid+NT
   constexpr int OH = kHidden / NT;   // hidden outputs per thread
   extern __shared__ float4 smem4[];  // [max(C_l, H0)][kTile]
@@ -103,7 +147,7 @@ lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restric
     s_y[tid] = p % r2;
     const int q = p / r2;
     s_x[tid] = q % r1;
-    s_a[tid] = q / r1;
+    s_a[tid] = row_offset + q / r1;  // the lattice row
   }
   float acc[2][kTile];
 #pragma unroll
@@ -122,11 +166,14 @@ lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restric
       const int C = m[0], g1 = m[2], g2 = m[3];
       const int64_t G = (int64_t)m[1] * g1 * g2;
       const float* vol = vols[l] + (int64_t)b * C * G;
-      const int e0 = m[4] + v0 * rows, e1 = m[5] + v1 * r1, e2 = m[6] + v2 * r2;
+      const int e0 = m[4] + v0 * r0, e1 = m[5] + v1 * r1, e2 = m[6] + v2 * r2;
 
       for (int i = tid; i < C * kTile; i += NT) {
         const int c = i / kTile, t = i % kTile;
-        const int ea = 2 * (e0 + s_a[t]), ex = 2 * (e1 + s_x[t]), ey = 2 * (e2 + s_y[t]);
+        // rows past the lattice (the padded last slab) weigh 0
+        const bool row_ok = s_a[t] < r0;
+        const int ea = 2 * (e0 + (row_ok ? s_a[t] : 0));
+        const int ex = 2 * (e1 + s_x[t]), ey = 2 * (e2 + s_y[t]);
         const float* vc = vol + c * G;
         const int k0 = __ldg(tap_idx + ey), k1 = __ldg(tap_idx + ey + 1);
         const float wk0 = __ldg(tap_w + ey), wk1 = __ldg(tap_w + ey + 1);
@@ -134,7 +181,7 @@ lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restric
 #pragma unroll
         for (int ca = 0; ca < 2; ++ca) {
           const int ia = __ldg(tap_idx + ea + ca);
-          const float wa = __ldg(tap_w + ea + ca);
+          const float wa = row_ok ? __ldg(tap_w + ea + ca) : 0.f;
 #pragma unroll
           for (int cb = 0; cb < 2; ++cb) {
             const int ib = __ldg(tap_idx + ex + cb);
@@ -192,8 +239,8 @@ template <int H0>
 cudaError_t launch(const float* const* vols, const int* meta, int n_levels, const int* tap_idx,
                    const float* tap_w, const float* w0t, const float* b0, const float* w1t,
                    const float* b1, const float* w2t, const float* b2, const float* w3,
-                   const float* b3, float* out, int batch, int rows, int r1, int r2, int sum_c,
-                   int max_c, cudaStream_t stream) {
+                   const float* b3, float* out, int batch, int rows, int row_offset, int r0,
+                   int r1, int r2, int sum_c, int max_c, cudaStream_t stream) {
   const int n = rows * r1 * r2;
   const size_t smem = (size_t)(max_c > H0 ? max_c : H0) * kTile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(lattice_sweep_kernel<H0>,
@@ -201,8 +248,8 @@ cudaError_t launch(const float* const* vols, const int* meta, int n_levels, cons
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)batch);
   lattice_sweep_kernel<H0><<<grid, H0 / 2, smem, stream>>>(
-      vols, meta, n_levels, tap_idx, tap_w, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, rows, r1,
-      r2, sum_c);
+      vols, meta, n_levels, tap_idx, tap_w, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, rows,
+      row_offset, r0, r1, r2, sum_c);
   return cudaGetLastError();
 }
 
@@ -212,8 +259,9 @@ extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_leve
                                   const void* tap_idx, const void* tap_w, const void* w0t,
                                   const void* b0, const void* w1t, const void* b1,
                                   const void* w2t, const void* b2, const void* w3,
-                                  const void* b3, void* out, int batch, int rows, int r1,
-                                  int r2, int sum_c, int h0, int max_c, void* stream) {
+                                  const void* b3, void* out, int batch, int rows,
+                                  int row_offset, int r0, int r1, int r2, int sum_c, int h0,
+                                  int max_c, void* stream) {
   auto* v = (const float* const*)vols;
   auto* mt = (const int*)meta;
   auto* ti = (const int*)tap_idx;
@@ -224,11 +272,428 @@ extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_leve
     return (int)launch<256>(v, mt, n_levels, ti, tw, (const float*)w0t, (const float*)b0,
                             (const float*)w1t, (const float*)b1, (const float*)w2t,
                             (const float*)b2, (const float*)w3, (const float*)b3, o, batch,
-                            rows, r1, r2, sum_c, max_c, s);
+                            rows, row_offset, r0, r1, r2, sum_c, max_c, s);
   if (h0 == 512)
     return (int)launch<512>(v, mt, n_levels, ti, tw, (const float*)w0t, (const float*)b0,
                             (const float*)w1t, (const float*)b1, (const float*)w2t,
                             (const float*)b2, (const float*)w3, (const float*)b3, o, batch,
-                            rows, r1, r2, sum_c, max_c, s);
+                            rows, row_offset, r0, r1, r2, sum_c, max_c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K2 bf16 (see the note at the top).
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kM = 64;          // lattice points per block: 4 m-tiles of 16 rows
+constexpr int kAStride = 136;   // bf16 per A row: up to 128 channels + 8, 272 bytes = 17
+                                // 16-byte units, so ldmatrix's 8 rows hit 8 distinct banks
+constexpr int kStages = 3;      // depth of each warp's cp.async ring of B fragments
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// One warp's stream of B fragments (a weight matrix laid out by the sweep
+// plan, ops/cuda/sweep.py::mma_b_fragments: per 16-row chunk of K, per pair
+// of 8-column n-tiles, per lane, the 8 bf16 of that lane's fragments of
+// both tiles) through a kStages-deep cp.async ring in shared memory.  Each
+// lane copies and later reads back only its own 16 bytes per pair, so the
+// ring needs no barrier: cp.async.wait_group orders a lane's own copies.
+template <int kPairs>
+struct BStream {
+  const uint4* src;  // this warp's first pair in chunk 0
+  int stride;        // uint4 per chunk (all pairs of the matrix x 32 lanes)
+  int n_chunks;
+  uint4* ring;       // this warp's ring: kStages x kPairs x 32 uint4
+  int lane;
+  int next;
+
+  __device__ __forceinline__ void fetch() {
+    if (next < n_chunks) {
+      uint4* dst = ring + (next % kStages) * kPairs * 32 + lane;
+      const uint4* s = src + (int64_t)next * stride + lane;
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) cp_async16(dst + p * 32, s + p * 32);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+    ++next;
+  }
+  __device__ __forceinline__ void start() {
+    next = 0;
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) fetch();
+  }
+  // chunk k's fragments, k = 0, 1, 2, ... in turn: b[t] for the warp's n-tile t
+  __device__ __forceinline__ void get(int k, uint32_t (&b)[2 * kPairs][2]) {
+    fetch();
+    cp_async_wait<kStages - 1>();
+    const uint4* r = ring + (k % kStages) * kPairs * 32 + lane;
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      const uint4 v = r[p * 32];
+      b[2 * p][0] = v.x;
+      b[2 * p][1] = v.y;
+      b[2 * p + 1][0] = v.z;
+      b[2 * p + 1][1] = v.w;
+    }
+  }
+};
+
+// acc[mt][nt] += A[mt*16.., col..col+16) x B chunk, A row-major bf16 in
+// shared memory with a row stride of `stride`; the warp takes all 64 rows
+template <int kNT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[4][kNT][4], const bf16* a, int stride,
+                                          int col, const uint32_t (&b)[kNT][2], int lane) {
+  const bf16* p = a + (lane & 15) * stride + col + (lane >> 4) * 8;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    uint32_t af[4];
+    ldmatrix_x4(af, p + mt * 16 * stride);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af, b[nt][0], b[nt][1]);
+  }
+}
+
+// relu(acc + bias) rounded to bf16 into h[row][n0 + col] (the mma
+// accumulator layout: rows lane/4 and lane/4 + 8, columns 2 (lane % 4) + 0, 1)
+template <int kNT>
+__device__ __forceinline__ void store_hidden(const float (&acc)[4][kNT][4],
+                                             const float* __restrict__ bias, bf16* h, int hs,
+                                             int n0, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = n0 + nt * 8 + (lane & 3) * 2;
+    const float c0 = __ldg(bias + col), c1 = __ldg(bias + col + 1);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const int row = mt * 16 + (lane >> 2);
+      const float* v = acc[mt][nt];
+      *reinterpret_cast<uint32_t*>(h + row * hs + col) =
+          pack_bf16(fmaxf(v[0] + c0, 0.f), fmaxf(v[1] + c1, 0.f));
+      *reinterpret_cast<uint32_t*>(h + (row + 8) * hs + col) =
+          pack_bf16(fmaxf(v[2] + c0, 0.f), fmaxf(v[3] + c1, 0.f));
+    }
+  }
+}
+
+// One hidden layer of 256 outputs on the tile: h (kM x k_chunks*16 bf16) is
+// replaced by relu(W h + b) rounded to bf16 (its first 256 columns).
+template <int kNT>
+__device__ __forceinline__ void dense_bf16(bf16* h, int hs, int k_chunks, BStream<kNT / 2>& bs,
+                                           const float* __restrict__ bias, int n0, int lane) {
+  float acc[4][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  bs.start();
+  for (int k = 0; k < k_chunks; ++k) {
+    uint32_t b[kNT][2];
+    bs.get(k, b);
+    mma_chunk<kNT>(acc, h, hs, k * 16, b, lane);
+  }
+  __syncthreads();  // every warp has read h
+  store_hidden<kNT>(acc, bias, h, hs, n0, lane);
+  __syncthreads();
+}
+
+// Corner j (bits: axis 0, 1, 2) of lattice point (row, x, y) displaced by
+// copy d on a level: its element offset voxel * C in the channels-last
+// level and its trilinear weight wa * wb * wc from the plan's 2-tap tables
+// (meta m: C, g0, g1, g2 and the level's table offsets); a row past the
+// lattice (the padded last slab) weighs 0.
+__device__ __forceinline__ void lattice_corner(const int* m, int d, int row, int x, int y, int j,
+                                               int r0, int r1, int r2,
+                                               const int* __restrict__ tap_idx,
+                                               const float* __restrict__ tap_w, int& off,
+                                               float& w) {
+  const int v0 = d == 1 ? 1 : (d == 2 ? 2 : 0);
+  const int v1 = d == 3 ? 1 : (d == 4 ? 2 : 0);
+  const int v2 = d == 5 ? 1 : (d == 6 ? 2 : 0);
+  const bool row_ok = row < r0;
+  const int ea = 2 * (m[4] + v0 * r0 + (row_ok ? row : 0)) + (j >> 2);
+  const int ex = 2 * (m[5] + v1 * r1 + x) + ((j >> 1) & 1);
+  const int ey = 2 * (m[6] + v2 * r2 + y) + (j & 1);
+  const float wa = row_ok ? __ldg(tap_w + ea) : 0.f;
+  off = ((__ldg(tap_idx + ea) * m[2] + __ldg(tap_idx + ex)) * m[3] + __ldg(tap_idx + ey)) * m[0];
+  w = wa * __ldg(tap_w + ex) * __ldg(tap_w + ey);
+}
+
+struct Tile {
+  const int* row;  // per point: lattice row, axis-1 and axis-2 index (shared memory)
+  const int* x;
+  const int* y;
+  int r0, r1, r2;
+  const int* tap_idx;
+  const float* tap_w;
+};
+
+// the 8 corners of copy d on level m for every point of the tile, once,
+// into off[p * 8 + j] and w[p * 8 + j]
+template <int NT>
+__device__ __forceinline__ void tile_corners(const Tile& T, const int* m, int d, int* off,
+                                             float* w) {
+  for (int i = threadIdx.x; i < kM * 8; i += NT) {
+    const int p = i >> 3;
+    lattice_corner(m, d, T.row[p], T.x[p], T.y[p], i & 7, T.r0, T.r1, T.r2, T.tap_idx, T.tap_w,
+                   off[i], w[i]);
+  }
+}
+
+// The A chunk of a (d, level) group: a[p][c] = sum_j w_j * vol[corner j][c]
+// in f32, rounded to bf16 once.  One item is a point's 8 channels: each
+// corner's 8 channels are one 16-byte read of the channels-last level.
+template <int NT>
+__device__ __forceinline__ void gather_group(const bf16* __restrict__ vol, int c, const int* off,
+                                             const float* w, bf16* a) {
+  const int pieces = c >> 3;
+  for (int i = threadIdx.x; i < kM * pieces; i += NT) {
+    const int p = i / pieces, piece = i - p * pieces;
+    const bf16* src = vol + piece * 8;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint4 raw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        raw[j] = __ldg(reinterpret_cast<const uint4*>(src + off[p * 8 + half * 4 + j]));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float wj = w[p * 8 + half * 4 + j];
+        const uint32_t u[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[2 * q] = fmaf(wj, bf16_lo(u[q]), acc[2 * q]);
+          acc[2 * q + 1] = fmaf(wj, bf16_hi(u[q]), acc[2 * q + 1]);
+        }
+      }
+    }
+    const uint4 v = make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
+                               pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7]));
+    *reinterpret_cast<uint4*>(a + p * kAStride + piece * 8) = v;
+  }
+}
+
+// The packed chunk of a one-channel level: a[p][d] for the 7 copies, zeros
+// in columns 7..15; each item computes its own 8 corners.
+template <int NT>
+__device__ __forceinline__ void gather_packed(const Tile& T, const bf16* __restrict__ vol,
+                                              const int* m, bf16* a) {
+  for (int i = threadIdx.x; i < kM * 16; i += NT) {
+    const int p = i >> 4, d = i & 15;
+    float acc = 0.f;
+    if (d < 7) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int off;
+        float w;
+        lattice_corner(m, d, T.row[p], T.x[p], T.y[p], j, T.r0, T.r1, T.r2, T.tap_idx, T.tap_w,
+                       off, w);
+        acc = fmaf(w, __bfloat162float(vol[off]), acc);
+      }
+    }
+    a[p * kAStride + d] = __float2bfloat16_rn(acc);
+  }
+}
+
+// NW warps, H0 = 32 NW fc0 outputs: warp w owns fc0 columns [32 w, 32 w + 32)
+// and 256 / NW columns of fc1 and fc2, for all kM points of the tile.
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+lattice_sweep_bf16_kernel(const bf16* const* __restrict__ vols, const int* __restrict__ meta,
+                          const int4* __restrict__ groups, int n_groups,
+                          const int* __restrict__ tap_idx, const float* __restrict__ tap_w,
+                          const uint4* __restrict__ w0f, int k0_chunks,
+                          const float* __restrict__ b0, const uint4* __restrict__ w1f,
+                          const float* __restrict__ b1, const uint4* __restrict__ w2f,
+                          const float* __restrict__ b2, const float* __restrict__ w3,
+                          const float* __restrict__ b3, float* __restrict__ out, int rows,
+                          int row_offset, int r0, int r1, int r2) {
+  constexpr int NT = NW * 32;
+  constexpr int H0 = NW * 32;
+  constexpr int HS = H0 + 8;  // hidden row stride (bf16): an odd number of 16-byte units
+  constexpr int kTailNT = 32 / NW;  // n-tiles per warp in fc1 and fc2
+  constexpr int kABytes = 2 * kM * kAStride * 2;
+  constexpr int kHBytes = kM * HS * 2;
+  constexpr int kUBytes = kABytes > kHBytes ? kABytes : kHBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* abuf = reinterpret_cast<bf16*>(smem);  // A[2][kM][kAStride]; after fc0 the hidden [kM][HS]
+  int* s_off = reinterpret_cast<int*>(smem + kUBytes);        // [2][kM * 8]
+  float* s_w = reinterpret_cast<float*>(s_off + 2 * kM * 8);  // [2][kM * 8]
+  uint4* ring = reinterpret_cast<uint4*>(s_w + 2 * kM * 8);   // [NW][kStages][2][32]
+  __shared__ int s_row[kM], s_x[kM], s_y[kM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = rows * r1 * r2;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kM;
+  if (tid < kM) {
+    const int p = min(p0 + tid, n - 1);  // the ragged tail repeats a point; its store is masked
+    s_y[tid] = p % r2;
+    const int q = p / r2;
+    s_x[tid] = q % r1;
+    s_row[tid] = row_offset + q / r1;
+  }
+  const Tile T{s_row, s_x, s_y, r0, r1, r2, tap_idx, tap_w};
+  uint4* my_ring = ring + warp * kStages * 2 * 32;
+  BStream<2> bs0{w0f + warp * 2 * 32, (H0 / 16) * 32, k0_chunks, my_ring, lane, 0};
+  bs0.start();
+  __syncthreads();
+
+  // groups: (level, d or -1 for a packed one-channel level, k16 chunks, -);
+  // corners of group g live in buffer g % 2, its A chunk in A buffer g % 2
+  auto corners_of = [&](int g) {
+    if (g >= n_groups) return;
+    const int4 gr = __ldg(groups + g);
+    if (gr.y >= 0) {
+      tile_corners<NT>(T, meta + gr.x * 8, gr.y, s_off + (g & 1) * kM * 8,
+                       s_w + (g & 1) * kM * 8);
+    }
+  };
+  auto gather = [&](int g) {
+    const int4 gr = __ldg(groups + g);
+    const int* m = meta + gr.x * 8;
+    const bf16* vol = vols[gr.x] + (int64_t)b * m[1] * m[2] * m[3] * m[0];
+    bf16* a = abuf + (g & 1) * kM * kAStride;
+    if (gr.y < 0) {
+      gather_packed<NT>(T, vol, m, a);
+    } else {
+      gather_group<NT>(vol, m[0], s_off + (g & 1) * kM * 8, s_w + (g & 1) * kM * 8, a);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  corners_of(0);
+  corners_of(1);
+  __syncthreads();
+  gather(0);
+  __syncthreads();
+  int k = 0;  // fc0 chunk, in the plan's fixed order
+  for (int g = 0; g < n_groups; ++g) {
+    const int chunks = __ldg(groups + g).z;
+    const bf16* a = abuf + (g & 1) * kM * kAStride;
+    for (int q = 0; q < chunks; ++q, ++k) {
+      uint32_t bf[4][2];
+      bs0.get(k, bf);
+      mma_chunk<4>(acc, a, kAStride, q * 16, bf, lane);
+    }
+    // warps that finish their MMAs start the next gather while others still
+    // multiply; one barrier a group
+    if (g + 1 < n_groups) gather(g + 1);
+    corners_of(g + 2);
+    __syncthreads();
+  }
+
+  // fc0 bias + ReLU -> bf16 hidden over the A buffers, then fc1, fc2
+  store_hidden<4>(acc, b0, abuf, HS, warp * 32, lane);
+  __syncthreads();
+  BStream<kTailNT / 2> bs1{w1f + warp * (kTailNT / 2) * 32, 16 * 32, H0 / 16, my_ring, lane, 0};
+  dense_bf16<kTailNT>(abuf, HS, H0 / 16, bs1, b1, warp * (256 / NW), lane);
+  BStream<kTailNT / 2> bs2{w2f + warp * (kTailNT / 2) * 32, 16 * 32, 16, my_ring, lane, 0};
+  dense_bf16<kTailNT>(abuf, HS, 16, bs2, b2, warp * (256 / NW), lane);
+
+  // fc_out: a 256-term f32 dot a point, NT / kM threads a point
+  constexpr int TP = NT / kM;
+  const int p = tid / TP, part = tid % TP;
+  float s = 0.f;
+  for (int c = part; c < 256; c += TP) s = fmaf(__bfloat162float(abuf[p * HS + c]), __ldg(w3 + c), s);
+#pragma unroll
+  for (int o = TP / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (part == 0 && p0 + p < n) out[(int64_t)b * n + p0 + p] = s + __ldg(b3);
+}
+
+template <int NW>
+cudaError_t launch_bf16(const void* vols, const void* meta, const void* groups, int n_groups,
+                        const void* tap_idx, const void* tap_w, const void* w0f, int k0_chunks,
+                        const void* b0, const void* w1f, const void* b1, const void* w2f,
+                        const void* b2, const void* w3, const void* b3, void* out, int batch,
+                        int rows, int row_offset, int r0, int r1, int r2, cudaStream_t stream) {
+  constexpr int H0 = NW * 32;
+  constexpr int kABytes = 2 * kM * kAStride * 2;
+  constexpr int kHBytes = kM * (H0 + 8) * 2;
+  const size_t smem = (size_t)(kABytes > kHBytes ? kABytes : kHBytes) + 2 * kM * 8 * 8 +
+                      (size_t)NW * kStages * 2 * 32 * 16;
+  cudaError_t err = cudaFuncSetAttribute(lattice_sweep_bf16_kernel<NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n = rows * r1 * r2;
+  const dim3 grid((unsigned)((n + kM - 1) / kM), (unsigned)batch);
+  lattice_sweep_bf16_kernel<NW><<<grid, NW * 32, smem, stream>>>(
+      (const bf16* const*)vols, (const int*)meta, (const int4*)groups, n_groups,
+      (const int*)tap_idx, (const float*)tap_w, (const uint4*)w0f, k0_chunks, (const float*)b0,
+      (const uint4*)w1f, (const float*)b1, (const uint4*)w2f, (const float*)b2,
+      (const float*)w3, (const float*)b3, (float*)out, rows, row_offset, r0, r1, r2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sv3d_lattice_sweep_bf16(const void* vols, const void* meta, const void* groups,
+                                       int n_groups, const void* tap_idx, const void* tap_w,
+                                       const void* w0f, int k0_chunks, const void* b0,
+                                       const void* w1f, const void* b1, const void* w2f,
+                                       const void* b2, const void* w3, const void* b3,
+                                       void* out, int batch, int rows, int row_offset, int r0,
+                                       int r1, int r2, int h0, void* stream) {
+  if (rows * r1 * r2 <= 0 || batch <= 0) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (h0 == 256)
+    return (int)launch_bf16<8>(vols, meta, groups, n_groups, tap_idx, tap_w, w0f, k0_chunks, b0,
+                               w1f, b1, w2f, b2, w3, b3, out, batch, rows, row_offset, r0, r1,
+                               r2, s);
+  if (h0 == 512)
+    return (int)launch_bf16<16>(vols, meta, groups, n_groups, tap_idx, tap_w, w0f, k0_chunks, b0,
+                                w1f, b1, w2f, b2, w3, b3, out, batch, rows, row_offset, r0, r1,
+                                r2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,17 @@
 """Dense-grid occupancy evaluation, arbitrary-point evaluation and mesh
 extraction (port of sv3d_tpu/inference/dense_grid.py, one device).
 
-The IF-Net pyramid is encoded once, then the dense lattice over
-[-0.5, 0.5]^3 is swept in slabs of slab_rows axis-0 rows through
-IFNet.query_lattice (the CUDA sweep kernel on the card).  slab_rows is a
-parameter of the sweep, not a layout: the kernel takes any row count per
-launch.  evaluate_points queries arbitrary points in fixed-shape tiles
-through IFNet.query_fused (kernels K6 or K4) or the exact gather path.
+The IF-Net pyramid is encoded once, the sweep is prepared once
+(IFNet.sweep_plan), then the dense lattice over [-0.5, 0.5]^3 is swept in
+slabs of slab_rows axis-0 rows through IFNet.query_lattice (the CUDA sweep
+kernel K2 on the card) in the JAX package's compute dtype, bfloat16, unless
+evaluate_on_grid_device is asked for float32.  slab_rows is a parameter of
+the sweep, not a layout: the kernel takes any row count per launch, and a
+point's value does not depend on it.  Its default, None, sweeps the whole
+lattice in one launch, the fastest on the card (the JAX package's default
+of 1 row was sized for the TPU's VMEM).  evaluate_points queries arbitrary
+points in fixed-shape tiles through IFNet.query_fused (kernels K6 or K4) or
+the exact gather path.
 """
 
 from __future__ import annotations
@@ -22,27 +27,34 @@ from sv3d_tpu_torch.ops.grid_sample import Pyramid
 
 
 def evaluate_on_grid_device(
-    model: IFNet, levels, resolution, res_increase: int = 1, slab_rows: int = 1,
+    model: IFNet, levels, resolution, res_increase: int = 1, slab_rows: int | None = None,
+    compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Whole dense sweep, result left on the levels' device: (r0_padded, r1,
     r2) sigmoid occupancy; rows past resolution[0] * res_increase are padding
-    for the caller to trim."""
+    for the caller to trim.  One sweep plan a call; each slab of slab_rows
+    rows (None: all of them) is one launch with no host-to-device copy.
+    compute_dtype: bfloat16 (the JAX package's default) or float32 (exact,
+    the parity route)."""
     resolution = tuple(int(x) for x in resolution)
     r0 = resolution[0] * res_increase
+    slab_rows = r0 if slab_rows is None else int(slab_rows)
     n_slabs = -(-r0 // slab_rows)
     with torch.inference_mode():
+        plan = model.sweep_plan(levels, resolution, res_increase, compute_dtype)
         slabs = [
-            torch.sigmoid(
-                model.query_lattice(levels, resolution, res_increase, slab_rows, s * slab_rows)
-            )[0]
+            model.query_lattice(levels, resolution, res_increase, slab_rows, s * slab_rows,
+                                compute_dtype, plan=plan)[0]
             for s in range(n_slabs)
         ]
-        return torch.cat(slabs, dim=0)
+        # one sigmoid over the whole lattice: a CPU elementwise kernel may
+        # round its vector body and its tail differently
+        return torch.sigmoid(torch.cat(slabs, dim=0))
 
 
 def evaluate_on_grid(
     model: IFNet, grid: torch.Tensor, resolution, res_increase: int = 1,
-    slab_rows: int = 1, transfer_dtype=torch.float32,
+    slab_rows: int | None = None, transfer_dtype=torch.float32,
 ) -> np.ndarray:
     """Sigmoid occupancy on the dense lattice, as a float32 numpy volume
     (r0, r1, r2), r_i = resolution[i] * res_increase.
@@ -120,7 +132,7 @@ def evaluate_points(
 
 def implicit_to_mesh(
     model: IFNet, grid: torch.Tensor, resolution, threshold_p: float,
-    output_path: str | Path, res_increase: int = 1, slab_rows: int = 1,
+    output_path: str | Path, res_increase: int = 1, slab_rows: int | None = None,
     transfer_dtype=torch.uint8,
 ):
     """Dense evaluation -> marching cubes on (1 - occupancy) at level

@@ -18,11 +18,12 @@ package picks them: query() is the exact f32 gather path; query_fused()
 runs the point-query kernels (K4 forward, K7/K8 backward) level by level and
 contracts fc0 per level, so the (B, N, 7*sumC) feature tensor never exists;
 with bands= set it runs the inference-only K6, which contracts fc0 inside the
-kernel.  The port's fused paths are f32 throughout, exact like query(); the
-JAX fused paths are bf16 with f32 accumulation.  query_lattice() sweeps the
-dense lattice through K2 by default, or materializes the slab's features
-and runs the decoder through K3 (fused_tail=False).  No mesh / shard_map
-routing: one device.
+kernel.  The port's fused point paths are f32 throughout, exact like
+query(); the JAX fused paths are bf16 with f32 accumulation.
+query_lattice() sweeps the dense lattice through K2 by default, or
+materializes the slab's features and runs the decoder through K3
+(fused_tail=False), in the JAX package's compute_dtype: bfloat16 by default
+(serving), float32 for parity.  No mesh / shard_map routing: one device.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
 from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features
-from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep
+from sv3d_tpu_torch.ops.cuda.sweep import SweepPlan, lattice_sweep
 from sv3d_tpu_torch.ops.grid_sample import (
     Pyramid,
     displacement_axes,
@@ -203,32 +204,57 @@ class IFNet(nn.Module):
             return self.query_fused(levels, points)
         return self.query(levels, points)
 
+    def sweep_plan(self, levels: Pyramid, resolution, res_increase: int = 1,
+                   compute_dtype=torch.bfloat16) -> SweepPlan:
+        """Everything the sweep kernel K2 reads that no slab changes (tables,
+        weights in its layouts, for bfloat16 the pyramid staged in bf16),
+        prepared once for a sweep of the lattice whose axis i has
+        resolution[i] * res_increase points.  It copies the weights: build
+        a new plan after they change."""
+        cfg = self.config
+        r = tuple(int(x) * res_increase for x in resolution)
+        return SweepPlan(levels, self.mlp, r, cfg.align_corners, cfg.displacement, compute_dtype)
+
     def query_lattice(
         self, levels: Pyramid, resolution, res_increase: int = 1, slab_rows: int = 4,
-        row_offset: int = 0, fused_tail: bool | None = None,
+        row_offset: int = 0, compute_dtype=torch.bfloat16, fused_tail: bool | None = None,
+        plan: SweepPlan | None = None,
     ) -> torch.Tensor:
         """Occupancy logits on rows [row_offset, row_offset + slab_rows) of
         the dense lattice over [-0.5, 0.5]^3 whose axis i has
         resolution[i] * res_increase points: (B, slab_rows, r1, r2).
 
+        compute_dtype (the JAX package's, bfloat16 by default): bfloat16 is
+        the JAX fused tail's precision class (levels, features, weights and
+        hidden activations rounded to bf16, f32 accumulation); float32 is
+        exact f32, the parity route.
+
         fused_tail None or True (the counterpart of the JAX package's fused
-        tail): the sweep kernel K2 for CUDA levels, its plain f32 torch
-        version for CPU levels (sv3d_tpu_torch/ops/cuda/sweep.py).
-        fused_tail=False: the unfused branch -- the slab's displacement-major
-        (B, 7*sumC, n_slab) features are materialized (ops/lattice.py
-        slab_features), then the decoder runs through K3 once per batch
-        element (its plain f32 version for CPU levels).  The feature matrix is 7 * sumC * n_slab * 4 bytes (120 MB a lattice row
-        at full width), so keep slab_rows small there."""
+        tail): the sweep kernel K2 of compute_dtype for CUDA levels, its
+        plain torch version for CPU levels (sv3d_tpu_torch/ops/cuda/sweep.py).
+        plan: sweep_plan(levels, resolution, res_increase, compute_dtype),
+        from a caller that sweeps many slabs (evaluate_on_grid_device); made
+        here when None.
+        fused_tail=False: the unfused branch -- the levels rounded to
+        compute_dtype, the slab's displacement-major (B, 7*sumC, n_slab)
+        features materialized (ops/lattice.py slab_features) and rounded,
+        then the decoder through K3 once per batch element with fc0's weight
+        rounded (its plain version for CPU levels); K3 and the hidden layers
+        stay f32.  The feature matrix is 7 * sumC * n_slab * 4 bytes (120 MB a
+        lattice row at full width), so keep slab_rows small there."""
         cfg = self.config
         r = tuple(int(x) * res_increase for x in resolution)
         if fused_tail is None or fused_tail:
-            return lattice_sweep(
-                levels, self.mlp, r, slab_rows, int(row_offset), cfg.align_corners,
-                cfg.displacement,
-            )
-        f = slab_features(levels, r, slab_rows, int(row_offset), cfg.align_corners,
-                          cfg.displacement)
+            if plan is None:
+                plan = self.sweep_plan(levels, resolution, res_increase, compute_dtype)
+            elif plan.compute_dtype != compute_dtype or plan.r != r:
+                raise ValueError("query_lattice: the plan was made for another lattice or dtype")
+            return lattice_sweep(plan, slab_rows, int(row_offset))
+        rounded = [(flat.to(compute_dtype).float(), dims) for flat, dims in levels]
+        f = slab_features(rounded, r, slab_rows, int(row_offset), cfg.align_corners,
+                          cfg.displacement).to(compute_dtype).float()
         b = f.shape[0]
         weights = [t for layer in self.mlp for t in layer]
+        weights[0] = weights[0].to(compute_dtype).float()
         logits = torch.stack([fused_point_mlp(f[i], *weights) for i in range(b)])
         return logits.reshape(b, slab_rows, r[1], r[2])

@@ -12,12 +12,14 @@ runs K4 and whose backward runs K8 for the level's gradient and K7 for the
 coordinates' when autograd asks for it.  Each wrapper runs its plain version
 (sv3d_tpu_torch/ops/point_query.py) for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises.  Every wrapper takes the level as the
-channel-major flat (B, C, G) that flatten_grid makes; K4 and K5 read it
+channel-major flat (B, C, G) that flatten_grid makes; K4, K5 and K7 read it
 channels-last, (B, G, C): their wrapper reads a level that already lies so
-as it is and stages any other (stage_channels_last), while K6, K7 and K8
-read the flat as it is.  K5 and K6 are inference-only, as their TPU
-kernels have no VJP: under autograd (grad enabled and an input that requires
-grad) they raise NotImplementedError rather than return a gradient.
+as it is and stages any other (stage_channels_last), while K6 and K8 read
+the flat as it is.  level_features saves the level as it was given, so K7's
+wrapper stages a channel-major flat again in the backward.  K5 and K6
+are inference-only, as their TPU kernels have no VJP: under autograd (grad
+enabled and an input that requires grad) they raise NotImplementedError
+rather than return a gradient.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def _tail(b, n, c, dims, align_corners, displacement, device):
 
 
 def stage_channels_last(flat: torch.Tensor) -> torch.Tensor:
-    """The contiguous channels-last (B, G, C) level that K4 and K5 read, from
+    """The contiguous channels-last (B, G, C) level that K4, K5 and K7 read, from
     a (B, C, G) level in any memory layout: a view when the level already
     lies channels-last (C = 1 always does), else torch's transpose copy,
     counted in stage_channels_last.copies."""
@@ -176,16 +178,26 @@ def level_fc0_cuda(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacemen
 
 def level_grad_points_cuda(flat, p0, p1, p2, g, dims, align_corners: bool,
                            displacement: float):
-    """K7: d features / d coords contracted with g (B, N, 7*C) -> (B, N, 3)."""
+    """K7: d features / d coords contracted with g (B, N, 7*C) -> (B, N, 3).
+    The level as K4 takes it: a channels-last level is read as it is, any
+    other is staged channels-last here."""
     if not _on_cuda(flat, "level_grad_points"):
         return level_grad_points_plain(flat, p0, p1, p2, g, dims, align_corners, displacement)
     b, c, gsize = flat.shape
     n = p0.shape[1]
-    _check("level_grad_points", flat.device, flat=(flat, (b, c, gsize)), p0=(p0, (b, n)),
-           p1=(p1, (b, n)), p2=(p2, (b, n)), g=(g, (b, n, 7 * c)))
+    if gsize != int(dims[0]) * int(dims[1]) * int(dims[2]):
+        raise ValueError(f"level_grad_points: level of {gsize} voxels for dims {dims}")
+    if gsize * c >= 2**31:
+        raise ValueError(f"level_grad_points: G * C = {gsize * c} exceeds the kernel's "
+                         "32-bit offsets")
+    if flat.dtype != torch.float32:
+        raise TypeError(f"level_grad_points: flat must be float32, got {flat.dtype}")
+    _check("level_grad_points", flat.device, p0=(p0, (b, n)), p1=(p1, (b, n)),
+           p2=(p2, (b, n)), g=(g, (b, n, 7 * c)))
+    vol = stage_channels_last(flat)
     out = torch.empty((b, n, 3), dtype=torch.float32, device=flat.device)
     rc = _bind("sv3d_level_grad_points", 6)(
-        flat.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), g.data_ptr(),
+        vol.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), g.data_ptr(),
         out.data_ptr(), *_tail(b, n, c, dims, align_corners, displacement, flat.device),
     )
     build.check(rc, "sv3d_level_grad_points")
@@ -215,6 +227,10 @@ def level_grad_vol_cuda(p0, p1, p2, g, dims, align_corners: bool, displacement: 
 class _LevelFeatures(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat, p0, p1, p2, dims, align_corners, displacement):
+        # the level as given, not the channels-last copy K4 read: the caller's
+        # pyramid holds the flats through the forward, so a saved copy of every
+        # level would coexist with them and raise the train step's peak memory
+        # (by 166.6 MiB at B=4 on the H100); K7's wrapper stages it again
         ctx.save_for_backward(flat, p0, p1, p2)
         ctx.args = (dims, align_corners, displacement)
         return level_features_cuda(flat, p0, p1, p2, dims, align_corners, displacement)
@@ -238,11 +254,13 @@ def level_features(vol, p0, p1, p2, dims, align_corners: bool, displacement: flo
     (B, N) points given as coordinates in [-1, 1], differentiable in the level
     and the coordinates.
 
-    vol: contiguous channel-major flat level (B, C, G0*G1*G2), as
-    flatten_grid makes it (a channels-last view of it serves the forward
-    alone: K7 reads the channel-major flat); returns (B, N, 7*C) f32,
-    displacement-major within the level (index d*C + c).  The level's
-    gradient comes back in the channel-major flat layout."""
+    vol: flat level (B, C, G0*G1*G2) in the channel-major layout that
+    flatten_grid makes, or a channels-last view of one ((B, G, C) contiguous,
+    transposed), which serves K4 in the forward and K7 in the backward
+    without a copy; any other level is staged channels-last by each of
+    them.  Returns (B, N, 7*C) f32, displacement-major within the level
+    (index d*C + c).  The level's gradient comes back in the channel-major
+    flat layout."""
     dims = tuple(int(d) for d in dims)
     p0, p1, p2 = (p.contiguous() for p in (p0, p1, p2))
     return _LevelFeatures.apply(vol, p0, p1, p2, dims, bool(align_corners), float(displacement))

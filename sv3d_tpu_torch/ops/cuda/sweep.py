@@ -1,48 +1,87 @@
-"""Wrapper of the CUDA dense-lattice sweep kernel (sv3d_tpu_torch/csrc/sweep.cu).
+"""Wrappers of the CUDA dense-lattice sweep kernels (sv3d_tpu_torch/csrc/sweep.cu).
 
-Replaces sv3d_tpu/ops/pallas/sweep.py::fused_sweep_tail.  Its contract is the
-logits of the unfused IF-Net lattice query (sv3d_tpu/models/ifnet.py:648-735)
-for lattice rows [row_offset, row_offset + rows): 7 displaced trilinear
-resizes of every pyramid level, fc0 over the displacement-major feature
-vector (index d * sumC + c), then the decoder MLP.  lattice_sweep_plain is
-that math in plain f32 torch (slab_features + the decoder); a CPU tensor
-runs it, a CUDA tensor launches the kernel or raises.  Inference only.
+  lattice_sweep_f32_cuda   K2 f32, compute_dtype float32 (the parity route)
+  lattice_sweep_bf16_cuda  K2 bf16, compute_dtype bfloat16 (the serving default)
+
+Both replace sv3d_tpu/ops/pallas/sweep.py::fused_sweep_tail.  Their contract
+is the logits of the unfused IF-Net lattice query
+(sv3d_tpu/models/ifnet.py:648-735) for lattice rows [row_offset, row_offset
++ rows): 7 displaced trilinear resizes of every pyramid level, fc0 over the
+displacement-major feature vector (index d * sumC + c), then the decoder
+MLP, in the compute dtype's precision class.  lattice_sweep_plain is that
+math in plain torch (slab_features + the decoder, with bf16 rounding points
+for compute_dtype=torch.bfloat16).
+
+A sweep is prepared once (SweepPlan: the 2-tap tables of the whole lattice,
+the level pointers, the weights in the kernel's layouts, for bf16 the
+pyramid staged channels-last in bf16) and then launched once per slab by
+lattice_sweep(plan, rows, row_offset), which does no host-to-device copy and
+no weight transform.  A plan on CPU levels runs the plain version; on CUDA
+levels lattice_sweep launches the kernel of the plan's dtype or raises.
+Inference only.  A plan holds copies of the weights: build a new one after
+the weights change.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from sv3d_tpu_torch.ops.cuda import build
+from sv3d_tpu_torch.ops.cuda.point_query import stage_channels_last
 from sv3d_tpu_torch.ops.lattice import axis0_rows, axis_taps, slab_features
-from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """t rounded to compute_dtype (round to nearest even), kept in f32."""
+    return t.to(compute_dtype).float()
 
 
 def lattice_sweep_plain(
     levels, mlp, r: tuple, rows: int, row_offset: int, align_corners: bool,
-    displacement: float,
+    displacement: float, compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Plain f32 torch lattice logits: (B, rows, r1, r2).
+    """Plain torch lattice logits: (B, rows, r1, r2).
 
     levels: iterable of (flat (B, C, g0*g1*g2), dims); mlp: [(weight (out,
-    in), bias (out,))] for fc0, fc1, fc2, fc_out; r: lattice (r0, r1, r2)."""
-    f = slab_features(levels, r, rows, row_offset, align_corners, displacement)
-    return fused_point_mlp_plain(f, *(t for layer in mlp for t in layer)).reshape(
-        f.shape[0], rows, r[1], r[2])
+    in), bias (out,))] for fc0, fc1, fc2, fc_out; r: lattice (r0, r1, r2).
+    compute_dtype float32: f32 throughout.  bfloat16: the JAX fused tail's
+    class, in f32 arithmetic with its rounding points -- levels, the
+    interpolated feature, the four weights and each ReLU output rounded to
+    bf16; f32 interpolation, accumulation and biases.  One lattice row at a
+    time, so that, as in the kernels, a point's logit does not depend on the
+    slab it came in (a CPU matmul's summation order may follow its shape)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"lattice_sweep: compute_dtype must be one of {COMPUTE_DTYPES}")
+    levels = [(_rounded(flat, compute_dtype), dims) for flat, dims in levels]
+    mlp = [(_rounded(w, compute_dtype), b) for w, b in mlp]
+    out = []
+    for row in range(row_offset, row_offset + rows):
+        h = _rounded(slab_features(levels, r, 1, row, align_corners, displacement),
+                     compute_dtype)
+        for i, (w, b) in enumerate(mlp):
+            h = torch.einsum("hf,bfn->bhn", w, h) + b[:, None]
+            if i < len(mlp) - 1:
+                h = _rounded(torch.relu(h), compute_dtype)
+        out.append(h[:, 0].reshape(h.shape[0], 1, r[1], r[2]))
+    return torch.cat(out, dim=1)
 
 
 def sweep_tables(chans, dims_list, r, rows, row_offset, align_corners, displacement):
-    """Per-level 2-tap tables for the kernel.
+    """Per-level 2-tap tables of lattice rows [row_offset, row_offset + rows).
 
     Returns (meta (L, 8) int32, tap_idx (E, 2) int32, tap_w (E, 2) f32).  meta
     rows are [C, g0, g1, g2, off0, off1, off2, cg] with cg the level's first
     global channel and off* the entry offsets of its axis tables; a level's
     block holds its axis-0, axis-1 and axis-2 tables, each the
     (center, minus, plus) variants back to back with one entry per output
-    index (axis 0: the slab's rows only)."""
+    index (axis 0: the slab's rows only, zero past the lattice).  A plan
+    holds the whole lattice's tables, rows = r0 and row_offset = 0."""
     dims = np.asarray(dims_list, np.int64)  # (L, 3)
     shifts = np.asarray([0.0, -displacement, displacement])[:, None]
     idx, wts = [], []
@@ -69,81 +108,238 @@ def sweep_tables(chans, dims_list, r, rows, row_offset, align_corners, displacem
     )
 
 
-def _bind():
-    fn = build.load().sv3d_lattice_sweep
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def fc0_chunk_order(chans):
+    """bf16 K2's fixed fc0 K order: (groups, cols).  groups: (level, d, k16
+    chunks, 0) per (d, level) group, d = -1 for a one-channel level whose 7
+    copies share one packed chunk (those first), then d-major the levels of
+    C % 16 == 0.  cols: for each of the 16 * chunks K positions the fc0
+    column it holds, d * sumC + cg + c, or -1 for a zero."""
+    sum_c = sum(chans)
+    cg = np.cumsum([0, *chans[:-1]])
+    groups, cols = [], []
+    for lv, c in enumerate(chans):
+        if c == 1:
+            groups.append((lv, -1, 1, 0))
+            cols += [d * sum_c + cg[lv] for d in range(7)] + [-1] * 9
+    for d in range(7):
+        for lv, c in enumerate(chans):
+            if c > 1:
+                groups.append((lv, d, c // 16, 0))
+                cols += [d * sum_c + cg[lv] + i for i in range(c)]
+    return np.asarray(groups, np.int32), np.asarray(cols, np.int64)
 
 
-def _check_cuda_inputs(levels, mlp, device):
+@functools.lru_cache(maxsize=16)
+def _fragment_order(n_out: int, k: int) -> np.ndarray:
+    """mma_b_fragments' order as flat indices into an (n_out, k) matrix."""
+    lane = np.arange(32)
+    kk = 2 * (lane % 4)[:, None] + np.asarray([0, 1, 8, 9])  # (32, 4)
+    n = (np.arange(n_out // 16)[:, None, None] * 16 + np.arange(2)[None, None, :] * 8
+         + (lane // 4)[None, :, None])  # (P, 32, 2)
+    chunk = np.arange(k // 16)[:, None, None, None, None] * 16
+    flat = n[None, :, :, :, None] * k + chunk + kk[None, None, :, None, :]  # (K/16, P, 32, 2, 4)
+    return flat.reshape(k // 16, n_out // 16, 32, 8)
+
+
+def mma_b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) weight -> (K/16, N/16, 32, 8): per 16-row chunk of K, per pair
+    of 8-column n-tiles, per lane, the lane's two mma.m16n8k16 B fragment
+    registers of each tile of the pair (B[k][n] = w[n, k]; lane l holds n =
+    l // 4 of the tile and k = 2 (l % 4) + {0, 1, 8, 9})."""
+    return w.reshape(-1)[_fragment_index(*w.shape, w.device)]
+
+
+@functools.lru_cache(maxsize=16)
+def _fragment_index(n_out: int, k: int, device) -> torch.Tensor:
+    return torch.from_numpy(_fragment_order(n_out, k)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _fc0_fragment_index(chans: tuple, h0: int, device) -> torch.Tensor:
+    """Flat indices into fc0's (H0, 7 sumC) weight, with one zero appended at
+    the end (index -1), of mma_b_fragments applied to fc0 permuted to
+    fc0_chunk_order; kept on the device (indices, not weights)."""
+    _, cols = fc0_chunk_order(list(chans))
+    order = _fragment_order(h0, len(cols))
+    n, kpos = np.divmod(order, len(cols))
+    col = cols[kpos]
+    flat = np.where(col >= 0, n * (7 * sum(chans)) + col, -1)
+    return torch.from_numpy(flat).to(device)
+
+
+def _check_levels(levels, device):
     for flat, dims in levels:
         if flat.device != device or flat.dtype != torch.float32:
             raise TypeError("lattice_sweep: every level must be float32 on one CUDA device")
-        if flat.ndim != 3 or flat.shape[2] != int(np.prod(dims)) or not flat.is_contiguous():
+        if flat.ndim != 3 or flat.shape[2] != int(np.prod(dims)):
             raise ValueError(
-                f"lattice_sweep: level must be contiguous (B, C, {dims}) flat, "
-                f"got {tuple(flat.shape)}"
-            )
-        if flat.requires_grad:
-            raise NotImplementedError("lattice_sweep is inference-only")
+                f"lattice_sweep: level must be (B, C, {dims}) flat, got {tuple(flat.shape)}")
+
+
+def _check_mlp(mlp, device, sum_c):
+    if len(mlp) != 4:
+        raise ValueError(f"lattice_sweep: expected 4 MLP layers, got {len(mlp)}")
     (w0, _), (w1, _), (w2, _), (w3, _) = mlp
     h0 = w0.shape[0]
     if h0 not in (256, 512) or tuple(w1.shape) != (256, h0) or tuple(w2.shape) != (256, 256) \
             or tuple(w3.shape) != (1, 256):
         raise ValueError(
-            "lattice_sweep: the kernel takes fc0 -> 256|512, fc1 -> 256, fc2 -> 256, "
+            "lattice_sweep: the kernels take fc0 -> 256|512, fc1 -> 256, fc2 -> 256, "
             f"fc_out -> 1; got {[tuple(w.shape) for w, _ in mlp]}"
         )
+    if w0.shape[1] != 7 * sum_c:
+        raise ValueError(f"lattice_sweep: fc0 takes {w0.shape[1]} features, levels give "
+                         f"{7 * sum_c}")
     for w, bias in mlp:
         if w.device != device or w.dtype != torch.float32 or bias.device != device \
                 or bias.dtype != torch.float32:
             raise TypeError("lattice_sweep: MLP weights must be float32 on the levels' device")
 
 
-def lattice_sweep(
-    levels, mlp, r: tuple, rows: int, row_offset: int, align_corners: bool,
-    displacement: float,
-) -> torch.Tensor:
-    """Lattice logits (B, rows, r1, r2) for rows [row_offset, row_offset+rows)
-    of the (r0, r1, r2) lattice; same arguments as lattice_sweep_plain."""
-    levels = list(levels)
-    device = levels[0][0].device
-    if device.type == "cpu":
-        return lattice_sweep_plain(levels, mlp, r, rows, row_offset, align_corners, displacement)
-    if device.type != "cuda":
-        raise ValueError(f"lattice_sweep: unsupported device {device}")
-    if len(mlp) != 4:
-        raise ValueError(f"lattice_sweep: expected 4 MLP layers, got {len(mlp)}")
-    _check_cuda_inputs(levels, mlp, device)
-    b = levels[0][0].shape[0]
-    chans = [flat.shape[1] for flat, _ in levels]
-    sum_c = sum(chans)
-    (w0, b0), (w1, b1), (w2, b2), (w3, b3) = mlp
-    if w0.shape[1] != 7 * sum_c:
-        raise ValueError(f"lattice_sweep: fc0 takes {w0.shape[1]} features, levels give {7 * sum_c}")
+class SweepPlan:
+    """What the sweep's kernel reads that no slab changes, prepared once.
 
-    meta, tap_idx, tap_w = sweep_tables(
-        chans, [d for _, d in levels], r, rows, row_offset, align_corners, displacement
-    )
-    meta_d = torch.from_numpy(meta).to(device)
-    idx_d = torch.from_numpy(tap_idx).to(device)
-    w_d = torch.from_numpy(tap_w).to(device)
-    ptrs = torch.tensor([flat.data_ptr() for flat, _ in levels], dtype=torch.int64).to(device)
-    w0t, w1t, w2t = (w.t().contiguous() for w in (w0, w1, w2))
-    w3c, b0c, b1c, b2c, b3c = (t.contiguous() for t in (w3, b0, b1, b2, b3))
-    out = torch.empty((b, rows, r[1], r[2]), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _bind()(
-        ptrs.data_ptr(), meta_d.data_ptr(), len(levels), idx_d.data_ptr(), w_d.data_ptr(),
-        w0t.data_ptr(), b0c.data_ptr(), w1t.data_ptr(), b1c.data_ptr(), w2t.data_ptr(),
-        b2c.data_ptr(), w3c.data_ptr(), b3c.data_ptr(), out.data_ptr(),
-        b, rows, r[1], r[2], sum_c, w0.shape[0], max(chans), stream,
-    )
+    levels: the pyramid, (flat (B, C, G), dims) pairs; mlp: [(weight,
+    bias)] of fc0, fc1, fc2, fc_out; r: the lattice (r0, r1, r2).  On CPU
+    levels the plan only records its arguments (lattice_sweep runs the
+    plain version).  On CUDA levels it holds, on the device: the 2-tap
+    tables of all r0 rows and the level pointers; for float32 the
+    contiguous channel-major levels and the transposed fc0, fc1, fc2; for
+    bfloat16 the pyramid cast to bf16 and staged channels-last, fc0 in bf16
+    permuted to fc0_chunk_order and laid out as mma_b_fragments, fc1 and
+    fc2 likewise, fc_out's weight rounded to bf16 (kept in f32), the f32
+    biases and the group table."""
+
+    def __init__(self, levels, mlp, r, align_corners: bool, displacement: float,
+                 compute_dtype=torch.bfloat16):
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"lattice_sweep: compute_dtype must be one of {COMPUTE_DTYPES}")
+        self.levels = list(levels)
+        self.mlp = [(w.detach(), b.detach()) for w, b in mlp]
+        self.r = tuple(int(x) for x in r)
+        self.align_corners = bool(align_corners)
+        self.displacement = float(displacement)
+        self.compute_dtype = compute_dtype
+        self.device = self.levels[0][0].device
+        self.batch = self.levels[0][0].shape[0]
+        if self.device.type == "cpu":
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"lattice_sweep: unsupported device {self.device}")
+        _check_levels(self.levels, self.device)
+        if torch.is_grad_enabled() and any(flat.requires_grad for flat, _ in self.levels):
+            raise NotImplementedError("lattice_sweep is inference-only")
+        chans = [flat.shape[1] for flat, _ in self.levels]
+        self.sum_c = sum(chans)
+        self.max_c = max(chans)
+        _check_mlp(self.mlp, self.device, self.sum_c)
+        self.h0 = self.mlp[0][0].shape[0]
+        dev = self.device
+        with torch.no_grad():
+            meta, tap_idx, tap_w = sweep_tables(chans, [d for _, d in self.levels], self.r,
+                                                self.r[0], 0, self.align_corners,
+                                                self.displacement)
+            self.meta = torch.from_numpy(meta).to(dev)
+            self.tap_idx = torch.from_numpy(tap_idx).to(dev)
+            self.tap_w = torch.from_numpy(tap_w).to(dev)
+            (w0, b0), (w1, b1), (w2, b2), (w3, b3) = self.mlp
+            self.biases = [b.contiguous() for b in (b0, b1, b2, b3)]
+            if compute_dtype == torch.float32:
+                self.vols = [flat.contiguous() for flat, _ in self.levels]
+                self.weights = [w.t().contiguous() for w in (w0, w1, w2)] + [w3.contiguous()]
+            else:
+                self._prepare_bf16(chans)
+            self.ptrs = torch.tensor([v.data_ptr() for v in self.vols], dtype=torch.int64).to(dev)
+
+    def _prepare_bf16(self, chans):
+        for (flat, dims), c in zip(self.levels, chans):
+            if not (c == 1 or (c % 16 == 0 and c <= 128)):
+                raise ValueError(f"lattice_sweep: the bf16 kernel takes levels of C = 1 or "
+                                 f"C % 16 == 0 up to 128, got {c}")
+            if flat.shape[2] * c >= 2**31:
+                raise ValueError("lattice_sweep: G * C exceeds the kernel's 32-bit offsets")
+        # cast, then stage: the transpose moves half the bytes of an f32 one
+        self.vols = [stage_channels_last(flat.to(torch.bfloat16)) for flat, _ in self.levels]
+        groups, cols = fc0_chunk_order(chans)
+        self.groups = torch.from_numpy(groups).to(self.device)
+        self.k0_chunks = len(cols) // 16
+        (w0, _), (w1, _), (w2, _), (w3, _) = self.mlp
+        w0z = torch.cat([w0.reshape(-1), w0.new_zeros(1)]).to(torch.bfloat16)
+        self.weights = [w0z[_fc0_fragment_index(tuple(chans), self.h0, self.device)],
+                        mma_b_fragments(w1.to(torch.bfloat16)),
+                        mma_b_fragments(w2.to(torch.bfloat16)),
+                        _rounded(w3, torch.bfloat16).reshape(-1).contiguous()]
+
+
+def _out(plan, rows):
+    return torch.empty((plan.batch, rows, plan.r[1], plan.r[2]), dtype=torch.float32,
+                       device=plan.device)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # vols, meta, n_levels, tap_idx, tap_w, w0t, b0, w1t, b1, w2t, b2, w3, b3, out,
+    # batch, rows, row_offset, r0, r1, r2, sum_c, h0, max_c, stream
+    "sv3d_lattice_sweep": [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P],
+    # vols, meta, groups, n_groups, tap_idx, tap_w, w0f, k0_chunks, b0, w1f, b1, w2f,
+    # b2, w3, b3, out, batch, rows, row_offset, r0, r1, r2, h0, stream
+    "sv3d_lattice_sweep_bf16": [_P, _P, _P, _I, _P, _P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(name: str):
+    fn = getattr(build.load(), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def lattice_sweep_f32_cuda(plan: SweepPlan, rows: int, row_offset: int) -> torch.Tensor:
+    """K2 f32 on a float32 plan: (B, rows, r1, r2) logits."""
+    out = _out(plan, rows)
+    w0t, w1t, w2t, w3 = plan.weights
+    b0, b1, b2, b3 = plan.biases
+    rc = _bind("sv3d_lattice_sweep")(
+        plan.ptrs.data_ptr(), plan.meta.data_ptr(), len(plan.vols), plan.tap_idx.data_ptr(),
+        plan.tap_w.data_ptr(), w0t.data_ptr(), b0.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+        w2t.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        plan.batch, rows, int(row_offset), *plan.r, plan.sum_c, plan.h0, plan.max_c,
+        torch.cuda.current_stream(plan.device).cuda_stream)
     build.check(rc, "sv3d_lattice_sweep")
-    lattice_sweep.launches += 1
+    lattice_sweep_f32_cuda.launches += 1
     return out
 
 
-lattice_sweep.launches = 0
+def lattice_sweep_bf16_cuda(plan: SweepPlan, rows: int, row_offset: int) -> torch.Tensor:
+    """K2 bf16 on a bfloat16 plan: (B, rows, r1, r2) logits."""
+    out = _out(plan, rows)
+    w0f, w1f, w2f, w3 = plan.weights
+    b0, b1, b2, b3 = plan.biases
+    rc = _bind("sv3d_lattice_sweep_bf16")(
+        plan.ptrs.data_ptr(), plan.meta.data_ptr(), plan.groups.data_ptr(),
+        plan.groups.shape[0], plan.tap_idx.data_ptr(), plan.tap_w.data_ptr(), w0f.data_ptr(),
+        plan.k0_chunks, b0.data_ptr(), w1f.data_ptr(), b1.data_ptr(), w2f.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(), plan.batch, rows,
+        int(row_offset), *plan.r, plan.h0, torch.cuda.current_stream(plan.device).cuda_stream)
+    build.check(rc, "sv3d_lattice_sweep_bf16")
+    lattice_sweep_bf16_cuda.launches += 1
+    return out
+
+
+def lattice_sweep(plan: SweepPlan, rows: int, row_offset: int) -> torch.Tensor:
+    """Lattice logits (B, rows, r1, r2) for rows [row_offset, row_offset +
+    rows) of the plan's lattice: the plain version for a CPU plan, else the
+    kernel of the plan's compute dtype."""
+    if rows < 1:
+        raise ValueError(f"lattice_sweep: rows must be positive, got {rows}")
+    if plan.device.type == "cpu":
+        return lattice_sweep_plain(plan.levels, plan.mlp, plan.r, rows, row_offset,
+                                   plan.align_corners, plan.displacement, plan.compute_dtype)
+    if plan.compute_dtype == torch.bfloat16:
+        return lattice_sweep_bf16_cuda(plan, rows, row_offset)
+    return lattice_sweep_f32_cuda(plan, rows, row_offset)
+
+
+lattice_sweep_f32_cuda.launches = 0
+lattice_sweep_bf16_cuda.launches = 0

@@ -1,18 +1,29 @@
 """The port's CUDA kernels (K1, K1b, K2, K3, K4, K5, K6, K7, K8) against
 their plain torch versions.
 
-This file imports only sv3d_tpu_torch (the card machine has no flax).  The
-tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
+This file imports only sv3d_tpu_torch and runs chip_smoke.py's definitions
+for K2 bf16's limits (the card machine has no flax).  The tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
 the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The
-CPU test checks the part of the sweep kernel that Python owns: its 2-tap
-tables and index arithmetic, replayed in numpy against the plain sweep."""
+CPU tests check the part of the sweep kernels that Python owns: the 2-tap
+tables and their index arithmetic, replayed in numpy against the plain
+sweep; the sweep plan's whole-lattice tables cut to a slab as the kernels
+index them; the bf16 kernel's fc0 order and mma fragment layouts; that
+the sweep's values do not depend on slab_rows; and that K2 bf16's mean
+limit fails a sweep that rounds at the wrong points."""
+
+import runpy
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from sv3d_tpu_torch.config import IFNetConfig
-from sv3d_tpu_torch.inference.dense_grid import evaluate_points
+from sv3d_tpu_torch.inference.dense_grid import (
+    evaluate_on_grid,
+    evaluate_on_grid_device,
+    evaluate_points,
+)
 from sv3d_tpu_torch.models.ifnet import IFNet
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
 from sv3d_tpu_torch.ops.cuda.point_query import (
@@ -24,7 +35,16 @@ from sv3d_tpu_torch.ops.cuda.point_query import (
     level_grad_vol_cuda,
     stage_channels_last,
 )
-from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain, sweep_tables
+from sv3d_tpu_torch.ops.cuda.sweep import (
+    SweepPlan,
+    fc0_chunk_order,
+    lattice_sweep,
+    lattice_sweep_bf16_cuda,
+    lattice_sweep_f32_cuda,
+    lattice_sweep_plain,
+    mma_b_fragments,
+    sweep_tables,
+)
 from sv3d_tpu_torch.ops.cuda.voxelize import (
     scatter_voxels,
     scatter_voxels_bwd_cuda,
@@ -44,6 +64,7 @@ from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd
 torch.set_num_threads(1)
 
 CASES = [(128, (17, 16, 18)), (32, (12, 9, 10))]
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -112,6 +133,119 @@ def test_sweep_tables_replay_the_plain_sweep(net_res, dims):
                                       cfg.displacement)
         got = _emulate_kernel(levels, model.mlp, r, rows, off, cfg)
         np.testing.assert_allclose(got, ref[0].numpy(), atol=1e-5)
+
+
+def _slab_tables(meta, tap_idx, tap_w, r, rows, row_offset):
+    """A slab's tables cut from the whole lattice's, indexed as csrc/sweep.cu
+    indexes them: axis-0 entry (variant v, slab row a) is the lattice's
+    entry of row row_offset + a, zero past the lattice; axes 1 and 2 as
+    they are."""
+    r0 = r[0]
+    lattice_row = row_offset + np.arange(rows)
+    ok = lattice_row < r0
+    idx, wts = [], []
+    for m in meta:
+        e0 = m[4] + np.arange(3)[:, None] * r0 + np.where(ok, lattice_row, 0)[None]
+        idx += [np.where(ok[None, :, None], tap_idx[e0], 0).reshape(-1, 2),
+                tap_idx[m[5]:m[6] + 3 * r[2]]]
+        wts += [np.where(ok[None, :, None], tap_w[e0], 0.0).reshape(-1, 2),
+                tap_w[m[5]:m[6] + 3 * r[2]]]
+    out = meta.copy()
+    base = np.arange(len(meta)) * 3 * (rows + r[1] + r[2])
+    out[:, 4:7] = np.stack([base, base + 3 * rows, base + 3 * (rows + r[1])], axis=1)
+    return (out, np.ascontiguousarray(np.concatenate(idx).astype(np.int32)),
+            np.ascontiguousarray(np.concatenate(wts).astype(np.float32)))
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_sweep_plan_tables_cut_to_any_slab(net_res, dims):
+    """The plan's tables cover all r0 rows; cut at (rows, row_offset) as the
+    kernels index them (_slab_tables) they equal sweep_tables of that slab:
+    interior slabs, the first and last row, slabs running past the lattice,
+    res_increase 1 and 2."""
+    cfg, _, levels = _encoded(net_res, dims)
+    chans = [f.shape[1] for f in levels.flats]
+    for ri in (1, 2):
+        r = tuple(ri * d for d in dims)
+        full = sweep_tables(chans, list(levels.dims), r, r[0], 0, cfg.align_corners,
+                            cfg.displacement)
+        for rows, off in ((1, 0), (1, r[0] - 1), (3, 4), (5, r[0] - 3), (r[0], 0), (4, r[0])):
+            want = sweep_tables(chans, list(levels.dims), r, rows, off, cfg.align_corners,
+                                cfg.displacement)
+            got = _slab_tables(*full, r, rows, off)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w, err_msg=f"{ri} {rows}+{off}")
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_evaluate_on_grid_is_identical_for_any_slab_rows(net_res, dims):
+    """The sweep's values do not depend on the slab a point came in: slab_rows
+    1, 3 and r0 (the default, None, is r0), bf16 (the default) and f32, bit
+    for bit (CPU: the plain versions)."""
+    cfg, model, _ = _encoded(net_res, dims)
+    grid = torch.tensor(np.random.default_rng(5).uniform(0, 1, (1, *dims, 1)).astype(np.float32))
+    ref = evaluate_on_grid(model, grid, dims)
+    assert ref.shape == dims and np.isfinite(ref).all()
+    for slab_rows in (1, 3, dims[0]):
+        np.testing.assert_array_equal(evaluate_on_grid(model, grid, dims, 1, slab_rows), ref)
+    with torch.inference_mode():
+        levels = model.encode(grid)
+        f32 = [evaluate_on_grid_device(model, levels, dims, 1, s, torch.float32)[:dims[0]]
+               for s in (1, 3, dims[0])]
+    for got in f32[1:]:
+        assert torch.equal(got, f32[0])
+    assert float((f32[0] - torch.tensor(ref)).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_bf16_sweep_kernel_layouts(net_res):
+    """What the bf16 kernel reads, replayed in torch: fc0's K order holds
+    every fc0 column once (zeros elsewhere), and the mma fragments, read back
+    lane by lane as the kernel's registers are filled (b0: k = 2 (l % 4) +
+    {0, 1}, b1: + 8; n = l // 4), give fc0, fc1 and fc2 back."""
+    cfg = IFNetConfig.for_net_res(net_res)
+    model = IFNet(cfg, generator=torch.Generator().manual_seed(3))
+    chans = list(cfg.feature_channels)
+    groups, cols = fc0_chunk_order(chans)
+    assert len(cols) == 16 * int(groups[:, 2].sum())
+    assert sorted(cols[cols >= 0].tolist()) == list(range(7 * sum(chans)))
+    w0 = model.fc0.weight.detach()
+    w0k = torch.zeros((w0.shape[0], len(cols)))
+    w0k[:, torch.from_numpy(np.flatnonzero(cols >= 0))] = w0[:, torch.from_numpy(cols[cols >= 0])]
+    for w in (w0k, model.fc1.weight.detach(), model.fc2.weight.detach()):
+        frag = mma_b_fragments(w)
+        n_out, k = w.shape
+        assert frag.shape == (k // 16, n_out // 16, 32, 8)
+        back = torch.zeros_like(w)
+        lane = torch.arange(32)
+        for tile in range(2):
+            n = (torch.arange(n_out // 16)[:, None] * 16 + tile * 8 + lane // 4)  # (P, 32)
+            for e, dk in enumerate((0, 1, 8, 9)):
+                kk = 2 * (lane % 4) + dk  # (32,)
+                for c in range(k // 16):
+                    back[n, c * 16 + kk] = frag[c, :, :, tile * 4 + e]
+        assert torch.equal(back, w)
+
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_k2_bf16_mean_limit_fails_wrong_rounding(net_res, dims):
+    """chip_smoke.py's plain_bf16_sweep: with no rounding point left out it
+    is the plain bf16 sweep bit for bit; without its feature or its hidden
+    rounding it stays within K2 bf16's max limit on logits but fails the
+    mean limit, K2_BF16_REL_MEAN_TOL of the mean |logit| (CPU)."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    cfg, model, levels = _encoded(net_res, dims)
+    r = tuple(2 * d for d in dims)
+    args = (cfg.align_corners, cfg.displacement)
+    with torch.inference_mode():
+        ref = lattice_sweep_plain(levels, model.mlp, r, r[0], 0, *args, torch.bfloat16)
+        assert torch.equal(smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, *args), ref)
+        for skip in ("feature", "hidden"):
+            wrong = smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, *args, (skip,))
+            assert float((wrong - ref).abs().max()) <= smoke["K2_BF16_TOL"], skip
+            assert smoke["rel_mean_err"](wrong, ref) > smoke["K2_BF16_REL_MEAN_TOL"], skip
 
 
 def _rel_err(got, ref):
@@ -289,19 +423,101 @@ def test_evaluate_points_stages_the_pyramid_once(bands):
 @pytest.mark.cuda
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
-    """f32 FMA kernel vs plain f32 torch: summation order only, atol 1e-4."""
+    """K2 f32 (a float32 plan) vs plain f32 torch: summation order only, atol
+    1e-4; ragged slabs, a slab past the lattice, the whole lattice."""
     cfg, model, levels = _encoded(net_res, dims, cuda_device)
     r = tuple(2 * d for d in dims)
     with torch.inference_mode():
+        plan = SweepPlan(levels, model.mlp, r, cfg.align_corners, cfg.displacement, torch.float32)
         for rows, off in ((2, 0), (5, r[0] - 3), (r[0], 0)):
-            before = lattice_sweep.launches
-            got = lattice_sweep(levels, model.mlp, r, rows, off, cfg.align_corners,
-                                cfg.displacement)
+            before = lattice_sweep_f32_cuda.launches
+            got = lattice_sweep(plan, rows, off)
             torch.cuda.synchronize()
-            assert lattice_sweep.launches == before + 1
+            assert lattice_sweep_f32_cuda.launches == before + 1
             ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
                                       cfg.displacement)
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# K2 bf16 against its plain version: the same rounding points, f32 sums in
+# another order, so a value near a bf16 rounding boundary may round the
+# other way (one bf16 ulp of a feature or a hidden activation); measured up
+# to 5.0e-4 at |logit| <= 0.095 on the H100.  Over a whole lattice the mean
+# error is held to chip_smoke.py's K2_BF16_REL_MEAN_TOL of the mean |logit|,
+# which the plain sweep with a rounding point left out fails.
+K2_BF16_ATOL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_bf16_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
+    """K2 bf16 (a bfloat16 plan) vs plain bf16 torch at atol K2_BF16_ATOL on
+    logits: ragged slabs, a slab past the lattice, the whole lattice in one
+    launch, a batch of two; each point's logit is the same bit for bit in
+    whichever slab it comes.  Over the whole lattice the mean error is held
+    to K2_BF16_REL_MEAN_TOL of the mean |logit|, a limit that the plain
+    sweep without its feature or hidden rounding fails."""
+    cfg, model, levels = _encoded(net_res, dims, cuda_device)
+    r = tuple(2 * d for d in dims)
+    with torch.inference_mode():
+        plan = SweepPlan(levels, model.mlp, r, cfg.align_corners, cfg.displacement)
+        assert plan.compute_dtype == torch.bfloat16
+        # the plan holds the whole lattice's tables (cut per slab by the kernel)
+        full = sweep_tables([f.shape[1] for f in levels.flats], list(levels.dims), r, r[0], 0,
+                            cfg.align_corners, cfg.displacement)
+        for got, want in zip((plan.meta, plan.tap_idx, plan.tap_w), full):
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+        whole = lattice_sweep(plan, r[0], 0)
+        for rows, off in ((1, 3), (2, 0), (5, r[0] - 3), (r[0], 0)):
+            before = lattice_sweep_bf16_cuda.launches
+            got = lattice_sweep(plan, rows, off)
+            torch.cuda.synchronize()
+            assert lattice_sweep_bf16_cuda.launches == before + 1
+            ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
+                                      cfg.displacement, torch.bfloat16)
+            torch.testing.assert_close(got, ref, atol=K2_BF16_ATOL, rtol=0)
+            inside = min(rows, r[0] - off)
+            assert torch.equal(got[:, :inside], whole[:, off:off + inside])
+        smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+        tol = smoke["K2_BF16_REL_MEAN_TOL"]
+        assert smoke["rel_mean_err"](whole, ref) <= tol  # ref: the whole lattice's, last
+        for skip in ("feature", "hidden"):
+            wrong = smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, cfg.align_corners,
+                                              cfg.displacement, (skip,))
+            assert smoke["rel_mean_err"](wrong, ref) > tol, skip
+        both = [(torch.cat([f, f.flip(-1)]), d) for f, d in levels]
+        plan2 = SweepPlan(both, model.mlp, r, cfg.align_corners, cfg.displacement)
+        got = lattice_sweep(plan2, 3, 4)
+        assert torch.equal(got[:1], lattice_sweep(plan, 3, 4))
+        torch.testing.assert_close(got, lattice_sweep_plain(
+            both, model.mlp, r, 3, 4, cfg.align_corners, cfg.displacement, torch.bfloat16),
+            atol=K2_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sweep_plan_makes_no_copy_per_slab(dtype, cuda_device):
+    """A sweep's slabs copy nothing from the host and transform no weight:
+    torch.profiler sees no host-to-device copy and only the sweep kernel
+    (and the output's allocation) during three launches on one plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, model, levels = _encoded(128, (17, 16, 18), cuda_device)
+    r = (17, 16, 18)
+    with torch.inference_mode():
+        plan = SweepPlan(levels, model.mlp, r, cfg.align_corners, cfg.displacement, dtype)
+        lattice_sweep(plan, 1, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for off in (0, 5, 16):
+                lattice_sweep(plan, 1, off)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "Memcpy" in n or "aten::to" in n or "aten::copy_" in n
+                or "aten::t" == n or "contiguous" in n], names
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "lattice_sweep" in e.key]
+    assert kernels and sum(e.count for e in kernels) == 3, names
 
 
 @pytest.mark.cuda
@@ -366,7 +582,10 @@ def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
 def test_points_and_unfused_sweep_on_card_match_cpu(net_res, dims, cuda_device):
     """evaluate_points on the card through K6 (bands="auto"), K4 (bands=None)
     and the gather path against the CPU's plain run: 1e-5 on the sigmoid;
-    query_lattice(fused_tail=False) through K3 against K2: atol 1e-4."""
+    query_lattice(fused_tail=False) through K3 against K2 in the same
+    compute dtype: at float32 atol 1e-4 on logits; at bfloat16 (both round
+    the levels, features and fc0 to bf16, only K2 its hidden activations)
+    atol 2e-3 on the sigmoid (measured 1.8e-4 on the H100)."""
     cfg, cpu_model, _ = _encoded(net_res, dims)
     card = IFNet(cfg, device=cuda_device, generator=torch.Generator().manual_seed(net_res)).eval()
     grid = (np.random.default_rng(1).uniform(0, 1, (1, *dims, 1)) > 0.9).astype(np.float32)
@@ -377,8 +596,48 @@ def test_points_and_unfused_sweep_on_card_match_cpu(net_res, dims, cuda_device):
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
     with torch.inference_mode():
         levels = card.encode(torch.tensor(grid, device=cuda_device))
-        before = fused_point_mlp.launches
-        got = card.query_lattice(levels, dims, 2, 3, 5, fused_tail=False)
-        assert fused_point_mlp.launches == before + 1
-        torch.testing.assert_close(got, card.query_lattice(levels, dims, 2, 3, 5),
-                                   atol=1e-4, rtol=0)
+        for dtype in (torch.float32, torch.bfloat16):
+            before = fused_point_mlp.launches
+            got = card.query_lattice(levels, dims, 2, 3, 5, dtype, fused_tail=False)
+            assert fused_point_mlp.launches == before + 1
+            k2 = card.query_lattice(levels, dims, 2, 3, 5, dtype)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, k2, atol=1e-4, rtol=0)
+            else:
+                torch.testing.assert_close(torch.sigmoid(got), torch.sigmoid(k2), atol=2e-3,
+                                           rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 16, 64, 128, 160])
+def test_grad_points_reads_the_saved_channels_last_copy_on_card(c, cuda_device):
+    """K7 given a channels-last view of the level (what level_features saves
+    when it is given one) reads it as it is (no staging copy) and agrees
+    with K7 on the channel-major flat bit for bit, also from a pointer that
+    is not 16-byte aligned (the scalar path): 1e-5 of the plain version's
+    largest magnitude.  Through autograd from such a view the backward
+    stages nothing."""
+    rng = np.random.default_rng(300 + c)
+    dims = (19, 13, 14)
+    g = 19 * 13 * 14
+    flat = torch.tensor(rng.standard_normal((2, c, g)).astype(np.float32), device=cuda_device)
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32), device=cuda_device)
+         for _ in range(3)]
+    cot = torch.tensor(rng.standard_normal((2, 333, 7 * c)).astype(np.float32),
+                       device=cuda_device)
+    args = (dims, False, 0.0722)
+    ref = level_grad_points_plain(flat, *p, cot, *args)
+    got = level_grad_points_cuda(flat, *p, cot, *args)
+    assert _rel_err(got, ref) <= 1e-5
+    staged = stage_channels_last(flat)
+    buf = torch.empty(2 * g * c + 1, device=cuda_device)
+    buf[1:] = staged.reshape(-1)
+    before = stage_channels_last.copies
+    for level in (staged.transpose(1, 2), buf[1:].view(2, g, c).transpose(1, 2)):
+        assert _rel_err(level_grad_points_cuda(level, *p, cot, *args), ref) <= 1e-5
+    assert torch.equal(level_grad_points_cuda(staged.transpose(1, 2), *p, cot, *args), got)
+    q = [x.clone().requires_grad_() for x in p]
+    (level_features(staged.transpose(1, 2), *q, *args) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert stage_channels_last.copies == before
+    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= 1e-5

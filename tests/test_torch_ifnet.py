@@ -4,9 +4,11 @@ of sv3d_tpu_torch against sv3d_tpu, from converted weights.
 The dims are those of tests/test_pallas_sweep.py: (17, 16, 18) at net_res 128
 (align_corners=False) and (12, 9, 10) at net_res 32 (align_corners=True);
 both pool a size-1 dim through the -inf pad.  Conv and contraction sums run
-in another order than XLA's: atol 1e-4 on features and logits.  Against
-JAX's default bf16 sweep the bound is the JAX package's own mixed-precision
-one, atol 2e-2 on sigmoid (tests/test_pallas_sweep.py).  The port's point
+in another order than XLA's: atol 1e-4 on features and logits (the port's
+sweep at compute_dtype=torch.float32).  Against JAX's default bf16 sweep the
+bound is the JAX package's own mixed-precision one, atol 2e-2 on sigmoid
+(tests/test_pallas_sweep.py), for the port's f32 sweep and for its bf16
+sweep (the default, fused and unfused).  The port's point
 queries (the gather path and the f32 fused path) are held to JAX's exact
 query() at 1e-5, and to JAX's bf16 fused path by gradient cosine > 0.98
 (tests/test_pallas_query_bwd.py)."""
@@ -22,7 +24,13 @@ from sv3d_tpu.models.ifnet import IFNet as JIFNet
 from sv3d_tpu_torch.convert import from_flax
 from test_torch_unet import randomized
 from sv3d_tpu_torch.models.ifnet import IFNet
-from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep, lattice_sweep_plain
+from sv3d_tpu_torch.ops.cuda.sweep import (
+    SweepPlan,
+    lattice_sweep,
+    lattice_sweep_bf16_cuda,
+    lattice_sweep_f32_cuda,
+    lattice_sweep_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -81,7 +89,7 @@ def test_query_lattice_matches_both_jax_sweeps(case):
     sweeps = {}
     for slab, off in ((2, 2), (2, r0 - 2), (5, (-(-r0 // 5) - 1) * 5)):
         with torch.inference_mode():
-            got = tm.query_lattice(tlev, dims, 2, slab, off).numpy()
+            got = tm.query_lattice(tlev, dims, 2, slab, off, torch.float32).numpy()
         assert got.shape == (1, slab, 2 * dims[1], 2 * dims[2])
         for name, kw in (
             ("unfused", dict(compute_dtype=jnp.float32, fused_tail=False)),
@@ -100,15 +108,49 @@ def test_query_lattice_matches_both_jax_sweeps(case):
                 np.testing.assert_allclose(got, ref, atol=1e-4, err_msg=f"{key} {off}")
 
 
+def _jax_sweep(jm, variables, jlev, dims, slab, off, **kw):
+    return np.asarray(jax.jit(lambda v, lv, o: jm.apply(
+        v, lv, dims, 2, slab, o, method=JIFNet.query_lattice, use_pallas_mlp=False, **kw))(
+            variables, jlev, jnp.asarray(off, jnp.int32)))
+
+
+@pytest.mark.parametrize("fused_tail", [True, False], ids=["fused", "unfused"])
+def test_query_lattice_bf16_matches_jax_bf16_sweeps(case, fused_tail):
+    """The port's bf16 sweep (the default compute_dtype), fused (K2's plain
+    version) and unfused (fused_tail=False), against JAX's bf16 sweep fused
+    (Pallas, interpret) and unfused: atol 2e-2 on the sigmoid, the JAX
+    package's own bound (tests/test_pallas_sweep.py).  An interior slab and
+    the last slab of 5, past the lattice end."""
+    dims, jm, variables, tm, jlev, tlev = case
+    r0 = 2 * dims[0]
+    sig = lambda x: 1.0 / (1.0 + np.exp(-np.asarray(x, np.float64)))
+    for slab, off in ((2, 2), (5, (-(-r0 // 5) - 1) * 5)):
+        with torch.inference_mode():
+            got = tm.query_lattice(tlev, dims, 2, slab, off, fused_tail=fused_tail).numpy()
+        assert got.shape == (1, slab, 2 * dims[1], 2 * dims[2]) and np.isfinite(got).all()
+        for jax_fused in (True, False):
+            ref = _jax_sweep(jm, variables, jlev, dims, slab, off, fused_tail=jax_fused)
+            np.testing.assert_allclose(sig(got), sig(ref), atol=2e-2,
+                                       err_msg=f"jax fused_tail={jax_fused} {slab}+{off}")
+
+
 def test_cpu_levels_take_the_plain_sweep():
+    """A plan on CPU levels runs the plain version of its compute dtype (no
+    kernel launch counted), and query_lattice refuses a plan made for
+    another dtype."""
     cfg, grid, _, _, tm = _models(*CASES[1])
     with torch.inference_mode():
         lev = tm.encode(torch.tensor(grid))
-        before = lattice_sweep.launches
-        a = lattice_sweep(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners, cfg.displacement)
-        b = lattice_sweep_plain(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners, cfg.displacement)
-    assert lattice_sweep.launches == before
-    np.testing.assert_array_equal(a.numpy(), b.numpy())
+        before = (lattice_sweep_f32_cuda.launches, lattice_sweep_bf16_cuda.launches)
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = SweepPlan(lev, tm.mlp, (12, 9, 10), cfg.align_corners, cfg.displacement, dtype)
+            a = lattice_sweep(plan, 3, 4)
+            b = lattice_sweep_plain(lev, tm.mlp, (12, 9, 10), 3, 4, cfg.align_corners,
+                                    cfg.displacement, dtype)
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert (lattice_sweep_f32_cuda.launches, lattice_sweep_bf16_cuda.launches) == before
+        with pytest.raises(ValueError):
+            tm.query_lattice(lev, (12, 9, 10), 1, 3, 4, torch.float32, plan=plan)
 
 
 def test_point_queries_match_jax_query(case):

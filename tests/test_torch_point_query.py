@@ -163,6 +163,28 @@ def test_level_features_function_on_cpu_runs_plain_versions():
     np.testing.assert_array_equal(torch.stack([q.grad for q in p], -1).numpy(), plain[2].numpy())
 
 
+@pytest.mark.parametrize("ac", [False, True])
+def test_level_features_backward_from_a_channels_last_view(ac):
+    """level_features given a channels-last view of the level (what K4 and
+    K7 read, saved by the forward for the backward without a copy) has the
+    features and the gradients, level and coordinates, of the channel-major
+    flat."""
+    dims, vol, pts, probe = _inputs(ac, c=8, n=60)
+    flat = _flat(vol)
+    view = flat.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous() and torch.equal(view, flat)
+    g = torch.tensor(probe)
+    runs = []
+    for level in (flat, view):
+        lv = level.detach().requires_grad_()
+        p = [torch.tensor(pts[..., i], requires_grad=True) for i in range(3)]
+        out = level_features(lv, *p, dims, ac, DISP[ac])
+        (out * g).sum().backward()
+        runs.append((out.detach(), lv.grad, torch.stack([q.grad for q in p], -1)))
+    (f0, gv0, gp0), (f1, gv1, gp1) = runs
+    assert torch.equal(f0, f1) and torch.equal(gv0, gv1) and torch.equal(gp0, gp1)
+
+
 def test_scatter_backward_matches_pallas_custom_vjp():
     """jax.grad through scatter_voxels_pallas (interpret mode; its custom VJP
     is the XLA _scatter_bwd) against the port's autograd.Function, whose CPU

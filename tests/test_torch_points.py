@@ -169,10 +169,11 @@ def _models(net_res, dims, seed=0):
 
 @pytest.mark.parametrize("net_res,dims", [(128, (17, 16, 18)), (32, (12, 9, 10))])
 def test_query_lattice_unfused_matches_jax_and_the_fused_sweep(net_res, dims):
-    """query_lattice(fused_tail=False) on JAX's own levels against JAX's
-    unfused f32 sweep without its MLP kernel, and against the port's default
-    (K2's plain version) on the same slab: 1e-5 of the largest |logit|; a
-    batch of two against K2 on the same batch.
+    """query_lattice(fused_tail=False) at compute_dtype float32 on JAX's own
+    levels against JAX's unfused f32 sweep without its MLP kernel, and
+    against the port's fused sweep (K2's plain version) at float32 on the
+    same slab: 1e-5 of the largest |logit|; a batch of two against K2 on the
+    same batch.
     Slabs: interior, and the last slab of 3 rows (past the lattice end at
     net_res 128), at offsets that are multiples of the slab size, as the
     sweep issues them.  The two net_res cover both align_corners
@@ -184,13 +185,14 @@ def test_query_lattice_unfused_matches_jax_and_the_fused_sweep(net_res, dims):
         ref = np.asarray(jax.jit(lambda v, lv, o, rows=rows: jm.apply(
             v, lv, dims, 1, rows, o, method=JIFNet.query_lattice, compute_dtype=jnp.float32,
             fused_tail=False, use_pallas_mlp=False))(variables, jlev, jnp.asarray(off)))
+        f32 = torch.float32
         with torch.inference_mode():
-            got = tm.query_lattice(tlev, dims, 1, rows, off, fused_tail=False).numpy()
-            k2 = tm.query_lattice(tlev, dims, 1, rows, off).numpy()
+            got = tm.query_lattice(tlev, dims, 1, rows, off, f32, fused_tail=False).numpy()
+            k2 = tm.query_lattice(tlev, dims, 1, rows, off, f32).numpy()
             # a batch of two runs the decoder once per element
             both = Pyramid([torch.cat([f, f.flip(-1)]) for f in tlev.flats], tlev.dims)
-            got2 = tm.query_lattice(both, dims, 1, rows, off, fused_tail=False).numpy()
-            k2_2 = tm.query_lattice(both, dims, 1, rows, off).numpy()
+            got2 = tm.query_lattice(both, dims, 1, rows, off, f32, fused_tail=False).numpy()
+            k2_2 = tm.query_lattice(both, dims, 1, rows, off, f32).numpy()
         scale = max(1.0, np.abs(ref).max())
         assert got.shape == ref.shape == (1, rows, dims[1], dims[2])
         np.testing.assert_allclose(got, ref, atol=1e-5 * scale, rtol=0)

@@ -5,10 +5,11 @@ weights: full widths, net_res 128, at scale_factor 8 (dims (17, 13, 14), a
 frustum of (18, 13, 14)).
 
 Tolerances: the depth map and the voxel occupancy at atol 1e-4 (f32 conv
-sums in another order); the f32 sigmoid grid at atol 1e-4 against the JAX
-chain run with compute_dtype=float32 (JAX's evaluate_on_grid itself sweeps
-in bf16, so against it the bound is the JAX package's mixed-precision atol
-2e-2, tests/test_pallas_sweep.py).  The port's main() is driven on the CPU
+sums in another order); the port's f32 sigmoid grid (compute_dtype=float32)
+at atol 1e-4 against the JAX chain run with compute_dtype=float32.  Both
+packages' evaluate_on_grid sweep in bf16 by default: port against JAX there,
+and the port's f32 grid against JAX's bf16 one, at the JAX package's
+mixed-precision atol 2e-2 (tests/test_pallas_sweep.py).  The port's main() is driven on the CPU
 and its OBJ read back with sv3d_tpu.io.load_obj."""
 
 from types import SimpleNamespace
@@ -30,7 +31,7 @@ from sv3d_tpu_torch.convert import from_flax
 from test_torch_unet import randomized
 from sv3d_tpu_torch.geometry.camera import parse_intrinsics
 from sv3d_tpu_torch.geometry.frustum import FrustumGrid
-from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
+from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid, evaluate_on_grid_device
 from sv3d_tpu_torch.inference.predict import main, predict
 from sv3d_tpu_torch.models.scene_net import SceneNet
 
@@ -72,9 +73,13 @@ def slice_run():
     model.eval()
     vox, depth = predict(config, model, rgb=rgb)
     grid = evaluate_on_grid(model.ifnet, vox, config.dims, transfer_dtype=torch.float32)
+    with torch.inference_mode():
+        grid_f32 = evaluate_on_grid_device(model.ifnet, model.ifnet.encode(vox), config.dims,
+                                           compute_dtype=torch.float32).numpy()
     return SimpleNamespace(
         config=config, model=model, rgb_u8=rgb_u8, jvox=np.asarray(jvox), jdepth=jdepth,
         jgrid_f32=jgrid_f32, jgrid_bf16=jgrid_bf16, vox=vox.numpy(), depth=depth, grid=grid,
+        grid_f32=grid_f32,
     )
 
 
@@ -85,8 +90,9 @@ def test_slice_matches_jax(slice_run):
     assert s.vox.shape == (1, 17, 13, 14, 1)
     assert s.vox.max() > 0.1  # the depth map really landed in the grid
     np.testing.assert_allclose(s.vox, s.jvox, atol=1e-4)
-    assert s.grid.shape == (17, 13, 14) and np.isfinite(s.grid).all()
-    np.testing.assert_allclose(s.grid, s.jgrid_f32, atol=1e-4)
+    assert s.grid.shape == s.grid_f32.shape == (17, 13, 14) and np.isfinite(s.grid).all()
+    np.testing.assert_allclose(s.grid_f32, s.jgrid_f32, atol=1e-4)
+    np.testing.assert_allclose(s.grid_f32, s.jgrid_bf16, atol=2e-2)
     np.testing.assert_allclose(s.grid, s.jgrid_bf16, atol=2e-2)
 
 
