@@ -15,30 +15,34 @@ that each ran its kernels:
             float32, the parity route) is held to its plain version, timed
             and run on the card-vs-CPU slice;
   points    evaluate_points on the served model and grid at 262,144 uniform
-            points in [-0.45, 0.45]^3: kernel K6 (bands="auto", fc0 in the
-            kernel), kernel K4 (bands=None) and the exact gather path, which
-            must agree; then the unfused dense sweep
+            points in [-0.45, 0.45]^3, five routes: bf16 (the default, the
+            JAX package's class) through kernel K6 bf16 (bands="auto", fc0
+            on the tensor cores in the kernel) or kernel K5 (bands=None);
+            float32 through kernel K6 (f32) or kernel K4; and the exact
+            gather path; the f32 routes must agree with the gathers, the
+            bf16 ones within their class; then the unfused dense sweep
             (query_lattice(fused_tail=False)): kernel K3 (decoder);
   training  SceneNetTrainer(...).fit on a seeded one-scene dataset tree that
             the script writes, B=4, 2x2048 supervision + 4096 projected
             points, fused_query: kernels K1, K1b (scatter backward), K4
             (point features), K7 and K8 (their backward).
 
-K5 (bf16 point features) is on no path of the port, as in the JAX package:
-it is held against its plain version at the points path's and the training
-path's shapes.  K4 and K5 read a channels-last copy of each level that
-their wrappers stage (evaluate_points stages its pyramid once a call); the
-script times the staging and the kernels apart,
-at both shapes, and prints the layout in which cuDNN returns the conv
-outputs that the levels come from.
+K5 is also held against its plain version at the training path's shapes.
+K4 and K5 read a channels-last copy of each level that their wrappers
+stage (evaluate_points stages its pyramid once a call, rounded to bf16 on
+the bf16 routes); the script times the staging and the kernels apart, at
+both shapes, and prints the layout in which cuDNN returns the conv outputs
+that the levels come from.  K8 is timed per level, with the count of global
+atomic operations it issues.
 
 It also resumes the fit from its checkpoint, checks that the loss drops over
 10 steps on one fixed batch, holds one f32 train step on the card (kernels)
 and on the CPU (plain versions) against the same step in float64 on the
 CPU, and times kernels, paths and the train step with CUDA events, beside
 each kernel's bound on the card and the time of one PyTorch library call that
-computes the same function, where there is one.  Imports nothing of JAX.  Exits non-zero
-without CUDA and when any phase fails.  The last line is
+computes the same function, where there is one.  Imports nothing of JAX.  Raises (exit
+code 1) without CUDA, when sv3d_tpu_torch is not beside it (the script
+copied alone) and when any phase fails.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -107,9 +111,48 @@ GRID_GRAD_RTOL = 2e-2
 BN_FED_BIASES = ("unet.down.1.bias", "unet.down.2.bias", "unet.same.0.bias",
                  "unet.same.1.bias", "unet.same.2.bias")
 K3_TOL = 1e-4  # f32 FMA vs plain f32 contractions: summation order only (csrc/mlp.cu)
+# K3 in bf16 against its plain bf16 version: the same rounding points, f32
+# sums in another order, so a hidden activation may round the other way of a
+# bf16 boundary (K2 bf16's case); atol on logits.  Such flips are rare, so
+# mean |error| <= K3_BF16_REL_MEAN_TOL x mean |logit| (f64 sums instead of
+# f32 moved the mean by 2.3e-5 to 2.6e-5 in a CPU estimate on standard
+# normal features); a decoder that leaves the hidden rounding out is off at
+# every point (3.5e-3 to 4.0e-3 in the same estimate) and fails it
+# (plain_bf16_mlp with skip; the points phase shows it).
+K3_BF16_TOL = 2e-3
+K3_BF16_REL_MEAN_TOL = 3e-4
 K6_RTOL = 1e-5  # FMA order over at most 7 * 128 terms, of the largest |partial|
+# K6 bf16 against its plain bf16 version (the same rounding points: level,
+# feature, block and partial): f32 sums in another order may round a feature
+# or a partial the other way, one bf16 ulp (2^-8 of the partial at the top),
+# so max |error| <= K6_BF16_TOL x max |partial|; such flips are rare, so over
+# all the partials mean |error| <= K6_BF16_REL_MEAN_TOL x mean |partial|
+# (f64 sums instead of f32 moved the mean by ~2e-7 in a CPU estimate).  A
+# version that leaves one rounding point out is off at every partial by
+# about a rounding error (1.4e-3 to 2.7e-3 of the mean in the same estimate)
+# and fails the mean limit (plain_bf16_fc0 with skip; the points phase shows
+# it).
+K6_BF16_TOL = 1e-2
+K6_BF16_REL_MEAN_TOL = 1e-4
 K5_ULP = 2.0 ** -7  # one bf16 ulp: |d| <= 2^-7 |ref| + 1e-6
-POINTS_TOL = 1e-5  # the three evaluate_points routes, and card vs CPU, on the sigmoid
+POINTS_TOL = 1e-5  # the f32 evaluate_points routes and the gathers, and card vs CPU, on the sigmoid
+# the bf16 routes (K6 bf16, K5) against the f32 gathers and against each
+# other, on the sigmoid: the JAX package's bf16 point query is held to its
+# exact path at ~1e-2 relative on logits; the CPU port's bf16 routes came
+# within 4e-4 of the exact path at small dims (tests/test_torch_points.py)
+POINTS_BF16_TOL = 2e-3
+# the card's bf16 routes against the CPU port's (the same rounding points, f32
+# sums in another order): on the sigmoid (measured up to 1.1e-4 on the H100
+# at scale 8), and mean |logit difference| <= POINTS_BF16_REL_MEAN_TOL x mean
+# |logit|.  A point passes some 4,600 bf16 roundings (features, fc0
+# partials, hidden values), and sums in another order flip a few of them
+# per point, so the card's bf16 routes sit at up to 7.2e-4 of the mean
+# |logit| at scale 8 (1.1e-4 to 3.0e-4 at the card tests' dims), while a
+# run in another class -- the f32 route, or a bf16 route with its tail in
+# f32 -- is off at every point by 2.4e-3 (net_res 32 on the CPU) to 7.0e-3
+# and fails (points_card_vs_cpu)
+POINTS_BF16_CARD_TOL = 3e-4
+POINTS_BF16_REL_MEAN_TOL = 1.5e-3
 N_POINTS = 262144  # the JAX package's arbitrary-point measurement (bench.py)
 # the H100 SXM's published peaks at its full 700 W limit (NVIDIA's data
 # sheet): f32 outside the tensor cores, and device memory
@@ -247,9 +290,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def gathered_bytes(levels, p, align_corners, displacement) -> int:
+def gathered_bytes(levels, p, align_corners, displacement, itemsize: int = 4) -> int:
     """The least bytes that a gather of the 7 displaced copies x 8 corners
-    of these points must read from the (B, C, G) f32 levels, on this run's
+    of these points must read from the (B, C, G) levels held in itemsize
+    bytes a value (4: f32, 2: bf16), on this run's
     points: per level, the distinct 32-byte sectors that hold the in-range
     corners' channels, with the level laid out channels-last (a corner's C
     channels one run: the layout that needs the fewest sectors).  Never
@@ -275,9 +319,10 @@ def gathered_bytes(levels, p, align_corners, displacement) -> int:
             rows = torch.unique(rows[valid])  # sorted
             # a row's bytes [4C r, 4C (r + 1)) span sectors first..last; two
             # neighbouring rows may share one sector
-            first, last = rows * (4 * c) // 32, ((rows + 1) * (4 * c) - 1) // 32
+            run = itemsize * c
+            first, last = rows * run // 32, ((rows + 1) * run - 1) // 32
             sectors = int((last - first + 1).sum()) - int((last[:-1] == first[1:]).sum())
-            total += min(32 * sectors, nbytes(flat))
+            total += min(32 * sectors, flat.numel() * itemsize)
     return total
 
 
@@ -359,9 +404,79 @@ def plain_bf16_sweep(levels, mlp, r, rows, row_offset, align_corners, displaceme
     return torch.cat(out, dim=1)
 
 
+def plain_bf16_fc0(flat, w0l, p, dims, align_corners, displacement, skip=()):
+    """level_fc0_plain(..., torch.bfloat16) with the rounding points named in
+    skip left out ("level", "feature", "partial"): with skip=() it is the
+    plain bf16 partial bit for bit; with a point left out, what a K6 bf16
+    that rounds at the wrong points would give, to show that K6 bf16's mean
+    limit fails it."""
+    from sv3d_tpu_torch.ops.point_query import level_features_plain
+
+    rounded = lambda t: t.to(torch.bfloat16).float()
+    keep = lambda t, point: t if point in skip else rounded(t)
+    f = level_features_plain(keep(flat.float(), "level"), *p, dims, align_corners, displacement)
+    return keep(keep(f, "feature") @ rounded(w0l.float()), "partial")
+
+
+def plain_bf16_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, skip=()) -> torch.Tensor:
+    """fused_point_mlp_plain(..., compute_dtype=torch.bfloat16) with the
+    rounding points named in skip left out ("hidden": the ReLU outputs):
+    with skip=() it is the plain bf16 decoder bit for bit; with the hidden
+    rounding left out, what a K3 that ignores it would give, to show that
+    K3 bf16's mean limit fails it."""
+    rounded = lambda t: t.to(torch.bfloat16).float()
+    layers = ((w0, b0), (w1, b1), (w2, b2), (w3, b3))
+    h = rounded(f)
+    for i, (w, b) in enumerate(layers):
+        h = torch.einsum("hf,...fn->...hn", rounded(w), h) + b[:, None]
+        if i < len(layers) - 1:
+            h = torch.relu(h) if "hidden" in skip else rounded(torch.relu(h))
+    return h[..., 0, :]
+
+
 def rel_mean_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """mean |got - ref| / max(1e-30, mean |ref|)."""
     return float((got - ref).abs().mean()) / max(float(ref.abs().mean()), 1e-30)
+
+
+def logits_of(sigmoid: np.ndarray) -> np.ndarray:
+    """The logits (f64) behind evaluate_points' f32 sigmoid values."""
+    s = sigmoid.astype(np.float64)
+    return np.log(s) - np.log1p(-s)
+
+
+def points_card_vs_cpu(card, cpu, grid, pts, tile_points) -> dict:
+    """evaluate_points on the card (IFNet card) against the CPU port (IFNet
+    cpu, the same weights) on the same grid and points, route by route (K6
+    bf16, K5 bf16, K6 f32, K4 f32; the card's gathers against the CPU's),
+    each as (largest sigmoid difference, mean |logit difference| / mean
+    |logit|); and, against the CPU's bf16 route of each bands, the mean
+    measure of two runs in another precision class: the card's f32 route,
+    and the CPU's bf16 route with its MLP tail in f32."""
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_points
+
+    f32 = torch.float32
+    routes = {"K6 bf16": dict(bands="auto"), "K5 bf16": dict(bands=None),
+              "K6 f32": dict(bands="auto", compute_dtype=f32),
+              "K4 f32": dict(bands=None, compute_dtype=f32), "gather": dict(use_kernel=False)}
+    run = lambda model, kw: evaluate_points(model, grid, pts, tile_points=tile_points,
+                                            **{"use_kernel": True, **kw})
+    measure = lambda got, ref: (float(np.abs(got - ref).max()),
+                                float(np.abs(logits_of(got) - logits_of(ref)).mean()
+                                      / np.abs(logits_of(ref)).mean()))
+    got = {name: measure(run(card, kw), run(cpu, kw)) for name, kw in routes.items()}
+    wrong = {}
+    for name in ("K6 bf16", "K5 bf16"):
+        kw = routes[name]
+        ref = run(cpu, kw)
+        wrong[f"{name}: card f32"] = measure(run(card, {**kw, "compute_dtype": f32}), ref)[1]
+        # the tail of a run in another class: fc1, fc2 and fc_out in f32
+        cpu._mlp_tail = lambda h, compute_dtype=f32: type(cpu)._mlp_tail(cpu, h, f32)
+        try:
+            wrong[f"{name}: tail in f32"] = measure(run(cpu, kw), ref)[1]
+        finally:
+            del cpu._mlp_tail
+    return {"routes": got, "wrong": wrong}
 
 
 def grid_sample_inputs(levels, p, align_corners, displacement) -> list:
@@ -405,12 +520,15 @@ def k5_error(got, ref) -> tuple:
 
 def point_kernel_checks(ifnet, levels, pts) -> dict:
     """K6, K5 and K4 against their plain versions on every level of the
-    served pyramid at the points path's (1, N_POINTS) query.  Returns
-    {name: (max abs err, max err as a fraction of its bound)}."""
+    served pyramid at the points path's (1, N_POINTS) query, K5 on the level
+    rounded to bf16 and staged channels-last (as the bf16 bands=None route
+    hands it).  Returns {name: (max abs err, max err as a fraction of its
+    bound)}."""
     from sv3d_tpu_torch.ops.cuda.point_query import (
         level_fc0_cuda,
         level_features_banded_cuda,
         level_features_cuda,
+        stage_channels_last,
     )
     from sv3d_tpu_torch.ops.point_query import (
         level_fc0_plain,
@@ -426,18 +544,58 @@ def point_kernel_checks(ifnet, levels, pts) -> dict:
         errs[name] = [max(errs[name][0], a), max(errs[name][1], frac)]
 
     with torch.inference_mode():
-        for (flat, dims), w0l in zip(levels, [w.contiguous() for w in ifnet.fc0_blocks()]):
+        for (flat, dims), w0l in zip(levels, ifnet.fc0_operands(4, torch.float32)):
             args = (dims, cfg.align_corners, cfg.displacement)
             a, r = rel_err(level_fc0_cuda(flat, w0l, *p, *args),
                            level_fc0_plain(flat, w0l, *p, *args))
             worst("K6", a, r / K6_RTOL)
-            worst("K5", *k5_error(level_features_banded_cuda(flat, *p, *args),
-                                  level_features_banded_plain(flat, *p, *args)))
+            level16 = stage_channels_last(flat.to(torch.bfloat16)).transpose(1, 2)
+            worst("K5", *k5_error(level_features_banded_cuda(level16, *p, *args),
+                                  level_features_banded_plain(level16, *p, *args)))
             a, r = rel_err(level_features_cuda(flat, *p, *args),
                            level_features_plain(flat, *p, *args))
             worst("K4", a, r / TRAIN_KERNEL_RTOL["K4"])
         torch.cuda.synchronize()
     return {k: tuple(v) for k, v in errs.items()}
+
+
+def k6_bf16_checks(ifnet, levels, pts) -> dict:
+    """K6 bf16 against its plain bf16 version on every level of the served
+    pyramid (staged bf16 channels-last, as evaluate_points does) at the
+    points path's (1, N_POINTS) query: the largest error as a fraction of
+    the largest |partial| (worst level), the mean error over all levels'
+    partials as a fraction of their mean |partial|, and the same mean for
+    the plain version with each rounding point left out (plain_bf16_fc0)."""
+    from sv3d_tpu_torch.ops.cuda.point_query import (
+        fc0_block_bf16,
+        level_fc0_bf16_cuda,
+        stage_channels_last,
+    )
+
+    cfg = ifnet.config
+    p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
+    args = (cfg.align_corners, cfg.displacement)
+    out = {"max": 0.0, "abs": 0.0}
+    diff = ref_sum = 0.0
+    wrong = {"level": 0.0, "feature": 0.0, "partial": 0.0}
+    count = 0
+    with torch.inference_mode():
+        for (flat, dims), w0l in zip(levels, ifnet.fc0_blocks()):
+            level = stage_channels_last(flat.to(torch.bfloat16)).transpose(1, 2)
+            got = level_fc0_bf16_cuda(level, fc0_block_bf16(w0l), *p, dims, *args)
+            ref = plain_bf16_fc0(flat, w0l, p, dims, *args)
+            a, r = rel_err(got, ref)
+            out["abs"], out["max"] = max(out["abs"], a), max(out["max"], r)
+            diff += float((got - ref).abs().sum())
+            ref_sum += float(ref.abs().sum())
+            count += ref.numel()
+            for skip in wrong:
+                variant = plain_bf16_fc0(flat, w0l, p, dims, *args, skip=(skip,))
+                wrong[skip] += float((variant - ref).abs().sum())
+        torch.cuda.synchronize()
+    out["mean"] = diff / ref_sum
+    out["wrong"] = {k: v / ref_sum for k, v in wrong.items()}
+    return out
 
 
 def conv_output_layouts(ifnet, vox) -> list:
@@ -492,15 +650,26 @@ def print_staging(label: str, t: dict) -> None:
           f"K4 {t['K4 kernel']:.4f} ms, K5 {t['K5 kernel']:.4f} ms", flush=True)
 
 
+POINT_ROUTES = (
+    ("K6 bf16", dict(bands="auto")),  # the default
+    ("K5 bf16", dict(bands=None)),
+    ("K6 f32", dict(bands="auto", compute_dtype=torch.float32)),
+    ("K4 f32", dict(bands=None, compute_dtype=torch.float32)),
+    ("gather", dict(use_kernel=False)),
+)
+
+
 def points_path(served, vox, pts_np, smi) -> dict:
-    """The arbitrary-point path through evaluate_points: the three routes,
-    their launches and agreement, K6/K5/K4/K3 checks and timings (K4 and K5
-    with their staging apart), the layout of cuDNN's conv outputs, the
-    unfused sweep through K3, and profiles.  Returns what the kernels line
-    needs."""
+    """The arbitrary-point path through evaluate_points: the five routes,
+    their launches and agreement, K6 bf16/K6/K5/K4/K3 checks and timings (K4
+    and K5 with their staging apart, K6 bf16 per level), the layout of
+    cuDNN's conv outputs, the unfused sweep through K3 in both dtypes, and
+    profiles of the two bf16 routes.  Returns what the kernels line needs."""
     from sv3d_tpu_torch.inference.dense_grid import evaluate_points
     from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
     from sv3d_tpu_torch.ops.cuda.point_query import (
+        fc0_block_bf16,
+        level_fc0_bf16_cuda,
         level_fc0_cuda,
         level_features_banded_cuda,
         level_features_cuda,
@@ -520,36 +689,45 @@ def points_path(served, vox, pts_np, smi) -> dict:
     dev = vox.device
     n_tiles = -(-len(pts_np) // 65536)
 
-    # -- the three routes through the entry point ---------------------------
+    # -- the five routes through the entry point -----------------------------
     routes, launches, stagings = {}, {}, {}
-    counters = (level_fc0_cuda, level_features_cuda, level_features_banded_cuda)
-    for name, kw in (("K6", dict(bands="auto")), ("K4", dict(bands=None)),
-                     ("gather", dict(use_kernel=False))):
-        for counter in counters:
+    counters = {"K6 bf16": level_fc0_bf16_cuda, "K6": level_fc0_cuda, "K4": level_features_cuda,
+                "K5": level_features_banded_cuda}
+    for name, kw in POINT_ROUTES:
+        for counter in counters.values():
             counter.launches = 0
         stage_channels_last.copies = 0
         routes[name] = evaluate_points(ifnet, vox, pts_np, **kw)
         torch.cuda.synchronize()
-        launches[name] = tuple(counter.launches for counter in counters)
+        launches[name] = {k: counter.launches for k, counter in counters.items()}
         stagings[name] = stage_channels_last.copies
     diffs = {f"{a} vs {b}": float(np.abs(routes[a] - routes[b]).max())
-             for a, b in (("K6", "gather"), ("K4", "gather"), ("K6", "K4"))}
+             for a, b in (("K6 f32", "gather"), ("K4 f32", "gather"), ("K6 f32", "K4 f32"))}
+    diffs_bf16 = {f"{a} vs {b}": float(np.abs(routes[a] - routes[b]).max())
+                  for a, b in (("K6 bf16", "gather"), ("K5 bf16", "gather"),
+                               ("K6 bf16", "K5 bf16"))}
     print(f"points path: evaluate_points at {len(pts_np)} points ({n_tiles} tiles of 65536), "
-          f"launches (K6, K4, K5) by route {launches}, K4/K5 stagings by route {stagings}, "
-          f"largest sigmoid differences {diffs} (tol {POINTS_TOL:g}), sigmoid in "
-          f"[{routes['K6'].min():.4f}, {routes['K6'].max():.4f}]", flush=True)
+          f"launches by route {launches}, stagings by route {stagings}; largest sigmoid "
+          f"differences f32 {diffs} (tol {POINTS_TOL:g}), bf16 {diffs_bf16} (tol "
+          f"{POINTS_BF16_TOL:g}); sigmoid in [{routes['K6 bf16'].min():.4f}, "
+          f"{routes['K6 bf16'].max():.4f}]", flush=True)
     for name, v in routes.items():
         check(v.shape == (len(pts_np),) and v.dtype == np.float32 and bool(np.isfinite(v).all()),
               f"evaluate_points route {name}: {v.shape} {v.dtype}")
-    check(max(diffs.values()) <= POINTS_TOL, f"evaluate_points routes disagree: {diffs}")
+    check(max(diffs.values()) <= POINTS_TOL, f"evaluate_points f32 routes disagree: {diffs}")
+    check(max(diffs_bf16.values()) <= POINTS_BF16_TOL,
+          f"evaluate_points bf16 routes disagree: {diffs_bf16}")
     n_levels = len(cfg.feature_channels)
-    check(launches["K6"] == (n_levels * n_tiles, 0, 0)
-          and launches["K4"] == (0, n_levels * n_tiles, 0)
-          and launches["gather"] == (0, 0, 0), f"point kernels ran {launches}")
-    # the K4 route stages its pyramid once a call: every level but C = 1
-    staged_levels = sum(c > 1 for c in cfg.feature_channels)
-    check(stagings == {"K6": 0, "K4": staged_levels, "gather": 0},
-          f"K4/K5 stagings by route {stagings}, not {staged_levels} on the K4 route alone")
+    want = {"K6 bf16": "K6 bf16", "K5 bf16": "K5", "K6 f32": "K6", "K4 f32": "K4", "gather": None}
+    for name, kernel in want.items():
+        check(launches[name] == {k: n_levels * n_tiles if k == kernel else 0 for k in counters},
+              f"route {name} launched {launches[name]}")
+    # each kernel route but K6 f32's stages its pyramid once a call: every
+    # level but the C = 1 one
+    staged = sum(c > 1 for c in cfg.feature_channels)
+    check(stagings == {"K6 bf16": staged, "K5 bf16": staged, "K6 f32": 0, "K4 f32": staged,
+                       "gather": 0}, f"stagings by route {stagings}")
+    check(evaluate_points(ifnet, vox, pts_np[:0]).shape == (0,), "evaluate_points on no points")
 
     # -- the kernels against their plain versions at full width -------------
     with torch.inference_mode():
@@ -562,72 +740,128 @@ def points_path(served, vox, pts_np, smi) -> dict:
         print(f"{name} on the served pyramid, {len(pts_np)} points: max_abs_err {a:.3e}, "
               f"{frac:.3f} of its bound ({what[name]})", flush=True)
         check(frac <= 1.0, f"{name} disagrees with its plain version: {frac} of its bound")
+    k6b = k6_bf16_checks(ifnet, levels, pts)
+    print(f"K6 bf16 on the served pyramid, {len(pts_np)} points, against its plain bf16 version: "
+          f"max_abs_err {k6b['abs']:.3e}, {k6b['max']:.3e} of the largest |partial| (tol "
+          f"{K6_BF16_TOL:g}), mean_abs_err / mean |partial| {k6b['mean']:.3e} (tol "
+          f"{K6_BF16_REL_MEAN_TOL:g}); the plain version with a rounding point left out: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in k6b["wrong"].items())
+          + ": K6 bf16's mean limit fails each", flush=True)
+    check(k6b["max"] <= K6_BF16_TOL and k6b["mean"] <= K6_BF16_REL_MEAN_TOL,
+          f"K6 bf16 disagrees with its plain version: {k6b}")
+    check(min(k6b["wrong"].values()) > K6_BF16_REL_MEAN_TOL,
+          f"K6 bf16's mean limit would pass a wrong rounding: {k6b['wrong']}")
     print("cuDNN's conv outputs in IFNet.encode (served grid): "
           + ", ".join(conv_output_layouts(ifnet, vox)), flush=True)
     weights = [t.detach() for layer in ifnet.mlp for t in layer]
+    k3_err = {}
     with torch.inference_mode():
         f = slab_features(levels, dims, 1, 69, cfg.align_corners, cfg.displacement)[0]
-        k3_err = float((fused_point_mlp(f, *weights) - fused_point_mlp_plain(f, *weights))
-                       .abs().max())
-    print(f"K3 fused_point_mlp on one full-width row, f {tuple(f.shape)}: max_abs_err "
-          f"{k3_err:.3e} (tol {K3_TOL:g})", flush=True)
-    check(k3_err <= K3_TOL, f"K3 disagrees with its plain version: {k3_err}")
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fused_point_mlp(f, *weights, compute_dtype=dtype)
+            ref = fused_point_mlp_plain(f, *weights, compute_dtype=dtype)
+            k3_err[dtype] = float((got - ref).abs().max())
+        k3_mean = rel_mean_err(got, ref)
+        k3_wrong = plain_bf16_mlp(f, *weights, skip=("hidden",))
+        k3_wrong_err = (float((k3_wrong - ref).abs().max()), rel_mean_err(k3_wrong, ref))
+        check(torch.equal(plain_bf16_mlp(f, *weights), ref),
+              "plain_bf16_mlp is not the plain bf16 decoder")
+    print(f"K3 fused_point_mlp on one full-width row, f {tuple(f.shape)}: max_abs_err f32 "
+          f"{k3_err[torch.float32]:.3e} (tol {K3_TOL:g}), bf16 {k3_err[torch.bfloat16]:.3e} "
+          f"(tol {K3_BF16_TOL:g}), bf16 mean_abs_err / mean |logit| {k3_mean:.3e} (tol "
+          f"{K3_BF16_REL_MEAN_TOL:g}); the plain bf16 decoder with its hidden rounding left "
+          f"out: max_abs_err {k3_wrong_err[0]:.3e}, mean {k3_wrong_err[1]:.3e}: K3 bf16's mean "
+          "limit fails it", flush=True)
+    check(k3_err[torch.float32] <= K3_TOL and k3_err[torch.bfloat16] <= K3_BF16_TOL
+          and k3_mean <= K3_BF16_REL_MEAN_TOL,
+          f"K3 disagrees with its plain version: {k3_err}, mean {k3_mean}")
+    check(k3_wrong_err[1] > K3_BF16_REL_MEAN_TOL,
+          f"K3 bf16's mean limit would pass a decoder without its hidden rounding: "
+          f"{k3_wrong_err}")
 
-    # -- the unfused sweep through K3, against K2 f32 ------------------------
-    fused_point_mlp.launches = 0
-    sweep_err = 0.0
-    with torch.inference_mode():
-        for rows, off in ((1, 0), (1, 69), (2, 137)):
-            got = ifnet.query_lattice(levels, dims, 1, rows, off, torch.float32,
-                                      fused_tail=False)
-            ref = ifnet.query_lattice(levels, dims, 1, rows, off, torch.float32)
-            check(bool(torch.isfinite(got).all()), f"unfused sweep non-finite at {off}+{rows}")
-            sweep_err = max(sweep_err, float((got - ref).abs().max()))
-        torch.cuda.synchronize()
-    k3_launches = fused_point_mlp.launches
-    print(f"unfused sweep at float32: query_lattice(fused_tail=False) rows 0, 69, 137-138 "
-          f"against K2 f32: "
-          f"max_abs_err {sweep_err:.3e} (tol {K3_TOL:g}), K3 launches {k3_launches}", flush=True)
-    check(sweep_err <= K3_TOL and k3_launches == 3, "the unfused sweep did not run through K3")
+    # -- the unfused sweep through K3, against K2 of the same dtype ----------
+    k3_launches = {}
+    for dtype, tol in ((torch.float32, K3_TOL), (torch.bfloat16, K2_BF16_TOL)):
+        fused_point_mlp.launches = 0
+        sweep_err = 0.0
+        with torch.inference_mode():
+            for rows, off in ((1, 0), (1, 69), (2, 137)):
+                got = ifnet.query_lattice(levels, dims, 1, rows, off, dtype, fused_tail=False)
+                ref = ifnet.query_lattice(levels, dims, 1, rows, off, dtype)
+                check(bool(torch.isfinite(got).all()),
+                      f"unfused sweep non-finite at {off}+{rows}")
+                sweep_err = max(sweep_err, float((got - ref).abs().max()))
+            torch.cuda.synchronize()
+        k3_launches[dtype] = fused_point_mlp.launches
+        print(f"unfused sweep at {str(dtype)[6:]}: query_lattice(fused_tail=False) rows 0, 69, "
+              f"137-138 against K2: max_abs_err {sweep_err:.3e} (tol {tol:g}), K3 launches "
+              f"{k3_launches[dtype]}", flush=True)
+        check(sweep_err <= tol and k3_launches[dtype] == 3,
+              f"the unfused {dtype} sweep did not run through K3")
 
     # -- timings -------------------------------------------------------------
     p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
-    w0ls = [w.contiguous() for w in ifnet.fc0_blocks()]
+    w0ls = ifnet.fc0_operands(4, torch.float32)
+    w0ks = ifnet.fc0_operands(4, torch.bfloat16)
     lv = list(levels)
+    lv16 = [(stage_channels_last(fl.to(torch.bfloat16)).transpose(1, 2), d) for fl, d in lv]
     args = (cfg.align_corners, cfg.displacement)
+    h0 = weights[0].shape[0]
     with torch.inference_mode():
-        route_ms = {name: cuda_ms(lambda kw=kw: evaluate_points(ifnet, vox, pts_np, **kw),
-                                  warmup=1, reps=3)
-                    for name, kw in (("K6", dict(bands="auto")), ("K4", dict(bands=None)),
-                                     ("gather", dict(use_kernel=False)))}
+        # the five routes in one call, in turns: first to last, then back
+        route_ms = {name: [] for name, _ in POINT_ROUTES}
+        for name, kw in (*POINT_ROUTES, *POINT_ROUTES[::-1]):
+            route_ms[name].append(cuda_ms(lambda kw=kw: evaluate_points(ifnet, vox, pts_np, **kw),
+                                          warmup=1, reps=3))
+        k6b_out = torch.zeros((1, len(pts_np), h0), device=dev)
         timed = {
             "K6": (cuda_ms(lambda: [level_fc0_cuda(fl, w, *p, d, *args)
                                     for (fl, d), w in zip(lv, w0ls)]),
                    cuda_ms(lambda: [level_fc0_plain(fl, w, *p, d, *args)
                                     for (fl, d), w in zip(lv, w0ls)], warmup=1, reps=3)),
-            "K5": (cuda_ms(lambda: [level_features_banded_cuda(fl, *p, d, *args) for fl, d in lv]),
+            # as query_fused runs it: the six levels adding into one buffer
+            "K6bf16": (cuda_ms(lambda: [level_fc0_bf16_cuda(fl, w, *p, d, *args, out=k6b_out)
+                                        for (fl, d), w in zip(lv16, w0ks)]),
+                       cuda_ms(lambda: [plain_bf16_fc0(fl, w, p, d, *args)
+                                        for (fl, d), w in zip(lv16, ifnet.fc0_blocks())],
+                               warmup=1, reps=3)),
+            # as the bf16 bands=None route runs it: on the staged bf16 pyramid
+            "K5": (cuda_ms(lambda: [level_features_banded_cuda(fl, *p, d, *args)
+                                    for fl, d in lv16]),
                    cuda_ms(lambda: [level_features_banded_plain(fl, *p, d, *args)
-                                    for fl, d in lv], warmup=1, reps=3)),
+                                    for fl, d in lv16], warmup=1, reps=3)),
             "K3": (cuda_ms(lambda: fused_point_mlp(f, *weights)),
                    cuda_ms(lambda: fused_point_mlp_plain(f, *weights))),
         }
+        k6b_levels = [cuda_ms(lambda fl=fl, d=d, w=w: level_fc0_bf16_cuda(fl, w, *p, d, *args,
+                                                                         out=k6b_out))
+                      for (fl, d), w in zip(lv16, w0ks)]
+        k3_bf16_ms = cuda_ms(lambda: fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16))
         k4_ms = (cuda_ms(lambda: [level_features_cuda(fl, *p, d, *args) for fl, d in lv]),
                  cuda_ms(lambda: [level_features_plain(fl, *p, d, *args) for fl, d in lv],
                          warmup=1, reps=3))
         staged = feature_staging_ms(lv, p, args)
     library = {"K5": grid_sample_ms(grid_sample_inputs(lv, p, *args), cfg.align_corners)}
     prof = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np), steps=2)
-    prof_k4 = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np, bands=None), steps=2)
+    prof_k5 = profile_lines(lambda: evaluate_points(ifnet, vox, pts_np, bands=None), steps=2)
     print(f"points timings on {smi}:", flush=True)
     for name, ms in route_ms.items():
-        print(f"  evaluate_points route {name}: median {ms:.3f} ms of 3, "
-              f"{len(pts_np) / (ms / 1e3):.4g} points/s", flush=True)
+        med = statistics.median(ms)
+        print(f"  evaluate_points route {name}: {', '.join(f'{t:.3f}' for t in ms)} ms (each a "
+              f"median of 3, in turns), {len(pts_np) / (med / 1e3):.4g} points/s", flush=True)
+    faster = min(("K6 bf16", "K5 bf16"), key=lambda k: statistics.median(route_ms[k]))
+    print(f"  the faster bf16 route: {faster} (bands={'auto' if faster == 'K6 bf16' else None})",
+          flush=True)
     for name, (ms, plain) in timed.items():
         what = "1 row, 11,648 points" if name == "K3" else f"all 6 levels, {len(pts_np)} points"
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
+    print(f"  K6 bf16 by level (C {[fl.shape[1] for fl, _ in lv]}): "
+          + ", ".join(f"{t:.4f}" for t in k6b_levels) + " ms", flush=True)
+    print(f"  K3 in bf16 (round_hidden): {k3_bf16_ms:.4f} ms (1 row, 11,648 points)", flush=True)
     # the levels' gathered sectors and the coordinates in; (1, N, 7 * sumC)
     # f32 out; 8 taps a feature
     lvl_bytes = gathered_bytes(lv, p, *args)
+    lvl_bytes16 = gathered_bytes(lv, p, *args, itemsize=2)
     pts_bytes = nbytes(*p)
     k4_bound = bound(lvl_bytes + pts_bytes + 4 * len(pts_np) * ifnet.feature_size,
                      16.0 * len(pts_np) * ifnet.feature_size)
@@ -637,7 +871,7 @@ def points_path(served, vox, pts_np, smi) -> dict:
           f"levels' {nbytes(*(fl for fl, _ in lv))})", flush=True)
     print(f"  K5 library F.grid_sample over the 6 levels: {library['K5']:.4f} ms", flush=True)
     print_staging("points shapes, B=1", staged)
-    for route, lines in (("bands=\"auto\"", prof), ("bands=None", prof_k4)):
+    for route, lines in (("bands=\"auto\", bf16", prof), ("bands=None, bf16", prof_k5)):
         print(f"  profiled evaluate_points ({route}, {len(pts_np)} points):", flush=True)
         for line in lines:
             print(f"    {line}", flush=True)
@@ -645,25 +879,30 @@ def points_path(served, vox, pts_np, smi) -> dict:
     # -- bounds from this run's inputs ----------------------------------------
     n = len(pts_np)
     sum_c = sum(cfg.feature_channels)
-    h0 = weights[0].shape[0]
     bounds = {
         # the levels' gathered sectors, fc0 blocks, coordinates in; six (1, N,
         # H) f32 partials out;
         # fc0 (2 * 7 * sumC * H a point) plus the features (16 a tap)
         "K6": bound(lvl_bytes + nbytes(*w0ls) + pts_bytes + 6 * n * h0 * 4,
                     2.0 * n * 7 * sum_c * h0 + 16.0 * n * 7 * sum_c),
-        # the levels' gathered sectors and the coordinates in; (1, N, 7 *
+        # the bf16 levels' gathered sectors, bf16 fc0 blocks, coordinates
+        # in, the six partials' sum (1, N, H) f32 out; fc0 on the tensor
+        # cores, the features' taps on the f32 units
+        "K6bf16": bound(lvl_bytes16 + 2 * 7 * sum_c * h0 + pts_bytes + n * h0 * 4,
+                        16.0 * n * 7 * sum_c, 2.0 * n * 7 * sum_c * h0),
+        # the bf16 levels' gathered sectors and the coordinates in; (1, N, 7 *
         # sumC) bf16 out; 8 taps a feature
-        "K5": bound(lvl_bytes + pts_bytes + n * 7 * sum_c * 2, 16.0 * n * 7 * sum_c),
+        "K5": bound(lvl_bytes16 + pts_bytes + n * 7 * sum_c * 2, 16.0 * n * 7 * sum_c),
         "K3": bound(nbytes(f, *weights) + f.shape[1] * 4,
                     2.0 * f.shape[1] * sum(w.shape[0] * w.shape[1] for w in weights[::2])),
     }
-    del levels, f
-    # K5 is on no route, as in the JAX package: its count over the three
-    # routes, checked 0 above
-    k5_launches = sum(route[2] for route in launches.values())
-    return {"launches": {"K6": launches["K6"][0], "K5": k5_launches, "K3": k3_launches},
-            "err": {"K6": checks["K6"][0], "K5": checks["K5"][0], "K3": k3_err},
+    print(f"  K6 bf16 bound {bounds['K6bf16'][0]:.4f} ms ({bounds['K6bf16'][1]}; gathered bf16 "
+          f"bytes {lvl_bytes16})", flush=True)
+    del levels, f, lv16, k6b_out
+    return {"launches": {"K6": launches["K6 f32"]["K6"], "K6bf16": launches["K6 bf16"]["K6 bf16"],
+                         "K5": launches["K5 bf16"]["K5"], "K3": k3_launches[torch.float32]},
+            "err": {"K6": checks["K6"][0], "K6bf16": k6b["abs"], "K5": checks["K5"][0],
+                    "K3": k3_err[torch.float32]},
             "ms": timed, "bounds": bounds, "library": library}
 
 
@@ -680,9 +919,11 @@ def train_kernel_checks(model, dev, rng) -> dict:
     net_res 128 pyramid (every level, align_corners False) at B=4 with 4096
     supervision + 4096 projected points, plus small dims with both
     align_corners conventions and channel counts that take K4's scalar path,
-    its float4 path and its masked tail.  Returns {name: (max abs err, rel
-    err, args)} with args the full-width arguments for the timings; and K5
-    on the same levels, {"K5": (max abs err, fraction of one bf16 ulp)}."""
+    its float4 path and its masked tail; K8's gradient checked to lie
+    channels-last.
+    Returns {name: (max abs err, rel err, args)} with args the full-width
+    arguments for the timings; and K5 on the same levels, {"K5": (max abs
+    err, fraction of one bf16 ulp)}."""
     from sv3d_tpu_torch.ops.cuda.point_query import (
         level_features_banded_cuda,
         level_features_cuda,
@@ -720,7 +961,7 @@ def train_kernel_checks(model, dev, rng) -> dict:
         errs = {"K4": [0.0, 0.0], "K7": [0.0, 0.0], "K8": [0.0, 0.0]}
         k5 = [0.0, 0.0]
         cases = [(list(levels), gs, p, cfg.align_corners, cfg.displacement)]
-        for c in (1, 3, 16, 64, 160):  # small dims, both conventions
+        for c in (1, 3, 16, 64, 128, 160):  # small dims, both conventions
             small = torch.randn((2, c, 12 * 9 * 10), device=dev)
             ps = tuple(torch.tensor(rng.uniform(-1.2, 1.2, (2, 300)).astype(np.float32),
                                     device=dev) for _ in range(3))
@@ -730,13 +971,16 @@ def train_kernel_checks(model, dev, rng) -> dict:
         for lv, grads, pp, ac, disp in cases:
             for (flat, ldims), gl in zip(lv, grads):
                 args = (ldims, ac, disp)
+                gvol = level_grad_vol_cuda(*pp, gl, *args)
+                b, c, g = gvol.shape
+                check(gvol.stride() == (g * c, 1, c),
+                      f"K8's gradient is not channels-last: strides {gvol.stride()}")
                 for name, got, ref in (
                     ("K4", level_features_cuda(flat, *pp, *args),
                      level_features_plain(flat, *pp, *args)),
                     ("K7", level_grad_points_cuda(flat, *pp, gl, *args),
                      level_grad_points_plain(flat, *pp, gl, *args)),
-                    ("K8", level_grad_vol_cuda(*pp, gl, *args),
-                     level_grad_vol_plain(*pp, gl, *args)),
+                    ("K8", gvol, level_grad_vol_plain(*pp, gl, *args)),
                 ):
                     a, r = rel_err(got, ref)
                     errs[name] = [max(errs[name][0], a), max(errs[name][1], r)]
@@ -748,6 +992,52 @@ def train_kernel_checks(model, dev, rng) -> dict:
         out[name] = (a, r, (levels, p, gs, cfg.align_corners, cfg.displacement))
     out["K5"] = tuple(k5)
     return out
+
+
+def k8_levels(levels, p, gs, ac, disp) -> list:
+    """K8 at the training shapes level by level: CUDA-event medians, each
+    level held to the plain version at 1e-5 relative, and the count of global
+    atomic operations it issues on this run's corners (one a (point, copy,
+    corner, 4-channel chunk) of nonzero weight, one a channel for C % 4 != 0)
+    beside the old channel-major kernel's (one a (point, copy, corner,
+    channel)).  Returns one dict a level."""
+    from sv3d_tpu_torch.ops.cuda.point_query import level_grad_vol_cuda
+    from sv3d_tpu_torch.ops.point_query import level_grad_vol_plain
+
+    out = []
+    for (flat, dims), g in zip(levels, gs):
+        c, gsize = flat.shape[1], flat.shape[2]
+        ref = level_grad_vol_plain(*p, g, dims, ac, disp)
+        got = level_grad_vol_cuda(*p, g, dims, ac, disp)
+        corners = int(corner_voxels(p, dims, ac, disp)[1].sum())
+        out.append({"C": c, "G": gsize, "err": rel_err(got, ref)[1],
+                    "ms": cuda_ms(lambda g=g, dims=dims: level_grad_vol_cuda(*p, g, dims, ac,
+                                                                             disp)),
+                    "atomics": corners * (c // 4 if c % 4 == 0 else c),
+                    "atomics old": corners * c})
+    return out
+
+
+def corner_voxels(p, dims, align_corners, displacement) -> tuple:
+    """The voxel index of each of the 8 corners of the 7 displaced copies of
+    each point, and whether the corner is in range with a nonzero weight:
+    two (8, B, 7N) tensors."""
+    from sv3d_tpu_torch.ops.grid_sample import displacement_axes
+
+    pd = displacement_axes(p, displacement)
+    idx, frac, ok = [], [], []
+    for q, size in zip(pd, dims):
+        ix = ((q + 1.0) * 0.5 * (size - 1.0) if align_corners
+              else ((q + 1.0) * size - 1.0) * 0.5)
+        i = torch.floor(ix)
+        idx.append(torch.stack([i, i + 1]).long())
+        frac.append(torch.stack([1.0 - (ix - i), ix - i]))
+        ok.append((idx[-1] >= 0) & (idx[-1] < size))
+    vox = ((idx[0][:, None, None] * dims[1] + idx[1][None, :, None]) * dims[2]
+           + idx[2][None, None, :]).reshape(8, *idx[0].shape[1:])
+    w = (frac[0][:, None, None] * frac[1][None, :, None] * frac[2][None, None, :])
+    valid = ok[0][:, None, None] & ok[1][None, :, None] & ok[2][None, None, :]
+    return vox, (valid & (w != 0)).reshape(8, *idx[0].shape[1:])
 
 
 def parity_config(data_root):
@@ -899,6 +1189,9 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
              f"time, device idle {100.0 * (1.0 - device / wall):.1f}%; host labelling of "
              f"4x4096 points {statistics.median(label_ms):.3f} ms (median of 5)"]
     lines += _top_lines(events, device, steps)
+    k8 = sum(_dev_us(e) for e in events if "level_grad_vol" in e.key) / 1e3 / steps
+    lines.append(f"  K8 (level_grad_vol kernels): {k8:.3f} ms a step, {100.0 * k8 / device:.2f}% "
+                 "of device time")
     # which convolutions the backward time belongs to (device time of the
     # kernels each aten op launched, by input shapes)
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -908,6 +1201,37 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
         lines.append(f"  conv backward {total(e) / 1e3 / steps:9.3f} ms, grad/input/weight "
                      f"shapes {e.input_shapes[:3]}")
     return lines
+
+
+def step_copy_kernels(trainer, batch, gen, steps: int = 2) -> dict:
+    """The copy kernels (device kernels whose name says copy) of a warm
+    full-width train step and their device ms a step, with K8's gradient
+    handed back channels-last as the port does and made channel-major
+    (K8's old layout: one transpose copy a level of C > 1): {"port": (count,
+    ms), "channel-major": (count, ms)}.  A copy that the channels-last
+    gradient caused further down would count in the port's run alone."""
+    from sv3d_tpu_torch.ops.cuda import point_query as pq
+
+    port = pq._LevelFeatures
+
+    class ChannelMajor(port):
+        @staticmethod
+        def backward(ctx, g):
+            gvol, *rest = port.backward(ctx, g)
+            return (gvol.contiguous(), *rest)
+
+    out = {}
+    state = trainer.build_state()
+    try:
+        for name, fn in (("port", port), ("channel-major", ChannelMajor)):
+            pq._LevelFeatures = fn
+            _, _, _, events = _profile(lambda: trainer.train_step(state, batch, gen), steps)
+            cp = [e for e in events if "copy" in e.key.lower()]
+            out[name] = (sum(e.count for e in cp) / steps,
+                         sum(_dev_us(e) for e in cp) / 1e3 / steps)
+    finally:
+        pq._LevelFeatures = port
+    return out
 
 
 def step_peak_memory(trainer, batch, gen) -> dict:
@@ -945,8 +1269,11 @@ def step_peak_memory(trainer, batch, gen) -> dict:
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
+        raise RuntimeError("chip_smoke: CUDA is not available")
+    if not (Path(__file__).resolve().parent / "sv3d_tpu_torch").is_dir():
+        # the script copied without the repository: nothing to build or run
+        raise RuntimeError("chip_smoke: sv3d_tpu_torch/ is not beside the script; run it from "
+                           "the root of a checkout")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1127,14 +1454,24 @@ def main() -> int:
           f"(tol {SLICE_TOL:g})", flush=True)
     check(slice_err <= SLICE_BF16_TOL, f"card bf16 slice disagrees with the CPU's: {slice_err}")
     check(slice_err32 <= SLICE_TOL, f"card f32 slice disagrees with the CPU's: {slice_err32}")
-    # arbitrary points on the CPU's grid: the card's K6 route against the CPU's gathers
+    # arbitrary points on the CPU's grid: the card's routes against the CPU
+    # port's plain versions of the same routes
     small_pts = np.random.default_rng(4).uniform(-0.45, 0.45, (16384, 3)).astype(np.float32)
-    card_pts = evaluate_points(small_gpu.ifnet, v, small_pts, tile_points=4096)
-    cpu_pts = evaluate_points(small_cpu.ifnet, v, small_pts, tile_points=4096)
-    pts_err = float(np.abs(card_pts - cpu_pts).max())
-    print(f"evaluate_points at scale_factor 8, 16384 points, card (K6) vs CPU plain: "
-          f"max_abs_err {pts_err:.3e} (tol {POINTS_TOL:g})", flush=True)
-    check(pts_err <= POINTS_TOL, f"card evaluate_points disagrees with the CPU's: {pts_err}")
+    pts_err = points_card_vs_cpu(small_gpu.ifnet, small_cpu.ifnet, v, small_pts, 4096)
+    print("evaluate_points at scale_factor 8, 16384 points, card vs CPU plain (largest sigmoid "
+          "difference; mean |logit difference| / mean |logit|): "
+          + "; ".join(f"{k} {a:.3e}, {m:.3e}" for k, (a, m) in pts_err["routes"].items())
+          + f" (tol bf16 {POINTS_BF16_CARD_TOL:g} and {POINTS_BF16_REL_MEAN_TOL:g}, f32 "
+          f"{POINTS_TOL:g}); against the CPU's bf16 route, the card's f32 route and the CPU's "
+          "bf16 route with its tail in f32: "
+          + "; ".join(f"{k} {m:.3e}" for k, m in pts_err["wrong"].items())
+          + ": the bf16 mean limit fails each", flush=True)
+    for name, (a, m) in pts_err["routes"].items():
+        ok = (a <= POINTS_TOL if "f32" in name or name == "gather"
+              else a <= POINTS_BF16_CARD_TOL and m <= POINTS_BF16_REL_MEAN_TOL)
+        check(ok, f"card evaluate_points route {name} disagrees with the CPU's: {a}, {m}")
+    check(min(pts_err["wrong"].values()) > POINTS_BF16_REL_MEAN_TOL,
+          f"the bf16 points' mean limit would pass another class: {pts_err['wrong']}")
 
     # -- phase 6: serving timings --------------------------------------------
     routes = (("K2", torch.bfloat16), ("K2f32", torch.float32))
@@ -1302,6 +1639,11 @@ def main() -> int:
                cuda_ms(lambda: [level_grad_vol_plain(*p, g, d, ac, disp)
                                 for (_, d), g in zip(lv, gs)])),
     }
+    k8_rows = k8_levels(lv, p, gs, ac, disp)
+    for row in k8_rows:
+        check(row["err"] <= TRAIN_KERNEL_RTOL["K8"],
+              f"K8 disagrees with its plain version on a level: {row}")
+    copies = step_copy_kernels(trainer, batch, gen)
     train_staged = feature_staging_ms(lv, p, (ac, disp))
     k7_kernel_ms = cuda_ms(lambda: [level_grad_points_cuda(f, *p, g, d, ac, disp)
                                     for (f, d), g in zip(lv_cl, gs)])
@@ -1338,6 +1680,21 @@ def main() -> int:
         what = "80,896 points" if name == "K1b" else "all 6 levels, B=4 x 8192 points"
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
     print_staging("training shapes, B=4 x 8192", train_staged)
+    print("  K8 by level at the training shapes (CUDA-event medians; global atomic operations "
+          "on this run's corners):", flush=True)
+    for row in k8_rows:
+        print(f"    C {row['C']}, G {row['G']}: {row['ms']:.4f} ms, {row['atomics']} atomics; the "
+              f"old channel-major kernel's atomics {row['atomics old']}; max rel err "
+              f"{row['err']:.2e}", flush=True)
+    print(f"  K8 over the 6 levels: {kernel_ms['K8'][0]:.4f} ms, "
+          f"{sum(r['atomics'] for r in k8_rows)} global atomic operations (the old kernel: "
+          f"{sum(r['atomics old'] for r in k8_rows)}); "
+          f"F.grid_sample's backward for the volume {library['K8']:.4f} ms; launches in the "
+          f"12-step fit {train_launches['K8']}", flush=True)
+    print("  copy kernels a warm train step (count, device ms): " + ", ".join(
+        f"K8's gradient {k}: {n:g}, {ms:.3f}" for k, (n, ms) in copies.items()), flush=True)
+    check(copies["port"][0] <= copies["channel-major"][0],
+          f"the channels-last gradient added copy kernels: {copies}")
     print(f"  K7 apart at the training shapes: kernel alone on channels-last levels "
           f"{k7_kernel_ms:.4f} ms; the backward's K7 above stages the levels as K4 does",
           flush=True)
@@ -1356,7 +1713,8 @@ def main() -> int:
         **{k: (launches[name], k2_err[k], k2_whole_ms[k], k2_plain_whole_ms[k])
            for k, name in (("K2", "lattice_sweep_bf16"), ("K2f32", "lattice_sweep_f32"))},
         **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K1b", "K4", "K7", "K8")},
-        **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k]) for k in ("K3", "K5", "K6")},
+        **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k])
+           for k in ("K3", "K5", "K6", "K6bf16")},
     }
     kernels = []
     for key, name, source, replaces in (
@@ -1369,6 +1727,7 @@ def main() -> int:
         ("K5", "level_features_banded", "point_query.cu",
          "sv3d_tpu/ops/pallas/point_query.py:692"),
         ("K6", "level_fc0", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:968"),
+        ("K6bf16", "level_fc0_bf16", "point_query.cu", "sv3d_tpu/ops/pallas/point_query.py:968"),
         ("K7", "level_grad_points", "point_query.cu",
          "sv3d_tpu/ops/pallas/point_query_bwd.py:172"),
         ("K8", "level_grad_vol", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),

@@ -8,8 +8,11 @@
 // with fc0 F -> H0 (2583 -> 256 at net_res 128, 2247 -> 512 at 32), fc1
 // H0 -> H1, fc2 H1 -> H2, fc_out H2 -> 1, biases and ReLUs in the kernel.
 // The weights come transposed to (in, out) so that reads along the outputs
-// are coalesced.  f32 FMA throughout; the JAX kernel's products are bf16 with
-// f32 accumulation.
+// are coalesced.  f32 FMA throughout.  In the JAX kernel's bf16 class
+// (compute_dtype=torch.bfloat16) the wrapper hands it the features and the
+// four weights rounded to bf16 and round_hidden set, and it rounds each ReLU
+// output to bf16 (round to nearest even) as the JAX kernel does; the
+// products of bf16 values are exact in f32, and the sums stay f32.
 //
 // What bounds it: 2 * (F*H0 + H0*H1 + H1*H2 + H2) flop a point (1.8 MFLOP at
 // net_res 128) against F*4 bytes of features, so at the card's f32 rate it is
@@ -23,6 +26,7 @@
 // are written.  F need not be a multiple of anything: the last chunk is
 // masked, and every load is a scalar load (no alignment assumed).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,11 +56,12 @@ __device__ __forceinline__ void dense_rows(const float* __restrict__ xs, int kk,
   }
 }
 
-// hs[j][t] = relu(acc[r][t] + bias[j]) for this thread's rows; zero acc
+// hs[j][t] = relu(acc[r][t] + bias[j]) for this thread's rows, rounded to
+// bf16 when round_hidden is set; zero acc
 template <int R>
 __device__ __forceinline__ void store_relu(float* __restrict__ hs,
                                            const float* __restrict__ bias,
-                                           int h_out,
+                                           int h_out, int round_hidden,
                                            float (&acc)[R][kMlpPoints]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -64,7 +69,10 @@ __device__ __forceinline__ void store_relu(float* __restrict__ hs,
     if (j < h_out) {
       const float bj = bias[j];
 #pragma unroll
-      for (int t = 0; t < kMlpPoints; ++t) hs[j * kMlpPoints + t] = fmaxf(acc[r][t] + bj, 0.0f);
+      for (int t = 0; t < kMlpPoints; ++t) {
+        const float v = fmaxf(acc[r][t] + bj, 0.0f);
+        hs[j * kMlpPoints + t] = round_hidden ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+      }
     }
 #pragma unroll
     for (int t = 0; t < kMlpPoints; ++t) acc[r][t] = 0.0f;
@@ -78,7 +86,8 @@ fused_point_mlp_kernel(const float* __restrict__ f, int n_feat, int n,
                        const float* __restrict__ w1t, const float* __restrict__ b1,
                        const float* __restrict__ w2t, const float* __restrict__ b2,
                        const float* __restrict__ w3, const float* __restrict__ b3,
-                       float* __restrict__ out, int h0, int h1, int h2) {
+                       float* __restrict__ out, int h0, int h1, int h2,
+                       int round_hidden) {
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;                                 // (R * 256, T) activations
   float* fs = smem + R * kMlpThreads * kMlpPoints;  // (kMlpChunk, T) tile of f
@@ -101,15 +110,15 @@ fused_point_mlp_kernel(const float* __restrict__ f, int n_feat, int n,
     __syncthreads();
     dense_rows<R>(fs, kk, w0t, h0, k0, acc);
   }
-  store_relu<R>(hs, b0, h0, acc);
+  store_relu<R>(hs, b0, h0, round_hidden, acc);
   __syncthreads();
   dense_rows<R>(hs, h0, w1t, h1, 0, acc);
   __syncthreads();  // every thread has read fc0's activations
-  store_relu<R>(hs, b1, h1, acc);
+  store_relu<R>(hs, b1, h1, round_hidden, acc);
   __syncthreads();
   dense_rows<R>(hs, h1, w2t, h2, 0, acc);
   __syncthreads();
-  store_relu<R>(hs, b2, h2, acc);
+  store_relu<R>(hs, b2, h2, round_hidden, acc);
   __syncthreads();
   // fc_out: one thread a point
   if (threadIdx.x < kMlpPoints) {
@@ -124,14 +133,14 @@ template <int R>
 int launch(const float* f, int n_feat, int n, const float* w0t, const float* b0,
            const float* w1t, const float* b1, const float* w2t, const float* b2,
            const float* w3, const float* b3, float* out, int h0, int h1, int h2,
-           cudaStream_t stream) {
+           int round_hidden, cudaStream_t stream) {
   const int smem = (R * kMlpThreads + kMlpChunk) * kMlpPoints * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_point_mlp_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((int64_t)n + kMlpPoints - 1) / kMlpPoints);
   fused_point_mlp_kernel<R><<<blocks, kMlpThreads, smem, stream>>>(
-      f, n_feat, n, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, h0, h1, h2);
+      f, n_feat, n, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, h0, h1, h2, round_hidden);
   return (int)cudaGetLastError();
 }
 
@@ -141,7 +150,7 @@ extern "C" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* 
                                     const void* w1t, const void* b1, const void* w2t,
                                     const void* b2, const void* w3, const void* b3,
                                     void* out, int n_feat, int n, int h0, int h1,
-                                    int h2, void* stream) {
+                                    int h2, int round_hidden, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int hmax = h0 > h1 ? (h0 > h2 ? h0 : h2) : (h1 > h2 ? h1 : h2);
   auto* s = (cudaStream_t)stream;
@@ -149,8 +158,10 @@ extern "C" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* 
               *W1 = (const float*)w1t, *B1 = (const float*)b1, *W2 = (const float*)w2t,
               *B2 = (const float*)b2, *W3 = (const float*)w3, *B3 = (const float*)b3;
   if (hmax <= kMlpThreads)
-    return launch<1>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2, s);
+    return launch<1>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2,
+                     round_hidden, s);
   if (hmax <= 2 * kMlpThreads)
-    return launch<2>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2, s);
+    return launch<2>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2,
+                     round_hidden, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,12 @@
 // at the 7 displaced copies of arbitrary query points, both halves of its
 // backward, and the inference-only variants.
 //
-//   K4 level_features_kernel<float>  replaces sv3d_tpu/ops/pallas/point_query.py::level_features
-//   K5 level_features_kernel<bf16>   replaces sv3d_tpu/ops/pallas/point_query.py::level_features_banded
-//   K6 level_fc0_kernel              replaces sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
+//   K4 level_features_kernel<f32, f32>
+//                                    replaces sv3d_tpu/ops/pallas/point_query.py::level_features
+//   K5 level_features_kernel<f32 or bf16, bf16>
+//                                    replaces sv3d_tpu/ops/pallas/point_query.py::level_features_banded
+//   K6 level_fc0_kernel (f32), level_fc0_bf16_kernel (bf16)
+//                                    replace sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
 //   K7 level_grad_points_kernel      replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
 //   K8 level_grad_vol_kernel         replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
 //
@@ -20,9 +23,9 @@
 // The TPU kernels exist because a TPU has no fast gather: they bucket the
 // queries by axis-0 slab, DMA a row window of the level into VMEM and turn
 // the interpolation into banded MXU products, in bf16.  None of that is
-// ported.  Here every (point, channel) reads its 8 corners directly, in f32,
-// so the port's fused path is as exact as the gather path (the JAX fused path
-// is bf16 with f32 accumulation).
+// ported.  Here every (point, channel) reads its 8 corners directly and
+// interpolates in f32: K4, K7, K8 and K6 f32 are as exact as the gather path;
+// K5 and K6 bf16 round where the JAX kernels compute in bf16.
 //
 // K4 and K5 read the level channels-last, (B, G, C) -- the JAX kernel's own
 // layout, (B, g0, g1, g2, C).  Their wrappers take a level that already lies
@@ -66,46 +69,75 @@
 // version's autograd (d frac / d ix = 1; +1 at integer ix, where the JAX
 // kernel's _dhat gives 0 -- a set of measure zero).  Deterministic.
 //
-// K8 and K6 read the channel-major flat as it is.  Their thread mapping:
-// lanes go to (point, channel) pairs.  A group of L = min(32, next power of
-// two >= C) lanes owns one point (B*N points in all) and strides over its
-// channels, so C = 1 gives one point per lane, C = 16 two points per warp,
-// C >= 32 one point per warp.  Each lane recomputes the point's 8 corner
-// indices and weights per copy.  Lanes of one group read vol[c, corner] at a
-// stride of G: each read is its own 32-byte sector, which bounds these
-// kernels by gather latency and sector traffic, not by arithmetic.  Reads of
-// g in K8 are contiguous across a group's lanes.
+// K8 (the level's gradient) writes the JAX kernel's channels-last layout:
+// a zeroed (B, G, C) f32 buffer, which its wrapper hands back as the (B, C,
+// G) transposed view (through flatten_grid's reshape, the channels_last_3d
+// memory cuDNN gives the conv outputs).  It is K4's template: L lanes a
+// point, lane j computing corner j of each copy once (32-bit offset and
+// weight, handed over by __shfl_sync), a lane reading 4 channels of g at
+// once and adding them into each in-range corner's run with Hopper's vector
+// atomic (atomicAdd(float4*), red.global.add.v4.f32); a scalar path for C %
+// 4 != 0 or a misaligned pointer.  Channel-major, the old kernel issued one
+// scalar atomic a (point, copy, corner, channel), each its own 32-byte
+// sector: 677M a training backward (B=4 x 8192, C = 1/16/32/64/128/128).
+// The coarse levels also contend: on a level of 336 voxels each (voxel,
+// channel) takes ~1,365 adds a sample, which the L2's atomic units absorb;
+// privatizing that level in shared memory saved 0.1 ms a backward, nothing
+// a train step could show (PERF.md).  Atomics sum in a run-dependent order:
+// a voxel that k (point, copy) pairs touch differs between orders by about
+// k * 2^-24 of its magnitude, so K8 is held to its plain version at 1e-5
+// relative to the gradient's largest magnitude (chip_smoke.py,
+// tests/test_torch_cuda.py).
 //
-// K8 adds g[d, c] * w_corner into a zeroed (B, C, G) gradient with atomicAdd.
-// Atomics sum in a run-dependent order: a voxel that k (point, copy) pairs
-// touch differs between orders by about k * 2^-24 of its magnitude, so the
-// kernel is held to its plain version at 1e-5 relative to the gradient's
-// largest magnitude (chip_smoke.py, tests/test_torch_cuda.py).
+// K6 f32 reads the channel-major flat as it is; lanes go to (point,
+// channel) pairs and each lane recomputes the point's 8 corner indices and
+// weights per copy, so each 4-byte read is its own 32-byte sector.
 //
 // K5 is K4 with its features stored as bf16 (round to nearest even), the
 // output type of the TPU's 2-D (slab, band) bucketed kernel; the bucketing
 // itself, and with it the band count, has no counterpart here.  It writes
 // (B, N, 7C) bf16, so it moves the same gathers as K4 and half of K4's
-// output bytes.  No port path calls it (as in the JAX package).
+// output bytes.  It reads an f32 level, or a bf16 one (the JAX kernel
+// reads its level as bf16): evaluate_points' bf16 bands=None route hands it
+// the pyramid rounded to bf16 and staged channels-last once a call, a lane
+// widening 4 channels of one 8-byte read exactly to f32, so the gathers move
+// half the sectors.
 //
-// K6 is K4 with the level's block of fc0 contracted in the kernel: out[b, n, h]
-// = sum_{d, c} feat[b, n, d*C + c] * w0l[d*C + c, h], feat being K4's exact
-// f32 features, so the (B, N, 7C) features never reach device memory (what
-// the TPU kernel keeps out of HBM).  A block owns kFc0Points consecutive
-// points and all H outputs, one thread per h, a register accumulator per
-// point.  Per displacement, the first warp computes the points' 8 corners
-// (K4's arithmetic) into shared memory; the block gathers the (C, T)
-// features of that copy into shared memory, kFc0Chans channels a round; then
-// every thread contracts them with rows d*C + c of w0l, read coalesced along
-// h, the feature reads being shared-memory broadcasts.  It does 2 * 7C * H
-// flop per point in f32 FMA (no tensor cores yet): at H = 256 and the six
-// net_res-128 levels that is 1.3 MFLOP a point, so it is bound by the card's
-// f32 rate, not by its bytes.  With accumulate set it adds into out, so the
-// caller sums the six levels' partials in one (B, N, H) buffer.
+// K6 (f32, the parity route) is K4 with the level's block of fc0 contracted
+// in the kernel: out[b, n, h] = sum_{d, c} feat[b, n, d*C + c] * w0l[d*C +
+// c, h], feat being K4's exact f32 features, so the (B, N, 7C) features
+// never reach device memory (what the TPU kernel keeps out of HBM).  A block
+// owns kFc0Points consecutive points and all H outputs, one thread per h, a
+// register accumulator per point; per copy the first warp computes the
+// points' corners into shared memory, the block gathers kFc0Chans channels a
+// round, and every thread contracts them with rows d*C + c of w0l.  It does
+// 2 * 7C * H flop a point in f32 FMA: 346.7 GFLOP at 262,144 points and the
+// six net_res-128 levels, at least 5.2 ms at the f32 rate.  With accumulate
+// set it adds into out, so the caller sums the six partials in one buffer.
+//
+// K6 bf16 (the point query's default, the JAX kernel's precision class): the
+// level rounded to bf16 and read from a channels-last bf16 copy (staged once
+// a call by evaluate_points), f32 interpolation with each feature rounded
+// once to bf16, w0l in bf16, products by mma.sync.m16n8k16 with f32
+// accumulation, the level's partial rounded to bf16 and then added into the
+// caller's f32 (B, N, H) buffer (JAX: h + partial.astype(f32)).  The same
+// tensor-core tile as K2 bf16 (mma_bf16.cuh): a block owns kM = 64 points and
+// all H outputs, warp w 32 columns; per copy the tile's 64 x 8 corners
+// (32-bit offset, weight) go once into shared memory, each item gathers a
+// point's 8 channels as one 16-byte read a corner into the A chunk, corners
+// and A chunks are double-buffered (one barrier a copy), and the level's
+// block of fc0 streams in fragment order through a per-warp cp.async ring,
+// read once per 64 points (the f32 kernel re-read it once per 32 from L2).
+// A one-channel level packs its 7 copies into one k16 chunk.  Levels need C
+// = 1 or C % 16 == 0 up to 128 and H of 256 or 512 (every IF-Net
+// configuration); the wrapper raises otherwise.  Bound: the tensor cores'
+// 346.7 GFLOP, ~0.35 ms at 262,144 points.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -214,6 +246,16 @@ __device__ __forceinline__ void load(const float* p, float& v) { v = __ldg(p); }
 __device__ __forceinline__ void load(const float* p, float4& v) {
   v = __ldg(reinterpret_cast<const float4*>(p));
 }
+// a bf16 level (K5 on evaluate_points' bf16 pyramid): one value, or 4
+// consecutive channels as one 8-byte read, widened exactly to f32
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float& v) {
+  v = __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float4& v) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  v = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                  __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
 __device__ __forceinline__ void zero(float& v) { v = 0.0f; }
 __device__ __forceinline__ void zero(float4& v) { v = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
 __device__ __forceinline__ void fma_into(float w, float v, float& acc) { acc = fmaf(w, v, acc); }
@@ -247,11 +289,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float4& v) {
   *reinterpret_cast<Bf16x4*>(p) = u;
 }
 
-// VecT float4: a lane takes 4 consecutive channels (C % 4 == 0, 16-byte
-// aligned level and output); float: one channel.  kLanes lanes own a point.
-template <typename OutT, typename VecT, int kLanes>
+// VecT float4: a lane takes 4 consecutive channels (C % 4 == 0, aligned
+// level and output); float: one channel.  kLanes lanes own a point.  InT is
+// the level's type: float, or bf16 for K5 on a level rounded to bf16.
+template <typename InT, typename OutT, typename VecT, int kLanes>
 __global__ void __launch_bounds__(kThreads, 4)
-level_features_kernel(const float* __restrict__ vol, const float* __restrict__ q0,
+level_features_kernel(const InT* __restrict__ vol, const float* __restrict__ q0,
                       const float* __restrict__ q1, const float* __restrict__ q2,
                       OutT* __restrict__ out, int batch, int n, Level L) {
   constexpr int kW = sizeof(VecT) / sizeof(float);      // channels a lane loads at once
@@ -265,7 +308,7 @@ level_features_kernel(const float* __restrict__ vol, const float* __restrict__ q
   const int64_t pt = active ? t / kLanes : total - 1;
   const int b = (int)(pt / n);
   const float p0 = q0[pt], p1 = q1[pt], p2 = q2[pt];
-  const float* v = vol + (int64_t)b * L.gsize * L.c;
+  const InT* v = vol + (int64_t)b * L.gsize * L.c;
   OutT* o = out + pt * 7 * L.c;
   const int chunks = L.c / kW;
   int ci0, ci1, ci2;  // the undisplaced taps; copy d > 0 moves one axis
@@ -295,7 +338,7 @@ level_features_kernel(const float* __restrict__ vol, const float* __restrict__ q
     // the same trip count on every lane of the warp (chunks is the level's)
     for (int c0 = 0; c0 < chunks; c0 += kLanes) {
       const int ck = c0 + lane;
-      const float* vc = v + (ck < chunks ? ck : 0) * kW;  // the tail re-reads chunk 0
+      const InT* vc = v + (ck < chunks ? ck : 0) * kW;  // the tail re-reads chunk 0
       VecT val[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) load(vc + from_corner<kLanes>(off, j), val[j]);
@@ -418,29 +461,76 @@ level_grad_points_kernel(const float* __restrict__ vol, const float* __restrict_
   }
 }
 
-__global__ void level_grad_vol_kernel(const float* __restrict__ q0,
-                                      const float* __restrict__ q1,
-                                      const float* __restrict__ q2,
-                                      const float* __restrict__ g,
-                                      float* __restrict__ gvol, int batch, int n,
-                                      Level L, int lanes) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t pt = t / lanes;
-  if (pt >= (int64_t)batch * n) return;
-  const int lane = (int)(t % lanes);
+// Hopper's vector atomic for 4 consecutive floats (red.global.add.v4.f32,
+// sm_90): one operation and one sector for a float4 chunk of a corner.
+__device__ __forceinline__ void atomic_add(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void atomic_add(float* p, const float4& v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ float scale(float w, float v) { return w * v; }
+__device__ __forceinline__ float4 scale(float w, const float4& v) {
+  return make_float4(w * v.x, w * v.y, w * v.z, w * v.w);
+}
+
+// K8: K4's template on the channels-last (B, G, C) gradient.
+// kLanes lanes own a point, lane j computes corner j of each copy once (its
+// 32-bit offset voxel * C and its weight) and the group gets all 8 by
+// __shfl_sync; a lane reads kW channels of g[pt, d*C + c] once and adds
+// w_j * g into each in-range corner's run with one atomic (a vector one for
+// float4).
+template <typename VecT, int kLanes>
+__global__ void __launch_bounds__(kThreads, 4)
+level_grad_vol_kernel(const float* __restrict__ q0, const float* __restrict__ q1,
+                      const float* __restrict__ q2, const float* __restrict__ g,
+                      float* __restrict__ gvol, int batch, int n, Level L) {
+  constexpr int kW = sizeof(VecT) / sizeof(float);
+  constexpr int kSlots = kLanes >= 8 ? 1 : 8 / kLanes;
+  const int64_t total = (int64_t)batch * n;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % kLanes;
+  const bool active = t / kLanes < total;  // inactive lanes join the shuffles only
+  const int64_t pt = active ? t / kLanes : total - 1;
   const int b = (int)(pt / n);
   const float p0 = q0[pt], p1 = q1[pt], p2 = q2[pt];
-  float* gv = gvol + (int64_t)b * L.c * L.gsize;
+  float* gv = gvol + (int64_t)b * L.gsize * L.c;
   const float* gp = g + pt * 7 * L.c;
-  Corners k;
+  const int chunks = L.c / kW;
+  int ci0, ci1, ci2;
+  float cf0, cf1, cf2;
+  axis_tap(p0, 0, L.disp, L.g0, L.ac, ci0, cf0);
+  axis_tap(p1, 0, L.disp, L.g1, L.ac, ci1, cf1);
+  axis_tap(p2, 0, L.disp, L.g2, L.ac, ci2, cf2);
   for (int d = 0; d < 7; ++d) {
-    corners(L, p0, p1, p2, d, k);
-    for (int c = lane; c < L.c; c += lanes) {
-      float* gc = gv + (int64_t)c * L.gsize;
-      const float gd = gp[d * L.c + c];
+    int i0 = ci0, i1 = ci1, i2 = ci2;
+    float f0 = cf0, f1 = cf1, f2 = cf2;
+    const int s = (d & 1) ? -1 : 1;
+    if (d == 1 || d == 2) {
+      axis_tap(p0, s, L.disp, L.g0, L.ac, i0, f0);
+    } else if (d == 3 || d == 4) {
+      axis_tap(p1, s, L.disp, L.g1, L.ac, i1, f1);
+    } else if (d >= 5) {
+      axis_tap(p2, s, L.disp, L.g2, L.ac, i2, f2);
+    }
+    int off[kSlots];
+    float w[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      corner(L, (k * kLanes + lane) & 7, i0, i1, i2, f0, f1, f2, off[k], w[k]);
+    }
+    int offj[8];
+    float wj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      offj[j] = from_corner<kLanes>(off, j);
+      wj[j] = from_corner<kLanes>(w, j);
+    }
+    if (!active) continue;
+    for (int ck = lane; ck < chunks; ck += kLanes) {
+      VecT gd;
+      load(gp + d * L.c + ck * kW, gd);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (k.w[j] != 0.0f) atomicAdd(gc + k.lin[j], k.w[j] * gd);
+        if (wj[j] != 0.0f) atomic_add(gv + offj[j] + ck * kW, scale(wj[j], gd));
       }
     }
   }
@@ -527,6 +617,166 @@ __global__ void level_fc0_kernel(const float* __restrict__ vol,
   }
 }
 
+// -- K6 bf16 (see the note at the top) ----------------------------------------
+
+// Corner j of point (p0, p1, p2) displaced by copy d, as K4 computes it.
+__device__ __forceinline__ void point_corner(const Level& L, float p0, float p1, float p2,
+                                             int d, int j, int& off, float& w) {
+  int i0, i1, i2;
+  float f0, f1, f2;
+  axis_tap(p0, kDisp[d][0], L.disp, L.g0, L.ac, i0, f0);
+  axis_tap(p1, kDisp[d][1], L.disp, L.g1, L.ac, i1, f1);
+  axis_tap(p2, kDisp[d][2], L.disp, L.g2, L.ac, i2, f2);
+  corner(L, j, i0, i1, i2, f0, f1, f2, off, w);
+}
+
+// The packed chunk of a one-channel level: a[p][d] for the 7 copies, zeros
+// in columns 7..15; each item computes its own 8 corners.
+template <int NT>
+__device__ __forceinline__ void gather_packed_points(const Level& L, const bf16* __restrict__ vol,
+                                                     const float (*pts)[kM], bf16* a) {
+  for (int i = threadIdx.x; i < kM * 16; i += NT) {
+    const int p = i >> 4, d = i & 15;
+    float acc = 0.f;
+    if (d < 7) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int off;
+        float w;
+        point_corner(L, pts[0][p], pts[1][p], pts[2][p], d, j, off, w);
+        acc = fmaf(w, __bfloat162float(vol[off]), acc);
+      }
+    }
+    a[p * kAStride + d] = __float2bfloat16_rn(acc);
+  }
+}
+
+// NW warps, H = 32 NW outputs: warp w owns columns [32 w, 32 w + 32) for all
+// kM points of the block's tile (points [64 blockIdx.x, +64) of sample
+// blockIdx.y).  Groups are the 7 copies (C / 16 chunks each), or one packed
+// chunk for C = 1.
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+level_fc0_bf16_kernel(const bf16* __restrict__ vol, const uint4* __restrict__ w0f,
+                      const float* __restrict__ q0, const float* __restrict__ q1,
+                      const float* __restrict__ q2, float* __restrict__ out, int n, Level L,
+                      int accumulate) {
+  constexpr int NT = NW * 32;
+  constexpr int H = NW * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* abuf = reinterpret_cast<bf16*>(smem);                         // [2][kM][kAStride]
+  int* s_off = reinterpret_cast<int*>(smem + 2 * kM * kAStride * 2);  // [2][kM * 8]
+  float* s_w = reinterpret_cast<float*>(s_off + 2 * kM * 8);          // [2][kM * 8]
+  uint4* ring = reinterpret_cast<uint4*>(s_w + 2 * kM * 8);           // [NW][kStages][2][32]
+  __shared__ float s_p[3][kM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kM;
+  if (tid < kM) {
+    // the ragged tail repeats the last point; its stores are masked
+    const int64_t pt = (int64_t)b * n + min(p0 + tid, n - 1);
+    s_p[0][tid] = q0[pt];
+    s_p[1][tid] = q1[pt];
+    s_p[2][tid] = q2[pt];
+  }
+  const bf16* v = vol + (int64_t)b * L.gsize * L.c;
+  const bool packed = L.c == 1;
+  const int n_groups = packed ? 1 : 7;
+  const int chunks = packed ? 1 : L.c / 16;
+  BStream<2> bs{w0f + warp * 2 * 32, (H / 16) * 32, n_groups * chunks,
+                ring + warp * kStages * 2 * 32, lane, 0};
+  bs.start();
+  __syncthreads();
+
+  // corners of copy g live in buffer g % 2, its A chunk in A buffer g % 2
+  auto corners_of = [&](int g) {
+    if (packed || g >= n_groups) return;
+    int* off = s_off + (g & 1) * kM * 8;
+    float* w = s_w + (g & 1) * kM * 8;
+    for (int i = tid; i < kM * 8; i += NT) {
+      const int p = i >> 3;
+      point_corner(L, s_p[0][p], s_p[1][p], s_p[2][p], g, i & 7, off[i], w[i]);
+    }
+  };
+  auto gather = [&](int g) {
+    bf16* a = abuf + (g & 1) * kM * kAStride;
+    if (packed) {
+      gather_packed_points<NT>(L, v, s_p, a);
+    } else {
+      gather_group<NT>(v, L.c, s_off + (g & 1) * kM * 8, s_w + (g & 1) * kM * 8, a);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  corners_of(0);
+  corners_of(1);
+  __syncthreads();
+  gather(0);
+  __syncthreads();
+  int k = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    const bf16* a = abuf + (g & 1) * kM * kAStride;
+    for (int q = 0; q < chunks; ++q, ++k) {
+      uint32_t bf[4][2];
+      bs.get(k, bf);
+      mma_chunk<4>(acc, a, kAStride, q * 16, bf, lane);
+    }
+    // warps that finish their MMAs start the next gather; one barrier a copy
+    if (g + 1 < n_groups) gather(g + 1);
+    corners_of(g + 2);
+    __syncthreads();
+  }
+
+  // the partial rounded to bf16, then added into (or written to) the f32
+  // output: rows lane/4 and lane/4 + 8 of each m-tile, columns 2 (lane % 4)
+  // + 0, 1 of each n-tile
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = warp * 32 + nt * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = p0 + mt * 16 + (lane >> 2) + 8 * half;
+        if (row < n) {
+          float2* o = reinterpret_cast<float2*>(out + ((int64_t)b * n + row) * H + col);
+          float2 r = make_float2(__bfloat162float(__float2bfloat16_rn(acc[mt][nt][2 * half])),
+                                 __bfloat162float(__float2bfloat16_rn(acc[mt][nt][2 * half + 1])));
+          if (accumulate) {
+            const float2 prev = *o;
+            r.x += prev.x;
+            r.y += prev.y;
+          }
+          *o = r;
+        }
+      }
+    }
+  }
+}
+
+template <int NW>
+int launch_fc0_bf16(const void* vol, const void* w0f, const void* q0, const void* q1,
+                    const void* q2, void* out, int batch, int n, const Level& L, int accumulate,
+                    cudaStream_t stream) {
+  const int smem = 2 * kM * kAStride * 2 + 2 * kM * 8 * 8 + NW * kStages * 2 * 32 * 16;
+  const cudaError_t err = cudaFuncSetAttribute(level_fc0_bf16_kernel<NW>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((n + kM - 1) / kM), (unsigned)batch);
+  level_fc0_bf16_kernel<NW><<<grid, NW * 32, smem, stream>>>(
+      (const bf16*)vol, (const uint4*)w0f, (const float*)q0, (const float*)q1, (const float*)q2,
+      (float*)out, n, L, accumulate);
+  return (int)cudaGetLastError();
+}
+
 int lanes_for(int c) {
   int l = 1;
   while (l < c && l < 32) l <<= 1;
@@ -537,17 +787,17 @@ unsigned blocks_for(int64_t threads_total, int threads) {
   return (unsigned)((threads_total + threads - 1) / threads);
 }
 
-template <typename OutT, typename VecT>
-void launch_features(int lanes, const float* vol, const float* q0, const float* q1,
+template <typename InT, typename OutT, typename VecT>
+void launch_features(int lanes, const InT* vol, const float* q0, const float* q1,
                      const float* q2, OutT* out, int batch, int n, const Level& L,
                      cudaStream_t stream) {
-  auto kernel = level_features_kernel<OutT, VecT, 32>;
+  auto kernel = level_features_kernel<InT, OutT, VecT, 32>;
   switch (lanes) {
-    case 1: kernel = level_features_kernel<OutT, VecT, 1>; break;
-    case 2: kernel = level_features_kernel<OutT, VecT, 2>; break;
-    case 4: kernel = level_features_kernel<OutT, VecT, 4>; break;
-    case 8: kernel = level_features_kernel<OutT, VecT, 8>; break;
-    case 16: kernel = level_features_kernel<OutT, VecT, 16>; break;
+    case 1: kernel = level_features_kernel<InT, OutT, VecT, 1>; break;
+    case 2: kernel = level_features_kernel<InT, OutT, VecT, 2>; break;
+    case 4: kernel = level_features_kernel<InT, OutT, VecT, 4>; break;
+    case 8: kernel = level_features_kernel<InT, OutT, VecT, 8>; break;
+    case 16: kernel = level_features_kernel<InT, OutT, VecT, 16>; break;
     default: break;
   }
   kernel<<<blocks_for((int64_t)batch * n * lanes, kThreads), kThreads, 0, stream>>>(
@@ -570,8 +820,25 @@ void launch_grad_points(int lanes, const float* const (&a)[5], float* out, int b
       a[0], a[1], a[2], a[3], a[4], out, batch, n, L);
 }
 
-// K4 (OutT float) and K5 (bf16) on a channels-last (B, G, C) level.
-template <typename OutT>
+template <typename VecT>
+void launch_grad_vol(int lanes, const float* q0, const float* q1, const float* q2,
+                     const float* g, float* gvol, int batch, int n, const Level& L,
+                     cudaStream_t stream) {
+  auto kernel = level_grad_vol_kernel<VecT, 32>;
+  switch (lanes) {
+    case 1: kernel = level_grad_vol_kernel<VecT, 1>; break;
+    case 2: kernel = level_grad_vol_kernel<VecT, 2>; break;
+    case 4: kernel = level_grad_vol_kernel<VecT, 4>; break;
+    case 8: kernel = level_grad_vol_kernel<VecT, 8>; break;
+    case 16: kernel = level_grad_vol_kernel<VecT, 16>; break;
+    default: break;
+  }
+  kernel<<<blocks_for((int64_t)batch * n * lanes, kThreads), kThreads, 0, stream>>>(
+      q0, q1, q2, g, gvol, batch, n, L);
+}
+
+// K4 (OutT float) and K5 (bf16) on a channels-last (B, G, C) level of InT.
+template <typename InT, typename OutT>
 int level_features_entry(const void* vol, const void* q0, const void* q1,
                          const void* q2, void* out, int batch, int n, int c,
                          int g0, int g1, int g2, int align_corners, float disp,
@@ -579,16 +846,16 @@ int level_features_entry(const void* vol, const void* q0, const void* q1,
   const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
   if (L.gsize * c >= (int64_t{1} << 31)) return (int)cudaErrorInvalidValue;
   if ((int64_t)batch * n > 0) {
-    const bool vec = c % 4 == 0 && (uintptr_t)vol % 16 == 0 &&
+    const bool vec = c % 4 == 0 && (uintptr_t)vol % (4 * sizeof(InT)) == 0 &&
                      (uintptr_t)out % (4 * sizeof(OutT)) == 0;
     if (vec) {
-      launch_features<OutT, float4>(lanes_for(c / 4), (const float*)vol, (const float*)q0,
-                                    (const float*)q1, (const float*)q2, (OutT*)out, batch,
-                                    n, L, (cudaStream_t)stream);
+      launch_features<InT, OutT, float4>(lanes_for(c / 4), (const InT*)vol, (const float*)q0,
+                                         (const float*)q1, (const float*)q2, (OutT*)out,
+                                         batch, n, L, (cudaStream_t)stream);
     } else {
-      launch_features<OutT, float>(lanes_for(c), (const float*)vol, (const float*)q0,
-                                   (const float*)q1, (const float*)q2, (OutT*)out, batch, n,
-                                   L, (cudaStream_t)stream);
+      launch_features<InT, OutT, float>(lanes_for(c), (const InT*)vol, (const float*)q0,
+                                        (const float*)q1, (const float*)q2, (OutT*)out, batch,
+                                        n, L, (cudaStream_t)stream);
     }
   }
   return (int)cudaGetLastError();
@@ -601,18 +868,22 @@ extern "C" int sv3d_level_features(const void* vol, const void* q0,
                                    int batch, int n, int c, int g0, int g1,
                                    int g2, int align_corners, float disp,
                                    void* stream) {
-  return level_features_entry<float>(vol, q0, q1, q2, out, batch, n, c, g0, g1, g2,
-                                     align_corners, disp, stream);
+  return level_features_entry<float, float>(vol, q0, q1, q2, out, batch, n, c, g0, g1, g2,
+                                            align_corners, disp, stream);
 }
 
+// K5: level_bf16 0 reads an f32 level, 1 a bf16 one.
 extern "C" int sv3d_level_features_bf16(const void* vol, const void* q0,
                                         const void* q1, const void* q2,
-                                        void* out, int batch, int n, int c,
-                                        int g0, int g1, int g2,
+                                        void* out, int level_bf16, int batch, int n,
+                                        int c, int g0, int g1, int g2,
                                         int align_corners, float disp,
                                         void* stream) {
-  return level_features_entry<__nv_bfloat16>(vol, q0, q1, q2, out, batch, n, c, g0, g1,
-                                             g2, align_corners, disp, stream);
+  if (level_bf16)
+    return level_features_entry<__nv_bfloat16, __nv_bfloat16>(
+        vol, q0, q1, q2, out, batch, n, c, g0, g1, g2, align_corners, disp, stream);
+  return level_features_entry<float, __nv_bfloat16>(vol, q0, q1, q2, out, batch, n, c, g0,
+                                                    g1, g2, align_corners, disp, stream);
 }
 
 extern "C" int sv3d_level_fc0(const void* vol, const void* w0l, const void* q0,
@@ -633,6 +904,26 @@ extern "C" int sv3d_level_fc0(const void* vol, const void* w0l, const void* q0,
         accumulate);
   }
   return (int)cudaGetLastError();
+}
+
+// K6 bf16: vol the channels-last (B, G, C) bf16 level, w0f the level's fc0
+// block (H, K) in mma fragment order (K = 7C, or 16 with the 7 copies packed
+// for C = 1), out (B, N, H) f32.
+extern "C" int sv3d_level_fc0_bf16(const void* vol, const void* w0f, const void* q0,
+                                   const void* q1, const void* q2, void* out, int h_dim,
+                                   int accumulate, int batch, int n, int c, int g0, int g1,
+                                   int g2, int align_corners, float disp, void* stream) {
+  const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
+  if (!(c == 1 || (c % 16 == 0 && c <= 128)) || L.gsize * c >= (int64_t{1} << 31) ||
+      (uintptr_t)vol % 16 != 0 || (uintptr_t)w0f % 16 != 0 || (uintptr_t)out % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)batch * n <= 0) return (int)cudaGetLastError();
+  const auto s = (cudaStream_t)stream;
+  if (h_dim == 256)
+    return launch_fc0_bf16<8>(vol, w0f, q0, q1, q2, out, batch, n, L, accumulate, s);
+  if (h_dim == 512)
+    return launch_fc0_bf16<16>(vol, w0f, q0, q1, q2, out, batch, n, L, accumulate, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7 on a channels-last (B, G, C) level.
@@ -659,19 +950,22 @@ extern "C" int sv3d_level_grad_points(const void* vol, const void* q0,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sv3d_level_grad_vol(const void* q0, const void* q1,
-                                   const void* q2, const void* g, void* gvol,
-                                   int batch, int n, int c, int g0, int g1,
-                                   int g2, int align_corners, float disp,
-                                   void* stream) {
+// K8 into a zeroed channels-last (B, G, C) gradient.
+extern "C" int sv3d_level_grad_vol(const void* q0, const void* q1, const void* q2,
+                                   const void* g, void* gvol, int batch, int n, int c, int g0,
+                                   int g1, int g2, int align_corners, float disp, void* stream) {
   const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
-  const int lanes = lanes_for(c);
-  const int64_t total = (int64_t)batch * n * lanes;
-  if (total > 0) {
-    level_grad_vol_kernel<<<blocks_for(total, kThreads), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        (const float*)q0, (const float*)q1, (const float*)q2, (const float*)g,
-        (float*)gvol, batch, n, L, lanes);
+  if (L.gsize * c >= (int64_t{1} << 31)) return (int)cudaErrorInvalidValue;
+  if ((int64_t)batch * n <= 0) return (int)cudaGetLastError();
+  const auto s = (cudaStream_t)stream;
+  const float *a0 = (const float*)q0, *a1 = (const float*)q1, *a2 = (const float*)q2,
+              *ag = (const float*)g;
+  float* out = (float*)gvol;
+  const bool vec = c % 4 == 0 && (uintptr_t)g % 16 == 0 && (uintptr_t)gvol % 16 == 0;
+  if (vec) {
+    launch_grad_vol<float4>(lanes_for(c / 4), a0, a1, a2, ag, out, batch, n, L, s);
+  } else {
+    launch_grad_vol<float>(lanes_for(c), a0, a1, a2, ag, out, batch, n, L, s);
   }
   return (int)cudaGetLastError();
 }

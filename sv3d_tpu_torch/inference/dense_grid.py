@@ -10,8 +10,9 @@ the sweep, not a layout: the kernel takes any row count per launch, and a
 point's value does not depend on it.  Its default, None, sweeps the whole
 lattice in one launch, the fastest on the card (the JAX package's default
 of 1 row was sized for the TPU's VMEM).  evaluate_points queries arbitrary
-points in fixed-shape tiles through IFNet.query_fused (kernels K6 or K4) or
-the exact gather path.
+points in fixed-shape tiles through IFNet.query_fused -- in bf16 (the JAX
+package's point-query class) kernels K6 bf16 or K5, in float32 K6 or K4 --
+or the exact gather path.
 """
 
 from __future__ import annotations
@@ -88,42 +89,49 @@ def _evaluate_u8(model, grid, resolution, res_increase, slab_rows) -> np.ndarray
 
 def evaluate_points(
     model: IFNet, grid, points: np.ndarray, tile_points: int = 65536,
-    use_kernel: bool | None = None, bands="auto",
+    use_kernel: bool | None = None, bands="auto", compute_dtype=torch.bfloat16,
 ) -> np.ndarray:
     """Sigmoid occupancy at arbitrary points (M, 3) in [-0.5, 0.5], as (M,)
-    float32 numpy.
+    float32 numpy (an empty (0,) array for M = 0).
 
     grid: (1, D0, D1, D2, 1) occupancy volume (a tensor or array; it moves
     to the model's device).  The pyramid is encoded once; the points are
     padded to whole tiles of min(tile_points, M) points, so every query has
-    one shape; fc0's per-level blocks are cut once for all tiles.  use_kernel (default: on for a CUDA model, off on the CPU, as
-    the JAX package's use_pallas defaults to the TPU) routes each tile
-    through IFNet.query_fused with bands (default "auto": kernel K6, fc0 in
-    the kernel; None: kernel K4 on the pyramid staged channels-last once,
-    its features contracted by a matmul);
-    otherwise through the exact f32 gather path IFNet.query.  Everything
-    runs on the model's device; only the result comes back."""
+    one shape; fc0's per-level blocks are prepared once for all tiles.
+    use_kernel (default: on for a CUDA model, off on the CPU, as the JAX
+    package's use_pallas defaults to the TPU) routes each tile through
+    IFNet.query_fused, in compute_dtype: bfloat16 (the default, the JAX
+    package's use_pallas class) or float32 (exact, the parity route).  bands
+    picks the kernel: "auto" or a count, K6 (fc0 in the kernel; bf16 or f32);
+    None, K5 (bf16) or K4 (f32) and a matmul.  The kernel routes stage the
+    pyramid channels-last once a call, rounded to bf16 for bfloat16.
+    use_kernel=False takes the exact f32 gather path IFNet.query whatever
+    compute_dtype says.  Everything runs on the model's device; only the
+    result comes back."""
     device = next(model.parameters()).device
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
     m = pts.shape[0]
+    if m == 0:
+        return np.zeros((0,), dtype=np.float32)
     tile = max(min(int(tile_points), m), 1)
     n_tiles = -(-m // tile)
     padded = np.zeros((n_tiles, 1, tile, 3), dtype=np.float32)
     padded.reshape(-1, 3)[:m] = pts
     with torch.inference_mode():
         levels = model.encode(torch.as_tensor(grid, dtype=torch.float32, device=device))
-        if use_kernel and not bands:
-            # K4 reads each level channels-last: stage the pyramid once for
-            # all tiles, as channel-major views that K4's wrapper takes as
-            # they are
-            levels = Pyramid([stage_channels_last(f).transpose(1, 2) for f in levels.flats],
-                             levels.dims)
+        if use_kernel and (compute_dtype == torch.bfloat16 or not bands):
+            # the kernels but K6 f32 read each level channels-last (K6 bf16 and
+            # K5 its bf16 rounding): stage the pyramid once for all tiles, as
+            # channel-major views that the wrappers take as they are
+            cast = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+            levels = Pyramid([stage_channels_last(f.to(cast)).transpose(1, 2)
+                              for f in levels.flats], levels.dims)
         tiles = torch.from_numpy(padded).to(device)
-        w0_blocks = [w.contiguous() for w in model.fc0_blocks()] if use_kernel else None
+        w0_blocks = model.fc0_operands(bands, compute_dtype) if use_kernel else None
         out = torch.cat([
-            torch.sigmoid(model.query_fused(levels, t, bands=bands, w0_blocks=w0_blocks)
+            torch.sigmoid(model.query_fused(levels, t, bands, w0_blocks, compute_dtype)
                           if use_kernel else model.query(levels, t))[0]
             for t in tiles
         ])

@@ -18,8 +18,10 @@ package picks them: query() is the exact f32 gather path; query_fused()
 runs the point-query kernels (K4 forward, K7/K8 backward) level by level and
 contracts fc0 per level, so the (B, N, 7*sumC) feature tensor never exists;
 with bands= set it runs the inference-only K6, which contracts fc0 inside the
-kernel.  The port's fused point paths are f32 throughout, exact like
-query(); the JAX fused paths are bf16 with f32 accumulation.
+kernel.  query_fused takes a compute_dtype: float32 (its default, the
+training path's) is exact like query(); bfloat16 is the JAX fused paths'
+class (bf16 operands, f32 accumulation), which evaluate_points serves by
+default.
 query_lattice() sweeps the dense lattice through K2 by default, or
 materializes the slab's features and runs the decoder through K3
 (fused_tail=False), in the JAX package's compute_dtype: bfloat16 by default
@@ -37,7 +39,13 @@ from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
-from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features
+from sv3d_tpu_torch.ops.cuda.point_query import (
+    fc0_block_bf16,
+    level_fc0_bf16_cuda,
+    level_fc0_cuda,
+    level_features,
+    level_features_banded_cuda,
+)
 from sv3d_tpu_torch.ops.cuda.sweep import SweepPlan, lattice_sweep
 from sv3d_tpu_torch.ops.grid_sample import (
     Pyramid,
@@ -46,6 +54,7 @@ from sv3d_tpu_torch.ops.grid_sample import (
     sample_trilinear_flat,
 )
 from sv3d_tpu_torch.ops.lattice import slab_features
+from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES, matmul_bf16
 
 
 class _ConvBlock(nn.Module):
@@ -119,6 +128,18 @@ class IFNet(nn.Module):
             for cg, c in zip(np.cumsum([0, *chans[:-1]]).tolist(), chans)
         ]
 
+    def fc0_operands(self, bands=None, compute_dtype=torch.float32) -> list:
+        """fc0_blocks() as query_fused's route reads them, made once for
+        many calls with unchanged weights (evaluate_points): float32 with
+        bands set, contiguous (K6 f32); bfloat16 with bands set,
+        fc0_block_bf16 (K6 bf16); bfloat16 without, rounded to bf16 (the
+        matmul after K5); float32 without, fc0_blocks() itself."""
+        blocks = self.fc0_blocks()
+        if compute_dtype == torch.bfloat16:
+            return [fc0_block_bf16(w) if bands else w.detach().to(torch.bfloat16)
+                    for w in blocks]
+        return [w.contiguous() for w in blocks] if bands else blocks
+
     def encode(self, grid: torch.Tensor) -> Pyramid:
         """Run the conv pyramid once; level 0 is the raw input grid.
         Returns a Pyramid of channel-major (B, C, G) levels."""
@@ -139,9 +160,15 @@ class IFNet(nn.Module):
                 x = F.max_pool3d(x, 2, 2)
         return Pyramid([f for f, _ in levels], [d for _, d in levels])
 
-    def _mlp_tail(self, h: torch.Tensor) -> torch.Tensor:
-        """fc0 pre-activations (B, N, H) -> (B, N) logits."""
+    def _mlp_tail(self, h: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+        """fc0 pre-activations (B, N, H) -> (B, N) logits.  bfloat16: as the
+        JAX fused query's tail, each ReLU output and weight rounded to bf16,
+        f32 products and biases (matmul_bf16)."""
         h = F.relu(h)
+        if compute_dtype == torch.bfloat16:
+            for layer in (self.fc1, self.fc2):
+                h = F.relu(matmul_bf16(h, layer.weight.t()) + layer.bias)
+            return (matmul_bf16(h, self.fc_out.weight.t()) + self.fc_out.bias)[..., 0]
         for layer in (self.fc1, self.fc2):
             h = F.relu(F.linear(h, layer.weight, layer.bias))
         return F.linear(h, self.fc_out.weight, self.fc_out.bias)[..., 0]
@@ -162,7 +189,7 @@ class IFNet(nn.Module):
         return self._mlp_tail(F.linear(f, self.fc0.weight, self.fc0.bias))
 
     def query_fused(self, levels: Pyramid, points: torch.Tensor, bands=None,
-                    w0_blocks=None) -> torch.Tensor:
+                    w0_blocks=None, compute_dtype=torch.float32) -> torch.Tensor:
         """query() through the point-query kernels.
 
         bands=None: per level, K4 features (B, N, 7*C_l) contracted at once
@@ -178,24 +205,42 @@ class IFNet(nn.Module):
         bucketing (bucket_queries_2d, ops/pallas/cost.py::choose_bands), which
         the port does not have, so any band count gives the same result.
 
-        w0_blocks: fc0_blocks() made contiguous, from a caller that queries
-        many tiles with unchanged weights (evaluate_points); made anew on each
-        call when None."""
+        compute_dtype: float32 (the default, the training path's) is exact;
+        bfloat16 is the JAX fused query's class (inference-only): the levels
+        rounded to bf16, features rounded once, fc0 in bf16 with f32 sums --
+        by K6 bf16 with bands set (each level's partial rounded to bf16), by
+        K5 and a bf16 matmul without -- and the tail in bf16 (_mlp_tail).
+        A bf16 level is read as it is; evaluate_points stages the pyramid
+        rounded to bf16 and channels-last once a call.
+
+        w0_blocks: fc0_operands(bands, compute_dtype), from a caller that
+        queries many tiles with unchanged weights (evaluate_points); made
+        anew on each call when None."""
         cfg = self.config
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"query_fused: compute_dtype must be one of {COMPUTE_DTYPES}")
+        bf16 = compute_dtype == torch.bfloat16
         p0, p1, p2 = ((2.0 * points[..., i]).contiguous() for i in range(3))
         args = (cfg.align_corners, cfg.displacement)
+        if w0_blocks is None:
+            w0_blocks = self.fc0_operands(bands, compute_dtype)
         if bands:
-            if w0_blocks is None:
-                w0_blocks = [w.contiguous() for w in self.fc0_blocks()]
             b, n = points.shape[:2]
             h = self.fc0.bias.expand(b, n, self.fc0.bias.shape[0]).contiguous()
+            kernel = level_fc0_bf16_cuda if bf16 else level_fc0_cuda
             for (flat, dims), w0l in zip(levels, w0_blocks):
-                h = level_fc0_cuda(flat, w0l, p0, p1, p2, dims, *args, out=h)
-            return self._mlp_tail(h)
+                h = kernel(flat, w0l, p0, p1, p2, dims, *args, out=h)
+            return self._mlp_tail(h, compute_dtype)
         h = self.fc0.bias
-        for (flat, dims), w0l in zip(levels, w0_blocks or self.fc0_blocks()):
-            h = h + torch.matmul(level_features(flat, p0, p1, p2, dims, *args), w0l)
-        return self._mlp_tail(h)
+        for (flat, dims), w0l in zip(levels, w0_blocks):
+            if bf16:
+                # K5 reads a bf16 level as it is (evaluate_points' staged pyramid)
+                level = flat.to(torch.bfloat16)
+                h = h + matmul_bf16(level_features_banded_cuda(level, p0, p1, p2, dims, *args),
+                                    w0l)
+            else:
+                h = h + torch.matmul(level_features(flat, p0, p1, p2, dims, *args), w0l)
+        return self._mlp_tail(h, compute_dtype)
 
     def forward(self, grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
         """encode, then the point query IFNetConfig.fused_query picks."""
@@ -209,8 +254,9 @@ class IFNet(nn.Module):
         """Everything the sweep kernel K2 reads that no slab changes (tables,
         weights in its layouts, for bfloat16 the pyramid staged in bf16),
         prepared once for a sweep of the lattice whose axis i has
-        resolution[i] * res_increase points.  It copies the weights: build
-        a new plan after they change."""
+        resolution[i] * res_increase points.  It copies what it reads;
+        query_lattice(plan=) raises ValueError when the levels or weights
+        are not those it was made from, or changed in place since."""
         cfg = self.config
         r = tuple(int(x) * res_increase for x in resolution)
         return SweepPlan(levels, self.mlp, r, cfg.align_corners, cfg.displacement, compute_dtype)
@@ -234,14 +280,16 @@ class IFNet(nn.Module):
         plain torch version for CPU levels (sv3d_tpu_torch/ops/cuda/sweep.py).
         plan: sweep_plan(levels, resolution, res_increase, compute_dtype),
         from a caller that sweeps many slabs (evaluate_on_grid_device); made
-        here when None.
+        here when None; a plan made for another lattice, dtype, pyramid or
+        weights, or whose weights changed in place since, raises ValueError.
         fused_tail=False: the unfused branch -- the levels rounded to
         compute_dtype, the slab's displacement-major (B, 7*sumC, n_slab)
-        features materialized (ops/lattice.py slab_features) and rounded,
-        then the decoder through K3 once per batch element with fc0's weight
-        rounded (its plain version for CPU levels); K3 and the hidden layers
-        stay f32.  The feature matrix is 7 * sumC * n_slab * 4 bytes (120 MB a
-        lattice row at full width), so keep slab_rows small there."""
+        features materialized (ops/lattice.py slab_features), then the
+        decoder through K3 in compute_dtype once per batch element (its plain
+        version for CPU levels): in bf16 K3 rounds the features, the weights
+        and each ReLU output, as the JAX package's K3 does.  The feature
+        matrix is 7 * sumC * n_slab * 4 bytes (120 MB a lattice row at full
+        width), so keep slab_rows small there."""
         cfg = self.config
         r = tuple(int(x) * res_increase for x in resolution)
         if fused_tail is None or fused_tail:
@@ -249,12 +297,14 @@ class IFNet(nn.Module):
                 plan = self.sweep_plan(levels, resolution, res_increase, compute_dtype)
             elif plan.compute_dtype != compute_dtype or plan.r != r:
                 raise ValueError("query_lattice: the plan was made for another lattice or dtype")
+            else:
+                plan.check(levels, self.mlp)
             return lattice_sweep(plan, slab_rows, int(row_offset))
         rounded = [(flat.to(compute_dtype).float(), dims) for flat, dims in levels]
         f = slab_features(rounded, r, slab_rows, int(row_offset), cfg.align_corners,
-                          cfg.displacement).to(compute_dtype).float()
+                          cfg.displacement)
         b = f.shape[0]
         weights = [t for layer in self.mlp for t in layer]
-        weights[0] = weights[0].to(compute_dtype).float()
-        logits = torch.stack([fused_point_mlp(f[i], *weights) for i in range(b)])
+        logits = torch.stack([fused_point_mlp(f[i], *weights, compute_dtype=compute_dtype)
+                              for i in range(b)])
         return logits.reshape(b, slab_rows, r[1], r[2])

@@ -2,7 +2,8 @@
 
   level_features_cuda         K4, replaces sv3d_tpu/ops/pallas/point_query.py::level_features
   level_features_banded_cuda  K5, replaces sv3d_tpu/ops/pallas/point_query.py::level_features_banded
-  level_fc0_cuda              K6, replaces sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
+  level_fc0_cuda              K6 f32, replaces sv3d_tpu/ops/pallas/point_query.py::level_fc0_banded
+  level_fc0_bf16_cuda         K6 bf16, the same in the JAX kernel's precision class
   level_grad_points_cuda      K7, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_points
   level_grad_vol_cuda         K8, replaces sv3d_tpu/ops/pallas/point_query_bwd.py::level_grad_vol
 
@@ -14,12 +15,14 @@ coordinates' when autograd asks for it.  Each wrapper runs its plain version
 for a CUDA tensor, or raises.  Every wrapper takes the level as the
 channel-major flat (B, C, G) that flatten_grid makes; K4, K5 and K7 read it
 channels-last, (B, G, C): their wrapper reads a level that already lies so
-as it is and stages any other (stage_channels_last), while K6 and K8 read
-the flat as it is.  level_features saves the level as it was given, so K7's
-wrapper stages a channel-major flat again in the backward.  K5 and K6
-are inference-only, as their TPU kernels have no VJP: under autograd (grad
-enabled and an input that requires grad) they raise NotImplementedError
-rather than return a gradient.
+as it is and stages any other (stage_channels_last), K6 bf16 reads a
+channels-last bf16 copy staged the same way (and K5 reads one when given a
+bf16 level), while K6 f32 reads the flat as it is.  K8 writes the level's gradient channels-last and returns it as the
+(B, C, G) transposed view.  level_features saves the level as it was given,
+so K7's wrapper stages a channel-major flat again in the backward.  K5 and
+K6 are inference-only, as their TPU kernels have no VJP: under autograd
+(grad enabled and an input that requires grad) they raise
+NotImplementedError rather than return a gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import functools
 import torch
 
 from sv3d_tpu_torch.ops.cuda import build
+from sv3d_tpu_torch.ops.cuda.layouts import mma_b_fragments, stage_channels_last
 from sv3d_tpu_torch.ops.point_query import (
     level_fc0_plain,
     level_features_banded_plain,
@@ -83,33 +87,26 @@ def _tail(b, n, c, dims, align_corners, displacement, device):
             torch.cuda.current_stream(device).cuda_stream)
 
 
-def stage_channels_last(flat: torch.Tensor) -> torch.Tensor:
-    """The contiguous channels-last (B, G, C) level that K4, K5 and K7 read, from
-    a (B, C, G) level in any memory layout: a view when the level already
-    lies channels-last (C = 1 always does), else torch's transpose copy,
-    counted in stage_channels_last.copies."""
-    cl = flat.transpose(1, 2)
-    if not cl.is_contiguous():
-        stage_channels_last.copies += 1
-    return cl.contiguous()
-
-
 def _features_kernel(who: str, entry: str, dtype, flat, p0, p1, p2, dims, align_corners,
-                     displacement):
-    """K4 or K5 on a CUDA level: stage the channels-last copy, launch."""
+                     displacement, takes_bf16: bool = False):
+    """K4 or K5 on a CUDA level: stage the channels-last copy, launch.
+    takes_bf16 (K5): the level may be bfloat16 too."""
     b, c, g = flat.shape
     n = p0.shape[1]
     if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
         raise ValueError(f"{who}: level of {g} voxels for dims {dims}")
     if g * c >= 2**31:
         raise ValueError(f"{who}: G * C = {g * c} exceeds the kernel's 32-bit offsets")
-    if flat.dtype != torch.float32:
-        raise TypeError(f"{who}: flat must be float32, got {flat.dtype}")
+    level_dtypes = (torch.float32, torch.bfloat16) if takes_bf16 else (torch.float32,)
+    if flat.dtype not in level_dtypes:
+        raise TypeError(f"{who}: flat must be one of {level_dtypes}, got {flat.dtype}")
     _check(who, flat.device, p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)))
     vol = stage_channels_last(flat)
     out = torch.empty((b, n, 7 * c), dtype=dtype, device=flat.device)
-    rc = _bind(entry, 5)(
-        vol.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(),
+    # K5's entry takes the level's dtype (0 f32, 1 bf16) before the tail
+    flag = (int(flat.dtype == torch.bfloat16),) if takes_bf16 else ()
+    rc = _bind(entry, 5, len(flag))(
+        vol.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(), *flag,
         *_tail(b, n, c, dims, align_corners, displacement, flat.device),
     )
     build.check(rc, entry)
@@ -131,12 +128,15 @@ def level_features_cuda(flat, p0, p1, p2, dims, align_corners: bool, displacemen
 def level_features_banded_cuda(flat, p0, p1, p2, dims, align_corners: bool,
                                displacement: float):
     """K5: K4's features stored as bfloat16, (B, N, 7*C); the level as K4
-    takes it.  Inference-only."""
+    takes it, in float32 or bfloat16 (read as it is: the bf16 point query
+    hands it the pyramid rounded to bf16, as the JAX kernel reads it).
+    Inference-only."""
     _inference_only("level_features_banded", flat, p0, p1, p2)
     if not _on_cuda(flat, "level_features_banded"):
         return level_features_banded_plain(flat, p0, p1, p2, dims, align_corners, displacement)
     out = _features_kernel("level_features_banded", "sv3d_level_features_bf16", torch.bfloat16,
-                           flat, p0, p1, p2, dims, align_corners, displacement)
+                           flat, p0, p1, p2, dims, align_corners, displacement,
+                           takes_bf16=True)
     level_features_banded_cuda.launches += 1
     return out
 
@@ -176,6 +176,68 @@ def level_fc0_cuda(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacemen
     return out
 
 
+def fc0_block_bf16(w0l: torch.Tensor) -> torch.Tensor:
+    """A level's (7*C, H) block of fc0 as K6 bf16 reads it: on CUDA its bf16
+    mma fragments (mma_b_fragments of the (H, K) transpose, K = 7*C, or 16 for
+    C = 1: the 7 copies packed into one k16 chunk, zeros after); on the CPU
+    the block rounded to bf16, the plain version's operand.  Made once for
+    the calls that share the weights (evaluate_points)."""
+    w = w0l.detach().to(torch.bfloat16)
+    if w.device.type == "cpu":
+        return w
+    wt = w.t()
+    if wt.shape[1] < 16:
+        wt = torch.cat([wt, wt.new_zeros((wt.shape[0], 16 - wt.shape[1]))], dim=1)
+    return mma_b_fragments(wt.contiguous())
+
+
+def level_fc0_bf16_cuda(level, w0k, p0, p1, p2, dims, align_corners: bool, displacement: float,
+                        out=None):
+    """K6 bf16: one level's fc0 partial in the JAX kernel's class (the level,
+    each feature, the block and the partial rounded to bf16, f32 sums), as
+    f32 (B, N, H); with out (B, N, H) f32 given, added into out in place.
+    level: (B, C, G) of any float dtype and layout; a channels-last bf16 one
+    (evaluate_points stages its pyramid so once a call) is read as it is,
+    any other is rounded and staged here.  w0k: fc0_block_bf16(w0l).  C = 1
+    or C % 16 == 0 up to 128, H 256 or 512.  Inference-only."""
+    _inference_only("level_fc0", level, w0k, p0, p1, p2)
+    if not _on_cuda(level, "level_fc0_bf16"):
+        part = level_fc0_plain(level, w0k, p0, p1, p2, dims, align_corners, displacement,
+                               torch.bfloat16)
+        return part if out is None else out.add_(part)
+    b, c, g = level.shape
+    n = p0.shape[1]
+    k = 16 if c == 1 else 7 * c
+    h = 16 * w0k.shape[1] if w0k.ndim == 4 else -1
+    if g != int(dims[0]) * int(dims[1]) * int(dims[2]):
+        raise ValueError(f"level_fc0_bf16: level of {g} voxels for dims {dims}")
+    if not (c == 1 or (c % 16 == 0 and c <= 128)) or h not in (256, 512):
+        raise ValueError(f"level_fc0_bf16: the kernel takes C = 1 or C % 16 == 0 up to 128 "
+                         f"and H 256 or 512, got C {c} and weights {tuple(w0k.shape)}")
+    if g * c >= 2**31:
+        raise ValueError(f"level_fc0_bf16: G * C = {g * c} exceeds the kernel's 32-bit offsets")
+    if tuple(w0k.shape) != (k // 16, h // 16, 32, 8) or w0k.dtype != torch.bfloat16 \
+            or w0k.device != level.device or not w0k.is_contiguous():
+        raise ValueError(f"level_fc0_bf16: w0k must be fc0_block_bf16 of a ({7 * c}, H) block, "
+                         f"got {tuple(w0k.shape)} {w0k.dtype} on {w0k.device}")
+    tensors = dict(p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)))
+    if out is not None:
+        tensors["out"] = (out, (b, n, h))
+    _check("level_fc0_bf16", level.device, **tensors)
+    vol = stage_channels_last(level.to(torch.bfloat16))
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty((b, n, h), dtype=torch.float32, device=level.device)
+    rc = _bind("sv3d_level_fc0_bf16", 6, 2)(
+        vol.data_ptr(), w0k.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+        out.data_ptr(), h, int(accumulate),
+        *_tail(b, n, c, dims, align_corners, displacement, level.device),
+    )
+    build.check(rc, "sv3d_level_fc0_bf16")
+    level_fc0_bf16_cuda.launches += 1
+    return out
+
+
 def level_grad_points_cuda(flat, p0, p1, p2, g, dims, align_corners: bool,
                            displacement: float):
     """K7: d features / d coords contracted with g (B, N, 7*C) -> (B, N, 3).
@@ -206,7 +268,8 @@ def level_grad_points_cuda(flat, p0, p1, p2, g, dims, align_corners: bool,
 
 
 def level_grad_vol_cuda(p0, p1, p2, g, dims, align_corners: bool, displacement: float):
-    """K8: d features / d level contracted with g (B, N, 7*C) -> (B, C, G)."""
+    """K8: d features / d level contracted with g (B, N, 7*C) -> (B, C, G), the
+    transposed view of a channels-last (B, G, C) buffer."""
     if not _on_cuda(g, "level_grad_vol"):
         return level_grad_vol_plain(p0, p1, p2, g, dims, align_corners, displacement)
     b, n, sevenc = g.shape
@@ -214,14 +277,17 @@ def level_grad_vol_cuda(p0, p1, p2, g, dims, align_corners: bool, displacement: 
     gsize = int(dims[0]) * int(dims[1]) * int(dims[2])
     _check("level_grad_vol", g.device, p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)),
            g=(g, (b, n, 7 * c)))
-    out = torch.zeros((b, c, gsize), dtype=torch.float32, device=g.device)
+    if gsize * c >= 2**31:
+        raise ValueError(f"level_grad_vol: G * C = {gsize * c} exceeds the kernel's 32-bit "
+                         "offsets")
+    out = torch.zeros((b, gsize, c), dtype=torch.float32, device=g.device)
     rc = _bind("sv3d_level_grad_vol", 5)(
         p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), g.data_ptr(), out.data_ptr(),
         *_tail(b, n, c, dims, align_corners, displacement, g.device),
     )
     build.check(rc, "sv3d_level_grad_vol")
     level_grad_vol_cuda.launches += 1
-    return out
+    return out.transpose(1, 2)
 
 
 class _LevelFeatures(torch.autograd.Function):
@@ -260,15 +326,15 @@ def level_features(vol, p0, p1, p2, dims, align_corners: bool, displacement: flo
     without a copy; any other level is staged channels-last by each of
     them.  Returns (B, N, 7*C) f32, displacement-major within the level
     (index d*C + c).  The level's gradient comes back in the channel-major
-    flat layout."""
+    flat's shape, channels-last in memory on the card (K8's layout)."""
     dims = tuple(int(d) for d in dims)
     p0, p1, p2 = (p.contiguous() for p in (p0, p1, p2))
     return _LevelFeatures.apply(vol, p0, p1, p2, dims, bool(align_corners), float(displacement))
 
 
-stage_channels_last.copies = 0
 level_features_cuda.launches = 0
 level_features_banded_cuda.launches = 0
 level_fc0_cuda.launches = 0
+level_fc0_bf16_cuda.launches = 0
 level_grad_points_cuda.launches = 0
 level_grad_vol_cuda.launches = 0

@@ -18,28 +18,42 @@ pyramid staged channels-last in bf16) and then launched once per slab by
 lattice_sweep(plan, rows, row_offset), which does no host-to-device copy and
 no weight transform.  A plan on CPU levels runs the plain version; on CUDA
 levels lattice_sweep launches the kernel of the plan's dtype or raises.
-Inference only.  A plan holds copies of the weights: build a new one after
-the weights change.
+Inference only.  A plan holds copies of everything it reads and records
+which levels and weights it was made from (SweepPlan.check): after the
+weights change in place, or for another pyramid, build a new one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
 
 from sv3d_tpu_torch.ops.cuda import build
-from sv3d_tpu_torch.ops.cuda.point_query import stage_channels_last
+from sv3d_tpu_torch.ops.cuda.layouts import (
+    fragment_order,
+    mma_b_fragments,
+    stage_channels_last,
+)
 from sv3d_tpu_torch.ops.lattice import axis0_rows, axis_taps, slab_features
+from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES
+from sv3d_tpu_torch.ops.mlp import rounded as _rounded
 
-COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+def _identity(t: torch.Tensor) -> tuple:
+    """What a plan records of a tensor it was made from: the object (a weak
+    reference), its data pointer, shape and dtype, and its version counter
+    where it has one (an inference tensor, as the levels of a sweep under
+    torch.inference_mode are, has none)."""
+    return (weakref.ref(t), t.data_ptr(), tuple(t.shape), t.dtype,
+            None if t.is_inference() else t._version)
 
 
-def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """t rounded to compute_dtype (round to nearest even), kept in f32."""
-    return t.to(compute_dtype).float()
+def _same(record: tuple, t: torch.Tensor) -> bool:
+    return record[0]() is t and record[1:] == _identity(t)[1:]
 
 
 def lattice_sweep_plain(
@@ -130,37 +144,12 @@ def fc0_chunk_order(chans):
 
 
 @functools.lru_cache(maxsize=16)
-def _fragment_order(n_out: int, k: int) -> np.ndarray:
-    """mma_b_fragments' order as flat indices into an (n_out, k) matrix."""
-    lane = np.arange(32)
-    kk = 2 * (lane % 4)[:, None] + np.asarray([0, 1, 8, 9])  # (32, 4)
-    n = (np.arange(n_out // 16)[:, None, None] * 16 + np.arange(2)[None, None, :] * 8
-         + (lane // 4)[None, :, None])  # (P, 32, 2)
-    chunk = np.arange(k // 16)[:, None, None, None, None] * 16
-    flat = n[None, :, :, :, None] * k + chunk + kk[None, None, :, None, :]  # (K/16, P, 32, 2, 4)
-    return flat.reshape(k // 16, n_out // 16, 32, 8)
-
-
-def mma_b_fragments(w: torch.Tensor) -> torch.Tensor:
-    """(N, K) weight -> (K/16, N/16, 32, 8): per 16-row chunk of K, per pair
-    of 8-column n-tiles, per lane, the lane's two mma.m16n8k16 B fragment
-    registers of each tile of the pair (B[k][n] = w[n, k]; lane l holds n =
-    l // 4 of the tile and k = 2 (l % 4) + {0, 1, 8, 9})."""
-    return w.reshape(-1)[_fragment_index(*w.shape, w.device)]
-
-
-@functools.lru_cache(maxsize=16)
-def _fragment_index(n_out: int, k: int, device) -> torch.Tensor:
-    return torch.from_numpy(_fragment_order(n_out, k)).to(device)
-
-
-@functools.lru_cache(maxsize=16)
 def _fc0_fragment_index(chans: tuple, h0: int, device) -> torch.Tensor:
     """Flat indices into fc0's (H0, 7 sumC) weight, with one zero appended at
     the end (index -1), of mma_b_fragments applied to fc0 permuted to
     fc0_chunk_order; kept on the device (indices, not weights)."""
     _, cols = fc0_chunk_order(list(chans))
-    order = _fragment_order(h0, len(cols))
+    order = fragment_order(h0, len(cols))
     n, kpos = np.divmod(order, len(cols))
     col = cols[kpos]
     flat = np.where(col >= 0, n * (7 * sum(chans)) + col, -1)
@@ -200,21 +189,27 @@ class SweepPlan:
     """What the sweep's kernel reads that no slab changes, prepared once.
 
     levels: the pyramid, (flat (B, C, G), dims) pairs; mlp: [(weight,
-    bias)] of fc0, fc1, fc2, fc_out; r: the lattice (r0, r1, r2).  On CPU
-    levels the plan only records its arguments (lattice_sweep runs the
-    plain version).  On CUDA levels it holds, on the device: the 2-tap
-    tables of all r0 rows and the level pointers; for float32 the
-    contiguous channel-major levels and the transposed fc0, fc1, fc2; for
-    bfloat16 the pyramid cast to bf16 and staged channels-last, fc0 in bf16
-    permuted to fc0_chunk_order and laid out as mma_b_fragments, fc1 and
-    fc2 likewise, fc_out's weight rounded to bf16 (kept in f32), the f32
-    biases and the group table."""
+    bias)] of fc0, fc1, fc2, fc_out; r: the lattice (r0, r1, r2).  It holds
+    copies of all it reads.  On CPU levels: copies of the levels and the
+    weights (lattice_sweep runs the plain version on them).  On CUDA levels,
+    on the device: the 2-tap tables of all r0 rows and the level pointers;
+    for float32 copies of the channel-major levels, the transposed fc0, fc1,
+    fc2 and fc_out; for bfloat16 the pyramid cast to bf16 and staged
+    channels-last, fc0 in bf16 permuted to fc0_chunk_order and laid out as
+    mma_b_fragments, fc1 and fc2 likewise, fc_out's weight rounded to bf16
+    (kept in f32) and the group table; copies of the f32 biases.  check()
+    tells whether given levels and weights are those it was made from,
+    unchanged."""
 
     def __init__(self, levels, mlp, r, align_corners: bool, displacement: float,
                  compute_dtype=torch.bfloat16):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"lattice_sweep: compute_dtype must be one of {COMPUTE_DTYPES}")
-        self.levels = list(levels)
+        levels = [(flat, tuple(int(x) for x in dims)) for flat, dims in levels]
+        mlp = list(mlp)
+        self._made_from = ([(_identity(flat), dims) for flat, dims in levels],
+                           [_identity(t) for layer in mlp for t in layer])
+        self.levels = [(flat.detach(), dims) for flat, dims in levels]
         self.mlp = [(w.detach(), b.detach()) for w, b in mlp]
         self.r = tuple(int(x) for x in r)
         self.align_corners = bool(align_corners)
@@ -223,11 +218,13 @@ class SweepPlan:
         self.device = self.levels[0][0].device
         self.batch = self.levels[0][0].shape[0]
         if self.device.type == "cpu":
+            self.levels = [(flat.clone(), dims) for flat, dims in self.levels]
+            self.mlp = [(w.clone(), b.clone()) for w, b in self.mlp]
             return
         if self.device.type != "cuda":
             raise ValueError(f"lattice_sweep: unsupported device {self.device}")
         _check_levels(self.levels, self.device)
-        if torch.is_grad_enabled() and any(flat.requires_grad for flat, _ in self.levels):
+        if torch.is_grad_enabled() and any(flat.requires_grad for flat, _ in levels):
             raise NotImplementedError("lattice_sweep is inference-only")
         chans = [flat.shape[1] for flat, _ in self.levels]
         self.sum_c = sum(chans)
@@ -243,13 +240,32 @@ class SweepPlan:
             self.tap_idx = torch.from_numpy(tap_idx).to(dev)
             self.tap_w = torch.from_numpy(tap_w).to(dev)
             (w0, b0), (w1, b1), (w2, b2), (w3, b3) = self.mlp
-            self.biases = [b.contiguous() for b in (b0, b1, b2, b3)]
+            self.biases = [b.clone() for b in (b0, b1, b2, b3)]
             if compute_dtype == torch.float32:
-                self.vols = [flat.contiguous() for flat, _ in self.levels]
-                self.weights = [w.t().contiguous() for w in (w0, w1, w2)] + [w3.contiguous()]
+                self.vols = [flat.clone(memory_format=torch.contiguous_format)
+                             for flat, _ in self.levels]
+                self.weights = [w.t().clone(memory_format=torch.contiguous_format)
+                                for w in (w0, w1, w2)] + [w3.clone()]
             else:
                 self._prepare_bf16(chans)
             self.ptrs = torch.tensor([v.data_ptr() for v in self.vols], dtype=torch.int64).to(dev)
+        # the device plan reads only its own copies
+        self.levels = self.mlp = None
+
+    def check(self, levels, mlp) -> None:
+        """Raise ValueError unless levels ((flat, dims) pairs) and mlp
+        ([(weight, bias)]) are the tensors this plan was made from, at the
+        same storage, shape and dtype, and, where they count versions,
+        unchanged in place since."""
+        levels = [(flat, tuple(int(x) for x in dims)) for flat, dims in levels]
+        params = [t for layer in mlp for t in layer]
+        lv, ps = self._made_from
+        if len(levels) != len(lv) or len(params) != len(ps) \
+                or not all(_same(rec, flat) and d == dims for (rec, d), (flat, dims)
+                           in zip(lv, levels)) \
+                or not all(_same(rec, t) for rec, t in zip(ps, params)):
+            raise ValueError("lattice_sweep: the plan is stale: it was made from other levels "
+                             "or weights, or they changed in place since; make a new plan")
 
     def _prepare_bf16(self, chans):
         for (flat, dims), c in zip(self.levels, chans):
@@ -258,7 +274,7 @@ class SweepPlan:
                                  f"C % 16 == 0 up to 128, got {c}")
             if flat.shape[2] * c >= 2**31:
                 raise ValueError("lattice_sweep: G * C exceeds the kernel's 32-bit offsets")
-        # cast, then stage: the transpose moves half the bytes of an f32 one
+        # cast (a copy), then stage: the transpose moves half the bytes of an f32 one
         self.vols = [stage_channels_last(flat.to(torch.bfloat16)) for flat, _ in self.levels]
         groups, cols = fc0_chunk_order(chans)
         self.groups = torch.from_numpy(groups).to(self.device)

@@ -1,8 +1,8 @@
-"""The port's CUDA kernels (K1, K1b, K2, K3, K4, K5, K6, K7, K8) against
-their plain torch versions.
+"""The port's CUDA kernels (K1, K1b, K2, K3, K4, K5, K6 f32 and bf16, K7,
+K8) against their plain torch versions.
 
 This file imports only sv3d_tpu_torch and runs chip_smoke.py's definitions
-for K2 bf16's limits (the card machine has no flax).  The tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
+for the bf16 kernels' limits (the card machine has no flax).  The tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
 the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The
 CPU tests check the part of the sweep kernels that Python owns: the 2-tap
 tables and their index arithmetic, replayed in numpy against the plain
@@ -27,6 +27,8 @@ from sv3d_tpu_torch.inference.dense_grid import (
 from sv3d_tpu_torch.models.ifnet import IFNet
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
 from sv3d_tpu_torch.ops.cuda.point_query import (
+    fc0_block_bf16,
+    level_fc0_bf16_cuda,
     level_fc0_cuda,
     level_features,
     level_features_banded_cuda,
@@ -51,6 +53,7 @@ from sv3d_tpu_torch.ops.cuda.voxelize import (
     scatter_voxels_cuda,
     scatter_voxels_raw_cuda,
 )
+from sv3d_tpu_torch.ops.lattice import slab_features
 from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
 from sv3d_tpu_torch.ops.point_query import (
     level_fc0_plain,
@@ -248,6 +251,43 @@ def test_k2_bf16_mean_limit_fails_wrong_rounding(net_res, dims):
             assert smoke["rel_mean_err"](wrong, ref) > smoke["K2_BF16_REL_MEAN_TOL"], skip
 
 
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_k3_bf16_mean_limit_fails_wrong_rounding(net_res):
+    """chip_smoke.py's plain_bf16_mlp: with no rounding point left out it is
+    K3's plain bf16 decoder bit for bit; without its hidden rounding it fails
+    K3 bf16's mean limit, K3_BF16_REL_MEAN_TOL of the mean |logit|, on a
+    slab of the served decoder's features (CPU)."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    dims = (17, 16, 18) if net_res == 128 else (12, 9, 10)
+    cfg, model, levels = _encoded(net_res, dims)
+    weights = [t.detach() for layer in model.mlp for t in layer]
+    with torch.inference_mode():
+        f = slab_features(levels, dims, 1, dims[0] // 2, cfg.align_corners,
+                          cfg.displacement)[0]
+        ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
+        assert torch.equal(smoke["plain_bf16_mlp"](f, *weights), ref)
+        wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("hidden",))
+    assert smoke["rel_mean_err"](wrong, ref) > smoke["K3_BF16_REL_MEAN_TOL"]
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_bf16_points_mean_limit_fails_another_class(net_res, dims):
+    """chip_smoke.py's points_card_vs_cpu with the CPU model on both sides:
+    every route agrees with itself exactly, and against the bf16 routes the
+    f32 route and the bf16 route with its MLP tail in f32 fail the bf16
+    points' mean limit, POINTS_BF16_REL_MEAN_TOL of the mean |logit|; the
+    model's own tail is back afterwards."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    _, model, _ = _encoded(net_res, dims)
+    grid = (np.random.default_rng(1).uniform(0, 1, (1, *dims, 1)) > 0.9).astype(np.float32)
+    pts = np.random.default_rng(2).uniform(-0.5, 0.5, (500, 3)).astype(np.float32)
+    res = smoke["points_card_vs_cpu"](model, model, grid, pts, 256)
+    assert all(a == 0.0 and m == 0.0 for a, m in res["routes"].values()), res["routes"]
+    assert len(res["wrong"]) == 4
+    assert min(res["wrong"].values()) > smoke["POINTS_BF16_REL_MEAN_TOL"], res["wrong"]
+    assert "_mlp_tail" not in vars(model)
+
+
 def _rel_err(got, ref):
     return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
@@ -362,6 +402,18 @@ def test_feature_kernels_read_channels_last_levels_on_card(c, cuda_device):
     torch.cuda.synchronize()
     assert stage_channels_last.copies == before
 
+    # K5 on a bf16 level: the staged channels-last copy, read as it is, and a
+    # view that is not 8-byte aligned (the scalar path) give K5 on the f32
+    # copy of the same values
+    staged16 = stage_channels_last(flat.to(torch.bfloat16))
+    want16 = level_features_banded_cuda(staged16.float().transpose(1, 2), *p, *args)
+    buf16 = torch.empty(2 * g * c + 1, dtype=torch.bfloat16, device=cuda_device)
+    buf16[1:] = staged16.reshape(-1)
+    before = stage_channels_last.copies
+    for level in (staged16.transpose(1, 2), buf16[1:].view(2, g, c).transpose(1, 2)):
+        assert torch.equal(level_features_banded_cuda(level, *p, *args), want16)
+    assert stage_channels_last.copies == before
+
     wide = torch.tensor(rng.standard_normal((2, 2 * c, g)).astype(np.float32),
                         device=cuda_device)
     strided = wide[:, ::2]
@@ -392,6 +444,10 @@ def test_channels_last_staging_on_cpu(c):
     assert torch.equal(level_features_cuda(level, *p, *args), level_features_cuda(flat, *p, *args))
     assert torch.equal(level_features_banded_cuda(level, *p, *args),
                        level_features_banded_cuda(flat, *p, *args))
+    # K5 on a bf16 level: the features of its exact f32 values
+    level16 = stage_channels_last(flat.to(torch.bfloat16)).transpose(1, 2)
+    assert torch.equal(level_features_banded_cuda(level16, *p, *args),
+                       level_features_banded_cuda(flat.to(torch.bfloat16).float(), *p, *args))
     strided = torch.tensor(rng.standard_normal((2, 2 * c, 5 * 6 * 7)).astype(np.float32))[:, ::2]
     cl = stage_channels_last(strided)
     assert cl.is_contiguous() and torch.equal(cl, strided.transpose(1, 2))
@@ -409,7 +465,8 @@ def test_evaluate_points_stages_the_pyramid_once(bands):
     grid = rng.uniform(0, 1, (1, 17, 16, 18, 1)).astype(np.float32)
     pts = rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
     before = stage_channels_last.copies
-    got = evaluate_points(model, grid, pts, tile_points=100, use_kernel=True, bands=bands)
+    got = evaluate_points(model, grid, pts, tile_points=100, use_kernel=True, bands=bands,
+                          compute_dtype=torch.float32)
     with torch.inference_mode():
         flats = model.encode(torch.tensor(grid)).flats
     # a level of one channel or one voxel lies channels-last already
@@ -418,6 +475,22 @@ def test_evaluate_points_stages_the_pyramid_once(bands):
     assert stage_channels_last.copies == before + staged
     ref = evaluate_points(model, grid, pts, use_kernel=False)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bands", [None, 4])
+def test_evaluate_points_stages_the_bf16_pyramid_once(bands):
+    """In bf16 both kernel routes stage the pyramid rounded to bf16 and
+    channels-last once a call (the C = 1 level needs no copy), and then read
+    those views in every tile without another staging copy."""
+    model = IFNet(IFNetConfig.for_net_res(128), generator=torch.Generator().manual_seed(7)).eval()
+    rng = np.random.default_rng(8)
+    grid = rng.uniform(0, 1, (1, 17, 16, 18, 1)).astype(np.float32)
+    pts = rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
+    before = stage_channels_last.copies
+    got = evaluate_points(model, grid, pts, tile_points=100, use_kernel=True, bands=bands)
+    assert stage_channels_last.copies == before + 4
+    ref = evaluate_points(model, grid, pts, use_kernel=False)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda
@@ -550,9 +623,16 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     ref = level_features_banded_plain(flat, *p, *args)
     assert got.dtype == torch.bfloat16
     assert _k5_within_one_ulp(got, ref), float((got.float() - ref.float()).abs().max())
+    # a bf16 level (the bf16 point query's), channel-major or staged, is read
+    # as it is: the features of its exact f32 values
+    flat16 = flat.to(torch.bfloat16)
+    ref16 = level_features_banded_plain(flat16, *p, *args)
+    got16 = level_features_banded_cuda(flat16, *p, *args)
+    assert _k5_within_one_ulp(got16, ref16)
+    assert torch.equal(level_features_banded_cuda(flat16.float(), *p, *args), got16)
     torch.cuda.synchronize()
     assert [level_fc0_cuda.launches, level_features_banded_cuda.launches] == [
-        counts[0] + 2, counts[1] + 1]
+        counts[0] + 2, counts[1] + 3]
     with pytest.raises(NotImplementedError):
         level_fc0_cuda(flat.clone().requires_grad_(), w0l, *p, *args)
     with pytest.raises(NotImplementedError):
@@ -580,8 +660,14 @@ def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_points_and_unfused_sweep_on_card_match_cpu(net_res, dims, cuda_device):
-    """evaluate_points on the card through K6 (bands="auto"), K4 (bands=None)
-    and the gather path against the CPU's plain run: 1e-5 on the sigmoid;
+    """evaluate_points on the card in float32 through K6 (bands="auto"), K4
+    (bands=None) and the gather path against the CPU's plain run: 1e-5 on
+    the sigmoid; in bf16 (the default) through K6 bf16 and K5 against the
+    CPU port's bf16 routes (their plain versions): chip_smoke.py's
+    POINTS_BF16_CARD_TOL on the sigmoid and POINTS_BF16_REL_MEAN_TOL of the
+    mean |logit| on the mean logit difference, a limit that the card's f32
+    route and the CPU's bf16 route with its tail in f32 fail
+    (points_card_vs_cpu);
     query_lattice(fused_tail=False) through K3 against K2 in the same
     compute dtype: at float32 atol 1e-4 on logits; at bfloat16 (both round
     the levels, features and fc0 to bf16, only K2 its hidden activations)
@@ -591,9 +677,20 @@ def test_points_and_unfused_sweep_on_card_match_cpu(net_res, dims, cuda_device):
     grid = (np.random.default_rng(1).uniform(0, 1, (1, *dims, 1)) > 0.9).astype(np.float32)
     pts = np.random.default_rng(2).uniform(-0.55, 0.55, (1000, 3)).astype(np.float32)
     ref = evaluate_points(cpu_model, grid, pts, tile_points=384, use_kernel=False)
-    for kw in (dict(), dict(bands=None), dict(use_kernel=False)):
+    f32 = torch.float32
+    for kw in (dict(compute_dtype=f32), dict(bands=None, compute_dtype=f32),
+               dict(use_kernel=False)):
         got = evaluate_points(card, grid, pts, tile_points=384, **kw)
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    res = smoke["points_card_vs_cpu"](card, cpu_model, grid, pts, 384)
+    for name, (a, m) in res["routes"].items():
+        if "bf16" in name:
+            assert a <= smoke["POINTS_BF16_CARD_TOL"], (name, a)
+            assert m <= smoke["POINTS_BF16_REL_MEAN_TOL"], (name, m)
+        else:
+            assert a <= 1e-5, (name, a)
+    assert min(res["wrong"].values()) > smoke["POINTS_BF16_REL_MEAN_TOL"], res["wrong"]
     with torch.inference_mode():
         levels = card.encode(torch.tensor(grid, device=cuda_device))
         for dtype in (torch.float32, torch.bfloat16):
@@ -641,3 +738,137 @@ def test_grad_points_reads_the_saved_channels_last_copy_on_card(c, cuda_device):
     torch.cuda.synchronize()
     assert stage_channels_last.copies == before
     assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
+@pytest.mark.parametrize("c", FEATURE_CHANNELS)
+def test_grad_vol_paths_and_layout_on_card(ac, disp, c, cuda_device):
+    """K8 against its plain version, both conventions, B = 2, points partly
+    outside the volume, 1e-5 of the largest plain magnitude (atomics in
+    run-dependent order), on a small level, a larger one and the 336-voxel
+    one of the full-width pyramid (the most contended); the gradient lies
+    channels-last, (B, C, G) with strides (G C, 1, C); through autograd it
+    reaches a leaf level."""
+    rng = np.random.default_rng(400 + c)
+    for dims in ((12, 9, 10), (40, 30, 30), (8, 6, 7)):
+        gsize = dims[0] * dims[1] * dims[2]
+        p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32),
+                          device=cuda_device) for _ in range(3)]
+        g = torch.tensor(rng.standard_normal((2, 333, 7 * c)).astype(np.float32),
+                         device=cuda_device)
+        args = (dims, ac, disp)
+        ref = level_grad_vol_plain(*p, g, *args)
+        before = level_grad_vol_cuda.launches
+        got = level_grad_vol_cuda(*p, g, *args)
+        torch.cuda.synchronize()
+        assert level_grad_vol_cuda.launches == before + 1
+        assert got.shape == (2, c, gsize) and got.stride() == (gsize * c, 1, c)
+        assert _rel_err(got, ref) <= 1e-5, dims
+        flat = torch.tensor(rng.standard_normal((2, c, gsize)).astype(np.float32),
+                            device=cuda_device).requires_grad_()
+        (level_features(flat, *p, *args) * g).sum().backward()
+        assert _rel_err(flat.grad, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ac,disp", [(False, 0.0722), (True, 0.035)])
+@pytest.mark.parametrize("c,h", [(1, 256), (16, 512), (32, 256), (64, 256), (128, 256),
+                                 (128, 512)])
+def test_level_fc0_bf16_kernel_matches_plain_on_card(ac, disp, c, h, cuda_device):
+    """K6 bf16 against its plain bf16 version (level_fc0_plain(...,
+    torch.bfloat16)), alone and adding into a buffer: max |error| within
+    chip_smoke.py's K6_BF16_TOL of the largest |partial| and mean |error|
+    within K6_BF16_REL_MEAN_TOL of the mean |partial|, a limit that the plain
+    version with a rounding point left out fails.  The level as an f32 flat
+    (the wrapper rounds and stages it) and as a staged bf16 channels-last
+    view (read as it is) give the same partial.  It raises under autograd
+    and for channel counts it does not take."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    rng = np.random.default_rng(c + h)
+    dims = (19, 13, 14)
+    flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
+                        device=cuda_device)
+    w0l = torch.tensor((rng.standard_normal((7 * c, h)) / np.sqrt(7 * c)).astype(np.float32),
+                       device=cuda_device)
+    p = [torch.tensor(rng.uniform(-1.2, 1.2, (2, 333)).astype(np.float32), device=cuda_device)
+         for _ in range(3)]
+    args = (dims, ac, disp)
+    w0k = fc0_block_bf16(w0l)
+    ref = level_fc0_plain(flat, w0l, *p, *args, torch.bfloat16)
+    before = level_fc0_bf16_cuda.launches
+    got = level_fc0_bf16_cuda(flat, w0k, *p, *args)
+    level = stage_channels_last(flat.to(torch.bfloat16)).transpose(1, 2)
+    copies = stage_channels_last.copies
+    assert torch.equal(level_fc0_bf16_cuda(level, w0k, *p, *args), got)
+    assert stage_channels_last.copies == copies
+    acc = torch.randn((2, 333, h), device=cuda_device)
+    summed = level_fc0_bf16_cuda(level, w0k, *p, *args, out=acc.clone())
+    torch.cuda.synchronize()
+    assert level_fc0_bf16_cuda.launches == before + 3
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    assert _rel_err(got, ref) <= smoke["K6_BF16_TOL"]
+    assert smoke["rel_mean_err"](got, ref) <= smoke["K6_BF16_REL_MEAN_TOL"]
+    assert _rel_err(summed - acc, ref) <= smoke["K6_BF16_TOL"]
+    for skip in ("level", "feature", "partial"):
+        wrong = smoke["plain_bf16_fc0"](flat, w0l, p, *args, skip=(skip,))
+        assert smoke["rel_mean_err"](wrong, ref) > smoke["K6_BF16_REL_MEAN_TOL"], skip
+    with pytest.raises(NotImplementedError):
+        level_fc0_bf16_cuda(flat.clone().requires_grad_(), w0k, *p, *args)
+    three = torch.zeros((2, 3, 19 * 13 * 14), device=cuda_device)
+    with pytest.raises(ValueError):
+        level_fc0_bf16_cuda(three, fc0_block_bf16(w0l[:21]), *p, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_mlp_kernel_bf16_matches_plain_on_card(net_res, cuda_device):
+    """K3 with compute_dtype bfloat16 (features and weights rounded by the
+    wrapper, each ReLU output in the kernel) against its plain bf16 version:
+    atol chip_smoke.py's K3_BF16_TOL on logits (a hidden activation may round
+    the other way of a bf16 boundary) and mean |error| within
+    K3_BF16_REL_MEAN_TOL of the mean |logit|, a limit that the plain bf16
+    decoder with its hidden rounding left out fails."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    model = IFNet(IFNetConfig.for_net_res(net_res), device=cuda_device,
+                  generator=torch.Generator().manual_seed(net_res)).eval()
+    weights = [t.detach() for layer in model.mlp for t in layer]
+    f = torch.tensor(np.random.default_rng(net_res).standard_normal(
+        (model.feature_size, 1001)).astype(np.float32), device=cuda_device)
+    before = fused_point_mlp.launches
+    got = fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_point_mlp.launches == before + 1
+    ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(got, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
+    tol = smoke["K3_BF16_REL_MEAN_TOL"]
+    assert smoke["rel_mean_err"](got, ref) <= tol
+    wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("hidden",))
+    assert smoke["rel_mean_err"](wrong, ref) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stale_plan_raises_on_card(dtype, cuda_device):
+    """A plan on CUDA levels refuses another pyramid and weights changed in
+    place after it was made; it keeps sweeping its own copies; a fresh plan
+    sweeps the new weights."""
+    cfg, model, levels = _encoded(32, (12, 9, 10), cuda_device)
+    r = (12, 9, 10)
+    with torch.inference_mode():
+        plan = model.sweep_plan(levels, r, 1, dtype)
+        before = model.query_lattice(levels, r, 1, 12, 0, dtype, plan=plan)
+        other = model.encode(torch.zeros((1, *r, 1), device=cuda_device))
+        with pytest.raises(ValueError, match="stale"):
+            model.query_lattice(other, r, 1, 12, 0, dtype, plan=plan)
+    with torch.no_grad():
+        model.fc1.weight.mul_(1.5)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="stale"):
+            model.query_lattice(levels, r, 1, 12, 0, dtype, plan=plan)
+        assert torch.equal(lattice_sweep(plan, 12, 0), before)
+        fresh = model.query_lattice(levels, r, 1, 12, 0, dtype)
+        want = lattice_sweep_plain(levels, model.mlp, r, 12, 0, cfg.align_corners,
+                                   cfg.displacement, dtype)
+    torch.testing.assert_close(fresh, want, atol=K2_BF16_ATOL, rtol=0)
+    assert not torch.equal(fresh, before)

@@ -8,7 +8,9 @@ in another order than XLA's: atol 1e-4 on features and logits (the port's
 sweep at compute_dtype=torch.float32).  Against JAX's default bf16 sweep the
 bound is the JAX package's own mixed-precision one, atol 2e-2 on sigmoid
 (tests/test_pallas_sweep.py), for the port's f32 sweep and for its bf16
-sweep (the default, fused and unfused).  The port's point
+sweep (the default, fused and unfused); the port's unfused bf16 sweep (K3 in
+bf16) against JAX's unfused bf16 sweep at 2e-3.  A sweep plan refuses
+levels or weights other than those it was made from.  The port's point
 queries (the gather path and the f32 fused path) are held to JAX's exact
 query() at 1e-5, and to JAX's bf16 fused path by gradient cosine > 0.98
 (tests/test_pallas_query_bwd.py)."""
@@ -119,8 +121,11 @@ def test_query_lattice_bf16_matches_jax_bf16_sweeps(case, fused_tail):
     """The port's bf16 sweep (the default compute_dtype), fused (K2's plain
     version) and unfused (fused_tail=False), against JAX's bf16 sweep fused
     (Pallas, interpret) and unfused: atol 2e-2 on the sigmoid, the JAX
-    package's own bound (tests/test_pallas_sweep.py).  An interior slab and
-    the last slab of 5, past the lattice end."""
+    package's own bound (tests/test_pallas_sweep.py); unfused against
+    unfused, both rounding levels, features, weights and hidden activations
+    to bf16 (the port's K3 in bf16), atol 2e-3 (measured up to 7.7e-4: JAX's
+    resizes round after each axis, the port's feature once).  An interior
+    slab and the last slab of 5, past the lattice end."""
     dims, jm, variables, tm, jlev, tlev = case
     r0 = 2 * dims[0]
     sig = lambda x: 1.0 / (1.0 + np.exp(-np.asarray(x, np.float64)))
@@ -130,7 +135,8 @@ def test_query_lattice_bf16_matches_jax_bf16_sweeps(case, fused_tail):
         assert got.shape == (1, slab, 2 * dims[1], 2 * dims[2]) and np.isfinite(got).all()
         for jax_fused in (True, False):
             ref = _jax_sweep(jm, variables, jlev, dims, slab, off, fused_tail=jax_fused)
-            np.testing.assert_allclose(sig(got), sig(ref), atol=2e-2,
+            atol = 2e-3 if not (fused_tail or jax_fused) else 2e-2
+            np.testing.assert_allclose(sig(got), sig(ref), atol=atol,
                                        err_msg=f"jax fused_tail={jax_fused} {slab}+{off}")
 
 
@@ -151,6 +157,63 @@ def test_cpu_levels_take_the_plain_sweep():
         assert (lattice_sweep_f32_cuda.launches, lattice_sweep_bf16_cuda.launches) == before
         with pytest.raises(ValueError):
             tm.query_lattice(lev, (12, 9, 10), 1, 3, 4, torch.float32, plan=plan)
+
+
+def _plan_case(dtype):
+    cfg, grid, _, _, tm = _models(*CASES[1])
+    with torch.inference_mode():
+        lev = tm.encode(torch.tensor(grid))
+        plan = tm.sweep_plan(lev, (12, 9, 10), 1, dtype)
+    return tm, lev, plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stale_plan_raises_after_an_in_place_weight_update(dtype):
+    """query_lattice(plan=) after an in-place update of a weight the plan was
+    made from raises ValueError; the plan itself holds copies, so its own
+    field is the one from before the update."""
+    tm, lev, plan = _plan_case(dtype)
+    with torch.inference_mode():
+        before = tm.query_lattice(lev, (12, 9, 10), 1, 12, 0, dtype, plan=plan)
+    with torch.no_grad():
+        tm.fc1.weight.mul_(1.5)
+    with torch.inference_mode(), pytest.raises(ValueError, match="stale"):
+        tm.query_lattice(lev, (12, 9, 10), 1, 12, 0, dtype, plan=plan)
+    with torch.inference_mode():
+        assert torch.equal(lattice_sweep(plan, 12, 0), before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_from_another_pyramid_raises(dtype):
+    """A plan made from one pyramid refuses another one, even of the same
+    shapes, and a level list of another length."""
+    tm, lev, plan = _plan_case(dtype)
+    with torch.inference_mode():
+        other = tm.encode(torch.zeros((1, 12, 9, 10, 1)))
+        for levels in (other, list(lev)[:-1]):
+            with pytest.raises(ValueError, match="stale"):
+                tm.query_lattice(levels, (12, 9, 10), 1, 12, 0, dtype, plan=plan)
+        tm.query_lattice(lev, (12, 9, 10), 1, 12, 0, dtype, plan=plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fresh_plan_gives_the_updated_field(dtype):
+    """After an in-place weight update a new plan gives the updated weights'
+    field: the plain sweep's on the new weights, and not the old field."""
+    tm, lev, plan = _plan_case(dtype)
+    cfg = tm.config
+    with torch.inference_mode():
+        old = lattice_sweep(plan, 12, 0)
+    with torch.no_grad():
+        tm.fc0.bias.add_(0.25)
+        tm.fc2.weight.mul_(-1.0)
+    with torch.inference_mode():
+        fresh = tm.sweep_plan(lev, (12, 9, 10), 1, dtype)
+        got = tm.query_lattice(lev, (12, 9, 10), 1, 12, 0, dtype, plan=fresh)
+        want = lattice_sweep_plain(lev, tm.mlp, (12, 9, 10), 12, 0, cfg.align_corners,
+                                   cfg.displacement, dtype)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, old)
 
 
 def test_point_queries_match_jax_query(case):

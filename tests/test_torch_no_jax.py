@@ -66,11 +66,13 @@ SLICE = BLOCK + textwrap.dedent("""
     grid = torch.tensor(np.random.default_rng(0).uniform(0, 1, (1, 9, 7, 8, 1)), dtype=torch.float32)
     values = evaluate_on_grid(model, grid, (9, 7, 8))
     pts = np.random.default_rng(1).uniform(-0.5, 0.5, (100, 3))
-    routes = [evaluate_points(model, grid, pts, 64, use_kernel=True, bands=b) for b in (None, 4)]
+    routes = [evaluate_points(model, grid, pts, 64, use_kernel=True, bands=b, compute_dtype=dt)
+              for dt in (torch.float32, torch.bfloat16) for b in (None, 4)]
     print(json.dumps({
         "shape": list(values.shape), "finite": bool(np.isfinite(values).all()),
         "points": [list(r.shape) for r in routes],
-        "agree": bool(np.abs(routes[0] - routes[1]).max() <= 1e-5),
+        "agree": bool(np.abs(routes[0] - routes[1]).max() <= 1e-5)
+                 and bool(np.abs(routes[2] - routes[3]).max() <= 1e-3),
         "loaded": loaded_forbidden(),
     }))
 """)
@@ -109,7 +111,7 @@ def test_port_imports_and_serves_without_jax():
     proc = _run(SLICE, ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"shape": [9, 7, 8], "finite": True, "points": [[100], [100]],
+    assert out == {"shape": [9, 7, 8], "finite": True, "points": [[100]] * 4,
                    "agree": True, "loaded": []}
 
 

@@ -3,9 +3,11 @@ on the CPU.
 
 The plain versions of kernels K6 (level_fc0), K5 (level_features_banded) and
 K3 (fused_point_mlp) against the JAX package's exact math (1e-5) and against
-its Pallas kernels in interpret mode (its own bf16 bounds, 2e-2);
-IFNet.query_lattice(fused_tail=False) and evaluate_points against JAX's; the
-inference-only kernels raise under autograd.  The JAX Pallas kernels run at
+its Pallas kernels in interpret mode (its own bf16 bounds, 2e-2; K6's and
+K3's bf16 modes, the JAX kernels' class, at the tighter bounds measured
+here); IFNet.query_lattice(fused_tail=False) and evaluate_points against
+JAX's, in f32 and in bf16; evaluate_points on no points; the inference-only
+kernels raise under autograd.  The JAX Pallas kernels run at
 the tiny dims of its own kernel tests, (19, 13, 14), (17, 16, 18) and
 (10, 9, 8)."""
 
@@ -31,7 +33,12 @@ from sv3d_tpu_torch.convert import from_flax
 from sv3d_tpu_torch.inference.dense_grid import evaluate_points
 from sv3d_tpu_torch.models.ifnet import IFNet
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
-from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_cuda, level_features_banded_cuda
+from sv3d_tpu_torch.ops.cuda.point_query import (
+    fc0_block_bf16,
+    level_fc0_bf16_cuda,
+    level_fc0_cuda,
+    level_features_banded_cuda,
+)
 from sv3d_tpu_torch.ops.grid_sample import Pyramid
 from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
 from sv3d_tpu_torch.ops.point_query import level_fc0_plain, level_features_banded_plain
@@ -107,6 +114,36 @@ def test_level_fc0_plain_matches_jax_banded_kernel(ac, disp):
 
 
 @pytest.mark.parametrize("ac,disp", CONVENTIONS)
+def test_level_fc0_bf16_plain_matches_jax_banded_kernel(ac, disp):
+    """K6's plain version in bf16 (compute_dtype=torch.bfloat16: the level,
+    each feature, the block and the partial rounded to bf16) against JAX's
+    level_fc0_banded in interpret mode, un-bucketed: 1e-2 of the largest
+    |partial| (measured 6.3e-3; the JAX kernel also rounds its axis-0/1 hat
+    weights and the pencil to bf16).  The wrapper's CPU route is the plain
+    version on fc0_block_bf16's operand."""
+    c, h = 16, 128
+    vol, pts, flat, p = _level(c, 3)
+    w0l = (np.random.default_rng(6).standard_normal((7 * c, h)) / np.sqrt(7 * c)).astype(
+        np.float32)
+    q0, q1, q2, pos, tile_slab, tile_band, tile_used = _bucketed(pts, ac)
+    out = level_fc0_banded(jnp.asarray(vol), jnp.asarray(w0l, jnp.bfloat16), q0, q1, q2,
+                           tile_slab, tile_band, tile_used, DIMS, DIMS[0], DIMS[1], ac, disp,
+                           4, interpret=True)
+    ref = _unbucket(out, pos)
+    got = level_fc0_plain(flat, torch.tensor(w0l), *p, DIMS, ac, disp, torch.bfloat16)
+    assert _rel(got.numpy(), ref) <= 1e-2
+    # every partial is a bf16 value
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    before = level_fc0_bf16_cuda.launches
+    w0k = fc0_block_bf16(torch.tensor(w0l))
+    assert w0k.dtype == torch.bfloat16 and w0k.shape == (7 * c, h)
+    assert torch.equal(level_fc0_bf16_cuda(flat, w0k, *p, DIMS, ac, disp), got)
+    acc = torch.ones((2, 200, h))
+    assert torch.equal(level_fc0_bf16_cuda(flat, w0k, *p, DIMS, ac, disp, out=acc), got + 1.0)
+    assert level_fc0_bf16_cuda.launches == before
+
+
+@pytest.mark.parametrize("ac,disp", CONVENTIONS)
 def test_level_features_banded_plain_matches_jax_kernel(ac, disp):
     """K5's plain version against JAX's level_features_banded (interpret
     mode), un-bucketed: 2e-2 relative to max(|ref|, 1), the bf16 class of
@@ -153,6 +190,26 @@ def test_fused_point_mlp_plain_matches_jax_kernel(n_feat, h0):
     before = fused_point_mlp.launches
     np.testing.assert_array_equal(
         fused_point_mlp(torch.tensor(f), *map(torch.tensor, ws)).numpy(), got)
+    assert fused_point_mlp.launches == before
+
+
+@pytest.mark.parametrize("n_feat,h0", [(2583, 256), (2247, 512)])
+def test_fused_point_mlp_bf16_plain_matches_jax_kernel(n_feat, h0):
+    """K3's plain version in bf16 (the features, the weights and each ReLU
+    output rounded to bf16, as JAX's fused_point_mlp rounds them) against
+    JAX's kernel in interpret mode: atol 2e-3 on logits up to ~0.8 (measured
+    9.0e-4; the f32 version is 4.8e-3 off); the wrapper's CPU route is the
+    plain version."""
+    ws = _mlp_weights(n_feat, h0, n_feat)
+    f = np.random.default_rng(1).standard_normal((n_feat, 1024)).astype(np.float32)
+    ref = np.asarray(j_fused_point_mlp(jnp.asarray(f), *map(jnp.asarray, ws), tile=1024,
+                                       interpret=True))
+    args = (torch.tensor(f), *map(torch.tensor, ws))
+    got = fused_point_mlp_plain(*args, compute_dtype=torch.bfloat16).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-3)
+    before = fused_point_mlp.launches
+    np.testing.assert_array_equal(
+        fused_point_mlp(*args, compute_dtype=torch.bfloat16).numpy(), got)
     assert fused_point_mlp.launches == before
 
 
@@ -214,9 +271,10 @@ def test_evaluate_points_matches_jax(net_res, dims):
                               use_pallas=False)
     banded = j_evaluate_points(jm, variables, jnp.asarray(grid), pts, tile_points=300,
                                use_pallas=True, bands=4)
+    f32 = torch.float32
     for tile in (128, 1000):
-        for kw in (dict(use_kernel=False), dict(use_kernel=True, bands=None),
-                   dict(use_kernel=True, bands=4)):
+        for kw in (dict(use_kernel=False), dict(use_kernel=True, bands=None, compute_dtype=f32),
+                   dict(use_kernel=True, bands=4, compute_dtype=f32)):
             got = evaluate_points(tm, torch.tensor(grid), pts, tile_points=tile, **kw)
             assert got.shape == (300,) and got.dtype == np.float32
             np.testing.assert_allclose(got, exact, atol=1e-5, rtol=0, err_msg=f"{tile} {kw}")
@@ -224,6 +282,44 @@ def test_evaluate_points_matches_jax(net_res, dims):
     # CPU default: the gather path
     np.testing.assert_array_equal(evaluate_points(tm, grid, pts, tile_points=128),
                                   evaluate_points(tm, grid, pts, 128, use_kernel=False))
+
+
+@pytest.mark.parametrize("bands", [4, None])
+@pytest.mark.parametrize("net_res,dims", [(32, (10, 9, 8)), (128, (17, 16, 18))])
+def test_evaluate_points_bf16_matches_jax(net_res, dims, bands):
+    """The port's bf16 kernel routes (the default compute_dtype: K6 bf16 for
+    bands=4, K5 and a bf16 matmul for bands=None, their plain versions on the
+    CPU) against JAX's evaluate_points(use_pallas=True) with the same bands
+    (its Pallas kernels in interpret mode): 1e-3 on the sigmoid (measured up
+    to 3.6e-4; JAX's own bf16 routes are 4.6e-4 from its exact path).  Both
+    port routes stay within 1e-3 of the exact gather path too."""
+    grid, jm, variables, tm = _models(net_res, dims, seed=1)
+    pts = np.random.default_rng(2).uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
+    ref = j_evaluate_points(jm, variables, jnp.asarray(grid), pts, tile_points=300,
+                            use_pallas=True, bands=bands)
+    exact = evaluate_points(tm, grid, pts, use_kernel=False)
+    got = evaluate_points(tm, torch.tensor(grid), pts, tile_points=128, use_kernel=True,
+                          bands=bands)
+    assert got.shape == (300,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got, exact, atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got, evaluate_points(
+        tm, grid, pts, tile_points=128, use_kernel=True, bands=bands,
+        compute_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("kw", [dict(use_kernel=False), dict(bands=None),
+                                dict(bands=4), dict(bands=None, compute_dtype=torch.float32),
+                                dict(bands=4, compute_dtype=torch.float32)],
+                         ids=["gather", "K5-bf16", "K6-bf16", "K4-f32", "K6-f32"])
+def test_evaluate_points_on_no_points(kw):
+    """M = 0 gives an empty (0,) float32 array on every route, as JAX's
+    evaluate_points does (its map over zero tiles)."""
+    grid, _, _, tm = _models(32, (10, 9, 8), seed=5)
+    kw = dict(use_kernel=True, **kw) if "use_kernel" not in kw else kw
+    for pts in (np.zeros((0, 3), np.float32), []):
+        got = evaluate_points(tm, grid, pts, **kw)
+        assert got.shape == (0,) and got.dtype == np.float32
 
 
 def test_inference_only_kernels_raise_under_autograd():
@@ -242,6 +338,11 @@ def test_inference_only_kernels_raise_under_autograd():
         level_features_banded_cuda(flat, *p, dims, True, 0.035)
     with pytest.raises(NotImplementedError, match="bands=None"):
         level_fc0_cuda(flat.detach(), tm.fc0_blocks()[1], *p, dims, True, 0.035)
+    with pytest.raises(NotImplementedError, match="bands=None"):
+        level_fc0_bf16_cuda(flat.detach(), tm.fc0_blocks()[1], *p, dims, True, 0.035)
+    for bands in (4, None):
+        with pytest.raises(NotImplementedError, match="bands=None"):
+            tm.query_fused(levels, pts, bands, compute_dtype=torch.bfloat16)
     q = pts.clone().requires_grad_()
     tm.query_fused(levels, q).sum().backward()
     assert q.grad is not None and float(q.grad.abs().sum()) > 0
