@@ -27,7 +27,13 @@ that each ran its kernels:
             points, fused_query: kernels K1, K1b (scatter backward), K4
             (point features), K7 and K8 (their backward).
 
-K5 is also held against its plain version at the training path's shapes.
+K1 and K1b are held against their plain versions on a uniform random
+depth per pixel, on the rendered box scene of the training data and on a
+degenerate input whose every warp adds to one voxel, and timed at B=1 and
+B=4 (per call, and device time by part from torch.profiler) beside the
+F.grid_sample call that computes each and the global atomics that K1
+issues.  K5 is also held against its plain version at the training path's
+shapes.
 K4 and K5 read a channels-last copy of each level that their wrappers
 stage (evaluate_points stages its pyramid once a call, rounded to bf16 on
 the bf16 routes); the script times the staging and the kernels apart, at
@@ -102,6 +108,10 @@ TRAIN_KERNEL_RTOL = {"K1b": 1e-5, "K4": 1e-5, "K7": 1e-5, "K8": 1e-5}
 # step either way and are held to 2 * lr, the others to 1e-3 * lr plus 1e-4
 # relative.
 STEP_RTOL = 1e-4
+# the warm train step's peak device memory when the scatter's wrapper kept
+# its raw grid for the backward (max_memory_allocated on an NVIDIA H100 80GB
+# HBM3, 700.00 W, with one K1b check grid and cotangent of this script held)
+PEAK_RAW_GRID_MIB = 5343.5
 STEP_GRAD_RTOL = 1e-2
 GRID_GRAD_RTOL = 2e-2
 # The biases of the UNetMini convs that feed a train-mode BatchNorm: their
@@ -193,6 +203,21 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 51) -> float:
+    """Median host-clock milliseconds that one call of fn takes to return
+    (the wrapper's Python and its launches; the device is synchronised
+    between calls, outside the timed region)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     """(max abs error, max abs error / max(1e-30, max |ref|))."""
     err = float((got - ref).abs().max())
@@ -241,24 +266,15 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     for split in ("train", "val"):
         write_split(root, "overfit", split, [item])
 
-    intr = parse_intrinsics(INTRINSICS)
-    u = np.arange(320, dtype=np.float64)[None, :]
-    v = np.arange(240, dtype=np.float64)[:, None]
-    # ray directions with planar depth 1 (camera y is up: rows grow down)
-    dirs = np.stack(np.broadcast_arrays((u - intr.cx) / intr.focal_length,
-                                        -(v - intr.cy) / intr.focal_length, 1.0), axis=-1)
-    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
-    with np.errstate(divide="ignore", invalid="ignore"):
-        t_lo, t_hi = lo / dirs, hi / dirs
-    t_near = np.minimum(t_lo, t_hi).max(axis=-1)
-    t_far = np.maximum(t_lo, t_hi).min(axis=-1)
-    depth = np.where((t_near <= t_far) & (t_near > 0), t_near, WALL_Z)
+    depth, dirs = box_scene_depth()
     write_exr(raw / "distance.exr",
               {"R": (depth * np.linalg.norm(dirs, axis=-1)).astype(np.float32)})
     shade = np.clip(1.1 - depth / WALL_Z, 0.0, 1.0)[..., None] * np.array([0.9, 0.7, 0.5])
     shade = shade + 0.05 * rng.standard_normal(shade.shape)
     Image.fromarray((np.clip(shade, 0, 1) * 255).astype(np.uint8)).save(raw / "rgb.png")
 
+    intr = parse_intrinsics(INTRINSICS)
+    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
     dims = Config(seed=seed, scale_factor=scale_factor).dims
     c2f = np.asarray(FrustumGrid.create(intr, voxel_size=0.05 * scale_factor).camera2frustum)
     corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
@@ -274,6 +290,183 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
         np.savez(proc / f"occupancy_{sigma}.npz", points=pts.astype(np.float32),
                  occupancies=occ[0])
     return root
+
+
+def box_scene_depth() -> tuple:
+    """The one-scene dataset's view: the planar depth (240, 320) of BOX
+    before a wall at WALL_Z, rendered exactly (ray-box distances), and the
+    ray directions of planar depth 1 (240, 320, 3)."""
+    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
+
+    intr = parse_intrinsics(INTRINSICS)
+    u = np.arange(320, dtype=np.float64)[None, :]
+    v = np.arange(240, dtype=np.float64)[:, None]
+    # camera y is up: rows grow down
+    dirs = np.stack(np.broadcast_arrays((u - intr.cx) / intr.focal_length,
+                                        -(v - intr.cy) / intr.focal_length, 1.0), axis=-1)
+    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_lo, t_hi = lo / dirs, hi / dirs
+    t_near = np.minimum(t_lo, t_hi).max(axis=-1)
+    t_far = np.maximum(t_lo, t_hi).min(axis=-1)
+    return np.where((t_near <= t_far) & (t_near > 0), t_near, WALL_Z), dirs
+
+
+# K1's inputs: a depth map per image, (B, 240, 320) metres
+DEPTHS = {
+    # uniform per pixel: no spatial coherence, the worst case of K1's combine
+    "random": lambda b, rng: rng.uniform(0.4, 6.0, (b, 240, 320)),
+    # write_smoke_dataset's rendered scene
+    "box": lambda b, rng: np.broadcast_to(box_scene_depth()[0], (b, 240, 320)),
+    # a wall at 3 m: every lane of a warp in one or two voxels (the tests' case)
+    "plane": lambda b, rng: np.full((b, 240, 320), 3.0),
+}
+
+
+def k1_points(model, kind: str, b: int, rng, outside: int = 4096) -> torch.Tensor:
+    """K1's points at the main path's shape: the (b, 76800, 3) cloud that
+    model.project_depth makes of a DEPTHS[kind] map, then `outside` uniform
+    points in [-0.7, 0.7]^3 an image, most of them dropped at the border."""
+    dev = next(model.parameters()).device
+    depth = torch.tensor(np.ascontiguousarray(DEPTHS[kind](b, rng), dtype=np.float32), device=dev)
+    with torch.no_grad():
+        pc = model.project_depth(depth)
+    extra = torch.tensor(rng.uniform(-0.7, 0.7, (b, outside, 3)).astype(np.float32), device=dev)
+    return torch.cat([pc, extra], dim=1).contiguous()
+
+
+def _base_voxels(points: torch.Tensor, dims, eps: float = 1e-6) -> tuple:
+    """The scatter's view of (B, N, 3) points, in the kernels' f32
+    arithmetic (bounds rounded to f32): which of the B * N points it keeps,
+    and each kept point's sample and base voxel floor((p + 0.5)(d - 1)), a
+    (B * N,) mask, a (K,) index and three (K,) indices."""
+    flat = points.reshape(-1, 3)
+    kept = ((flat > -0.5 + eps) & (flat < 0.5 - eps)).all(dim=-1)
+    batch = (torch.arange(flat.shape[0], device=flat.device) // points.shape[1])[kept]
+    base = [torch.floor((flat[kept, a] + 0.5) * (d - 1.0)).long() for a, d in enumerate(dims)]
+    return kept, batch, base
+
+
+def k1_atomics(points: torch.Tensor, dims, eps: float = 1e-6) -> tuple:
+    """The global atomics that K1 issues on these (B, N, 3) points: one a
+    (warp, base voxel, in-range corner), a warp being 32 consecutive points
+    of the flattened (B * N) list as the kernel's threads take them; and the
+    old kernel's, one a (kept point, in-range corner)."""
+    kept, batch, i = _base_voxels(points, dims, eps)
+    corners = math.prod((1 + (ia + 1 < d).long()) for ia, d in zip(i, dims))
+    key = ((batch * dims[0] + i[0]) * dims[1] + i[1]) * dims[2] + i[2]
+    warp = torch.nonzero(kept)[:, 0] // 32
+    _, first = np.unique(torch.stack([warp, key], dim=1).cpu().numpy(), axis=0,
+                         return_index=True)
+    return int(corners[torch.as_tensor(first, device=key.device)].sum()), int(corners.sum())
+
+
+def degenerate_points(dims, n: int, rng, voxels: int = 64) -> np.ndarray:
+    """(1, n, 3) points in which the 32 lanes of each warp share one base
+    voxel (K1's combine sums all 32), drawn from `voxels` voxels so that
+    many warps add to each, at fractions in [0.05, 0.95] inside it."""
+    warps = -(-n // 32)
+    pick = rng.integers(0, voxels, warps)
+    base = np.stack([rng.integers(0, d - 1, voxels) for d in dims], axis=-1)[pick]
+    g = np.repeat(base, 32, axis=0)[:n] + rng.uniform(0.05, 0.95, (n, 3))
+    return (g / (np.asarray(dims) - 1.0) - 0.5)[None].astype(np.float32)
+
+
+def k1_raw_tol(points: torch.Tensor, dims, eps: float = 1e-6) -> float:
+    """The bound on K1's raw sums against the plain scatter's, relative to
+    the largest sum: a sum of k nonnegative f32 terms is off its exact value
+    by at most ~k 2^-24 of itself in any order, and the two sides add in
+    different orders: 2 k 2^-24 with k the most contributions of this run's
+    points to one voxel."""
+    _, batch, i = _base_voxels(points, dims, eps)
+    lin = torch.stack([((batch * dims[0] + i[0] + c0) * dims[1] + i[1] + c1) * dims[2] + i[2] + c2
+                       for c0 in (0, 1) for c1 in (0, 1) for c2 in (0, 1)])
+    k = int(torch.unique(lin, return_counts=True)[1].max()) if lin.numel() else 1
+    return 2.0 * k * 2.0 ** -24
+
+
+def scatter_library_grid(points: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """F.grid_sample's (B, 1, 1, N, 3) grid for the scatter's library
+    yardsticks: 2p with the axes reversed (x = axis 2), align_corners=True
+    (then grid_sample's index (x + 1) / 2 (d - 1) is the scatter's
+    (p + 0.5)(d - 1) in the same f32 steps), the points the scatter drops
+    moved outside, where zeros padding drops all their corners."""
+    kept = ((points > -0.5 + eps) & (points < 0.5 - eps)).all(dim=-1, keepdim=True)
+    return torch.where(kept, 2.0 * points, 4.0).flip(-1)[:, None, None].contiguous()
+
+
+def k1_library(points: torch.Tensor, dims, raw: torch.Tensor) -> tuple:
+    """K1's library yardstick: F.grid_sample's backward for the volume (C =
+    1, cotangent ones), which is the raw scatter.  Returns (CUDA-event ms of
+    the backward alone, its max difference from raw relative to max |raw|)."""
+    import torch.nn.functional as F
+
+    grid = scatter_library_grid(points)
+    with torch.enable_grad():
+        vol = torch.zeros((points.shape[0], 1, *dims), device=points.device, requires_grad=True)
+        out = F.grid_sample(vol, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+        ones = torch.ones_like(out)
+        call = lambda: torch.autograd.grad(out, vol, ones, retain_graph=True)[0]
+        err = rel_err(call()[:, 0], raw)[1]
+        return cuda_ms(call), err
+
+
+def k1b_library(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
+                ref: torch.Tensor) -> tuple:
+    """K1b's library yardstick: F.grid_sample's backward for the grid, on
+    the cotangent masked where 0 < grid < 1 (cotangent ones): half of K1b's
+    gradient with the axes reversed.  Returns (CUDA-event ms of the backward
+    alone, its difference from ref, K1b's plain result, relative to max
+    |ref|)."""
+    import torch.nn.functional as F
+
+    masked = torch.where((grid > 0.0) & (grid < 1.0), grad, 0.0)[:, None].contiguous()
+    with torch.enable_grad():
+        sgrid = scatter_library_grid(points).requires_grad_()
+        out = F.grid_sample(masked, sgrid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        ones = torch.ones_like(out)
+        call = lambda: torch.autograd.grad(out, sgrid, ones, retain_graph=True)[0]
+        err = rel_err(2.0 * call()[:, 0, 0].flip(-1), ref)[1]
+        return cuda_ms(call), err
+
+
+def k1b_bytes(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
+              eps: float = 1e-6) -> int:
+    """The least bytes K1b moves on these points: the distinct 32-byte
+    sectors of the clamped grid and of the cotangent (in its own strides)
+    that the kept points' in-range corners touch, the points in and the
+    (B, N, 3) gradient out."""
+    dims = grid.shape[1:]
+    _, batch, i = _base_voxels(points, dims, eps)
+    sectors = 0
+    for t in (grid, grad):
+        sb, s0, s1, s2 = t.stride()
+        addr = []
+        for c0, c1, c2 in itertools.product((0, 1), repeat=3):
+            a, bb, k = i[0] + c0, i[1] + c1, i[2] + c2
+            ok = (a < dims[0]) & (bb < dims[1]) & (k < dims[2])
+            addr.append((batch * sb + a * s0 + bb * s1 + k * s2)[ok])
+        sectors += int(torch.unique(torch.cat(addr) // 8).numel())  # 8 floats a sector
+    return 32 * sectors + 2 * nbytes(points)
+
+
+def device_ms(fn, parts, steps: int = 50, tries: int = 3) -> dict:
+    """Device ms a call of fn, in all and by each part of a kernel's name
+    (torch.profiler's CUDA activity over `steps` warm calls): {"all": ms,
+    part: ms}.  A window in which a part shows no device time (seen on the
+    H100: a window whose device events did not come back) is profiled
+    again, up to `tries` times; a part still without device time fails."""
+    for _ in range(tries):
+        _, _, _, events = _profile(fn, steps)
+        out = {part: sum(_dev_us(e) for e in events if part in e.key) / 1e3 / steps
+               for part in parts}
+        if all(out.values()):
+            break
+    check(all(out.values()), f"no device time for {[k for k, v in out.items() if not v]} in "
+          f"{tries} profiled windows of {steps} calls")
+    out["all"] = sum(_dev_us(e) for e in events) / 1e3 / steps
+    return out
 
 
 def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0) -> tuple:
@@ -906,6 +1099,57 @@ def points_path(served, vox, pts_np, smi) -> dict:
             "ms": timed, "bounds": bounds, "library": library}
 
 
+def k1_timings(inputs: dict, dims) -> dict:
+    """K1 on each {(kind, B): points} input: CUDA-event ms a call (median
+    of 51), the host's ms to return from it, device ms
+    by part (torch.profiler: the scatter kernel alone, the memset and the
+    clamp apart), the plain version's ms, the F.grid_sample yardstick (ms,
+    and its difference from K1's raw sums), the bound (points in, grid out;
+    8 corners of 4 flops a point) and the global atomics that K1 issues
+    beside one a corner."""
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda, scatter_voxels_raw_cuda
+    from sv3d_tpu_torch.ops.voxelize import scatter_voxels
+
+    out = {}
+    with torch.no_grad():
+        for key, p in inputs.items():
+            call = lambda p=p: scatter_voxels_cuda(p, dims)
+            dev = device_ms(call, ("scatter_voxels_kernel", "emset", "clamp_unit"))
+            lib_ms, lib_err = k1_library(p, dims, scatter_voxels_raw_cuda(p, dims))
+            out[key] = {
+                "ms": cuda_ms(call, reps=51), "host_ms": host_ms(call),
+                "plain_ms": cuda_ms(lambda p=p: scatter_voxels(p, dims)),
+                "device": dev["all"], "kernel": dev["scatter_voxels_kernel"],
+                "memset": dev["emset"], "clamp": dev["clamp_unit"],
+                "library_ms": lib_ms, "library_err": lib_err,
+                "bound": bound(nbytes(p, call()), 32.0 * p.shape[0] * p.shape[1]),
+                "atomics": k1_atomics(p, dims)}
+    return out
+
+
+def k1b_timings(args: dict) -> dict:
+    """K1b on each {kind: (points, clamped grid, cotangent)}: CUDA-event ms
+    a call (median of 51), the host's ms to return from it, device ms of
+    the kernel alone (torch.profiler), the plain version's ms, the
+    F.grid_sample yardstick (ms, and its difference from the plain result)
+    and the bound (touched sectors; 8 corners of 6 flops a point)."""
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda
+    from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd
+
+    out = {}
+    with torch.no_grad():
+        for kind, (p, grid, g) in args.items():
+            call = lambda: scatter_voxels_bwd_cuda(p, grid, g)
+            ref = scatter_voxels_bwd(p, grid, g)
+            lib_ms, lib_err = k1b_library(p, grid, g, ref)
+            out[kind] = {"ms": cuda_ms(call, reps=51), "host_ms": host_ms(call),
+                         "kernel": device_ms(call, ("scatter_voxels_bwd",))["scatter_voxels_bwd"],
+                         "plain_ms": cuda_ms(lambda: scatter_voxels_bwd(p, grid, g)),
+                         "library_ms": lib_ms, "library_err": lib_err,
+                         "bound": bound(k1b_bytes(p, grid, g), 48.0 * p.shape[0] * p.shape[1])}
+    return out
+
+
 def _counters():
     from sv3d_tpu_torch.ops.cuda import point_query, voxelize
 
@@ -914,23 +1158,27 @@ def _counters():
             "K8": point_query.level_grad_vol_cuda}
 
 
-def train_kernel_checks(model, dev, rng) -> dict:
-    """K1b, K4, K7 and K8 against their plain versions: the full-width
-    net_res 128 pyramid (every level, align_corners False) at B=4 with 4096
-    supervision + 4096 projected points, plus small dims with both
-    align_corners conventions and channel counts that take K4's scalar path,
-    its float4 path and its masked tail; K8's gradient checked to lie
-    channels-last.
+def train_kernel_checks(model, dev, rng, k1b_points: dict) -> dict:
+    """K1b, K4, K7 and K8 against their plain versions.  K1b on each of
+    k1b_points ({kind: (B, N, 3) points}), given the clamped grid of the
+    forward, with the cotangent in the strides that the blur's einsum
+    backward hands it (batch and axis 0 swapped) and contiguous.  K4, K7,
+    K8: the full-width net_res 128 pyramid (every level, align_corners
+    False) at B=4 with 4096 supervision + 4096 projected points, plus small
+    dims with both align_corners conventions and channel counts that take
+    K4's scalar path, its float4 path and its masked tail; K8's gradient
+    checked to lie channels-last.
     Returns {name: (max abs err, rel err, args)} with args the full-width
-    arguments for the timings; and K5 on the same levels, {"K5": (max abs
-    err, fraction of one bf16 ulp)}."""
+    arguments for the timings (K1b: {kind: (points, clamped grid,
+    cotangent)}); and K5 on the same levels, {"K5": (max abs err, fraction
+    of one bf16 ulp)}."""
     from sv3d_tpu_torch.ops.cuda.point_query import (
         level_features_banded_cuda,
         level_features_cuda,
         level_grad_points_cuda,
         level_grad_vol_cuda,
     )
-    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_raw_cuda
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_cuda
     from sv3d_tpu_torch.ops.point_query import (
         level_features_banded_plain,
         level_features_plain,
@@ -943,15 +1191,18 @@ def train_kernel_checks(model, dev, rng) -> dict:
     cfg = model.ifnet.config
     out = {}
     with torch.no_grad():
-        depth = torch.tensor(rng.uniform(0.4, 6.0, (4, 240, 320)).astype(np.float32), device=dev)
-        pc = model.project_depth(depth)  # (4, 76800, 3)
-        outside = torch.tensor(rng.uniform(-0.7, 0.7, (4, 4096, 3)).astype(np.float32), device=dev)
-        pts = torch.cat([pc, outside], dim=1).contiguous()
-        raw = scatter_voxels_raw_cuda(pts, dims)
-        g = torch.randn(raw.shape, device=dev)
-        got = scatter_voxels_bwd_cuda(pts, raw, g)
-        out["K1b"] = (*rel_err(got, scatter_voxels_bwd(pts, raw, g)), (pts, raw, g))
+        k1b, k1b_args = [0.0, 0.0], {}
+        for kind, pts in k1b_points.items():
+            grid = scatter_voxels_cuda(pts, dims)
+            g = torch.randn((dims[0], pts.shape[0], *dims[1:]), device=dev).transpose(0, 1)
+            for cot in (g, g.contiguous()):
+                a, r = rel_err(scatter_voxels_bwd_cuda(pts, grid, cot),
+                               scatter_voxels_bwd(pts, grid, cot))
+                k1b = [max(k1b[0], a), max(k1b[1], r)]
+            k1b_args[kind] = (pts, grid, g)
+        out["K1b"] = (*k1b, k1b_args)
 
+        pc = k1b_points["random"][:, :240 * 320]
         levels = model.ifnet.encode(model.project(pc))
         sub = torch.tensor(rng.choice(pc.shape[1], 4096, replace=False), device=dev)
         sup = torch.tensor(rng.uniform(-0.5, 0.5, (4, 4096, 3)).astype(np.float32), device=dev)
@@ -1189,9 +1440,11 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
              f"time, device idle {100.0 * (1.0 - device / wall):.1f}%; host labelling of "
              f"4x4096 points {statistics.median(label_ms):.3f} ms (median of 5)"]
     lines += _top_lines(events, device, steps)
-    k8 = sum(_dev_us(e) for e in events if "level_grad_vol" in e.key) / 1e3 / steps
-    lines.append(f"  K8 (level_grad_vol kernels): {k8:.3f} ms a step, {100.0 * k8 / device:.2f}% "
-                 "of device time")
+    for name, part in (("K8", "level_grad_vol"), ("K1", "scatter_voxels_kernel"),
+                       ("K1's clamp", "clamp_unit"), ("K1b", "scatter_voxels_bwd")):
+        ms = sum(_dev_us(e) for e in events if part in e.key) / 1e3 / steps
+        lines.append(f"  {name} ({part}): {ms:.4f} ms a step, {100.0 * ms / device:.3f}% of "
+                     "device time")
     # which convolutions the backward time belongs to (device time of the
     # kernels each aten op launched, by input shapes)
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -1203,45 +1456,27 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     return lines
 
 
-def step_copy_kernels(trainer, batch, gen, steps: int = 2) -> dict:
-    """The copy kernels (device kernels whose name says copy) of a warm
-    full-width train step and their device ms a step, with K8's gradient
-    handed back channels-last as the port does and made channel-major
-    (K8's old layout: one transpose copy a level of C > 1): {"port": (count,
-    ms), "channel-major": (count, ms)}.  A copy that the channels-last
-    gradient caused further down would count in the port's run alone."""
+def _step_variants() -> dict:
+    """The train step as the port runs it and with one of its choices
+    undone, as {name: (module, attribute, autograd.Function)} to patch in
+    (None: the port): K8's gradient made channel-major (K8's old layout: one
+    transpose copy a level of C > 1); level_features saving the
+    channels-last copy that K4 read instead of the flat; K1b's cotangent
+    made contiguous before the kernel (K1b's old wrapper; a copy, since the
+    blur's einsum backward hands it with the batch and axis-0 strides
+    swapped)."""
     from sv3d_tpu_torch.ops.cuda import point_query as pq
+    from sv3d_tpu_torch.ops.cuda import voxelize as vx
 
-    port = pq._LevelFeatures
+    lf, sv = pq._LevelFeatures, vx._ScatterVoxels
 
-    class ChannelMajor(port):
+    class ChannelMajor(lf):
         @staticmethod
         def backward(ctx, g):
-            gvol, *rest = port.backward(ctx, g)
+            gvol, *rest = lf.backward(ctx, g)
             return (gvol.contiguous(), *rest)
 
-    out = {}
-    state = trainer.build_state()
-    try:
-        for name, fn in (("port", port), ("channel-major", ChannelMajor)):
-            pq._LevelFeatures = fn
-            _, _, _, events = _profile(lambda: trainer.train_step(state, batch, gen), steps)
-            cp = [e for e in events if "copy" in e.key.lower()]
-            out[name] = (sum(e.count for e in cp) / steps,
-                         sum(_dev_us(e) for e in cp) / 1e3 / steps)
-    finally:
-        pq._LevelFeatures = port
-    return out
-
-
-def step_peak_memory(trainer, batch, gen) -> dict:
-    """Peak device memory (torch.cuda.max_memory_allocated) of one warm
-    full-width train step as the port runs it (level_features saves the
-    flat for its backward, and K7's wrapper stages it again), and with
-    level_features saving instead the channels-last copy that K4 read."""
-    from sv3d_tpu_torch.ops.cuda import point_query as pq
-
-    class SavesCopy(pq._LevelFeatures):
+    class SavesCopy(lf):
         @staticmethod
         def forward(ctx, flat, p0, p1, p2, dims, align_corners, displacement):
             level = pq.stage_channels_last(flat).transpose(1, 2)
@@ -1249,22 +1484,66 @@ def step_peak_memory(trainer, batch, gen) -> dict:
             ctx.args = (dims, align_corners, displacement)
             return pq.level_features_cuda(level, p0, p1, p2, dims, align_corners, displacement)
 
-    saves_flat = pq._LevelFeatures
-    out = {}
-    state = trainer.build_state()
+    class ContiguousCotangent(sv):
+        @staticmethod
+        def backward(ctx, g):
+            return sv.backward(ctx, g.contiguous())
+
+
+    return {"port": None,
+            "K8's gradient channel-major": (pq, "_LevelFeatures", ChannelMajor),
+            "level_features saves the channels-last copy": (pq, "_LevelFeatures", SavesCopy),
+            "K1b's cotangent made contiguous": (vx, "_ScatterVoxels", ContiguousCotangent)}
+
+
+def _run_variant(variant, fn):
+    """fn() with the variant's autograd.Function patched in."""
+    if variant is None:
+        return fn()
+    module, attr, cls = variant
+    kept = getattr(module, attr)
+    setattr(module, attr, cls)
     try:
-        for name, fn in (("saves the flat (the port)", saves_flat),
-                         ("saves the channels-last copy", SavesCopy)):
-            pq._LevelFeatures = fn
-            trainer.train_step(state, batch, gen)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            trainer.train_step(state, batch, gen)
-            torch.cuda.synchronize()
-            out[name] = torch.cuda.max_memory_allocated()
+        return fn()
     finally:
-        pq._LevelFeatures = saves_flat
+        setattr(module, attr, kept)
+
+
+def step_copy_kernels(trainer, batch, gen, names, steps: int = 2) -> dict:
+    """The copy kernels (device kernels whose name says copy) of a warm
+    full-width train step and their device ms a step, for each of the
+    _step_variants() named: {name: (count, ms)}.  A copy that the port's
+    layout caused further down would count in the port's run alone."""
+    variants = _step_variants()
+    state = trainer.build_state()
+    out = {}
+    for name in names:
+        _, _, _, events = _run_variant(variants[name], lambda: _profile(
+            lambda: trainer.train_step(state, batch, gen), steps))
+        cp = [e for e in events if "copy" in e.key.lower()]
+        out[name] = (sum(e.count for e in cp) / steps, sum(_dev_us(e) for e in cp) / 1e3 / steps)
     return out
+
+
+def step_peak_memory(trainer, batch, gen, names) -> dict:
+    """Peak device memory of one warm full-width train step, for each of the
+    _step_variants() named: {name: (torch.cuda.max_memory_allocated, the
+    step's own rise: that peak less the memory allocated just before the
+    step, which holds the state and whatever the caller keeps)}."""
+    variants = _step_variants()
+    state = trainer.build_state()
+
+    def peak():
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        return top, top - before
+
+    return {name: _run_variant(variants[name], peak) for name in names}
 
 
 def main() -> int:
@@ -1304,15 +1583,15 @@ def main() -> int:
     )
     from sv3d_tpu_torch.ops.cuda.voxelize import (
         scatter_voxels,
-        scatter_voxels_bwd_cuda,
         scatter_voxels_cuda,
+        scatter_voxels_raw_cuda,
     )
     from sv3d_tpu_torch.ops.point_query import (
         level_features_plain,
         level_grad_points_plain,
         level_grad_vol_plain,
     )
-    from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd
+    from sv3d_tpu_torch.ops.voxelize import scatter_voxels_raw
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1335,19 +1614,36 @@ def main() -> int:
     check(dims == (139, 104, 112), f"serving dims {dims}")
     model = seeded_scene_net(config, dev, seed=0)
 
-    # -- phase 2: K1 against its plain version at the main-path shape --------
-    with torch.inference_mode():
-        depth = torch.tensor(rng.uniform(0.4, 6.0, (1, 240, 320)).astype(np.float32), device=dev)
-        pc = model.project_depth(depth)  # (1, 76800, 3)
-        outside = torch.tensor(rng.uniform(-0.7, 0.7, (1, 4096, 3)).astype(np.float32), device=dev)
-        pts = torch.cat([pc, outside], dim=1).contiguous()
-        k1 = scatter_voxels_cuda(pts, dims)
-        k1_ref = scatter_voxels(pts, dims)
+    # -- phase 2: K1 against its plain version at the main-path shapes -------
+    # a uniform random depth per pixel (no spatial coherence) and the rendered
+    # box scene, at B=1 (serving) and B=4 (training); and a degenerate input
+    # whose every warp adds to one voxel
+    k1_in = {(kind, b): k1_points(model, kind, b, rng) for kind in ("random", "box")
+             for b in (1, 4)}
+    k1_in[("degenerate", 1)] = torch.tensor(degenerate_points(dims, 240 * 320 + 4096, rng),
+                                            device=dev)
+    k1_err, k1_raw = 0.0, {}
+    with torch.no_grad():
+        for key, p1 in k1_in.items():
+            got = scatter_voxels_cuda(p1, dims)
+            k1_err = max(k1_err, float((got - scatter_voxels(p1, dims)).abs().max()))
+            k1_raw[key] = (rel_err(scatter_voxels_raw_cuda(p1, dims),
+                                   scatter_voxels_raw(p1, dims))[1], k1_raw_tol(p1, dims))
         torch.cuda.synchronize()
-        k1_err = float((k1 - k1_ref).abs().max())
-    print(f"K1 scatter_voxels: {tuple(pts.shape)} -> {tuple(k1.shape)}, "
-          f"max_abs_err {k1_err:.3e} (tol {K1_TOL:g}), occupied {int((k1 > 0).sum())}", flush=True)
+    print(f"K1 scatter_voxels on {len(k1_in)} inputs of (B, {k1_in[('random', 1)].shape[1]}, 3) "
+          f"-> (B, *{dims}): clamped max_abs_err {k1_err:.3e} (tol {K1_TOL:g}); raw sums, max "
+          "error / max |raw| (tol 2 k 2^-24, k the most contributions to one voxel): "
+          + "; ".join(f"{kind} B={b} {e:.3e} (tol {t:.3e})"
+                      for (kind, b), (e, t) in k1_raw.items()),
+          flush=True)
     check(k1_err <= K1_TOL, f"K1 disagrees with its plain version: {k1_err}")
+    check(all(e <= t for e, t in k1_raw.values()), f"K1's raw sums disagree: {k1_raw}")
+    k1_counts = {kind: k1_atomics(k1_points(model, kind, 1, np.random.default_rng(0), outside=0),
+                                  dims) for kind in ("random", "box")}
+    print("K1 global atomics on one 240x320 image (76,800 points), issued / one a corner: "
+          + "; ".join(f"{kind} {n} / {old} ({old / n:.2f}x fewer)"
+                      for kind, (n, old) in k1_counts.items()), flush=True)
+    pts = k1_in[("random", 1)]
 
     # -- phase 3: K2, both routes, against their plain versions at full scale -
     ifnet = model.ifnet
@@ -1476,9 +1772,8 @@ def main() -> int:
     # -- phase 6: serving timings --------------------------------------------
     routes = (("K2", torch.bfloat16), ("K2f32", torch.float32))
     slab_sizes = (1, 8, dims[0])
+    k1_t = k1_timings({k: v for k, v in k1_in.items() if k[0] != "degenerate"}, dims)
     with torch.inference_mode():
-        k1_ms = cuda_ms(lambda: scatter_voxels_cuda(pts, dims))
-        k1_plain_ms = cuda_ms(lambda: scatter_voxels(pts, dims))
         plan_ms, k2_ms, k2_plain_ms, k2_whole_ms, k2_plain_whole_ms = {}, {}, {}, {}, {}
         for key, dtype in routes:
             plan_ms[key] = cuda_ms(lambda dtype=dtype: ifnet.sweep_plan(levels, dims, 1, dtype),
@@ -1514,11 +1809,18 @@ def main() -> int:
             e2e.append(time.perf_counter() - t0)
     serve_prof = profile_lines(serve, steps=2)
     print(f"serving timings on {smi}:", flush=True)
-    print(f"  K1 scatter_voxels {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms "
-          f"({pts.shape[1]} points)", flush=True)
+    for (kind, b), t in k1_t.items():
+        print(f"  K1 scatter_voxels, {kind} depth, B={b} x {pts.shape[1]} points: {t['ms']:.4f} ms "
+              f"a call (the host returns in {t['host_ms']:.4f} ms); device {t['device']:.4f} ms "
+              f"= kernel {t['kernel']:.4f} + memset {t['memset']:.4f} + clamp "
+              f"{t['clamp']:.4f} (torch.profiler); bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); plain {t['plain_ms']:.4f} ms; "
+              f"F.grid_sample's backward for the volume {t['library_ms']:.4f} ms (its "
+              f"difference from K1's raw sums {t['library_err']:.2e} of the largest); global "
+              f"atomics {t['atomics'][0]} (one a corner: {t['atomics'][1]})", flush=True)
     bounds = {
-        # points in, grid out; 8 corners of 4 flops a point
-        "K1": bound(nbytes(pts, k1), 32.0 * pts.shape[1]),
+        # points in, grid out; 8 corners of 4 flops a point (random depth, B=1)
+        "K1": k1_t[("random", 1)]["bound"],
         # K2 at the serving path's shape: the whole lattice in one launch
         **{key: sweep_bound(ifnet, levels, dims, dims[0], 0, dtype) for key, dtype in routes},
     }
@@ -1547,7 +1849,9 @@ def main() -> int:
     del served, vox
 
     # -- phase 7: training kernels against their plain versions -------------
-    tk = train_kernel_checks(model, dev, rng)
+    tk = train_kernel_checks(model, dev, rng, {"random": k1_in[("random", 4)],
+                                               "box": k1_in[("box", 4)],
+                                               "degenerate": k1_in[("degenerate", 1)]})
     k5_train = tk.pop("K5")
     print(f"K5 at the training shapes: max_abs_err {k5_train[0]:.3e}, {k5_train[1]:.3f} of its "
           "bound (one bf16 ulp)", flush=True)
@@ -1623,10 +1927,11 @@ def main() -> int:
     levels, p, gs, ac, disp = tk["K4"][2]
     lv = list(levels)
     lv_cl = [(stage_channels_last(f).transpose(1, 2), d) for f, d in lv]
-    peak = step_peak_memory(trainer, batch, gen)
+    k1b_t = k1b_timings({k: v for k, v in tk["K1b"][2].items() if k != "degenerate"})
+    tk["K1b"] = tk["K1b"][:2]  # free K1b's grids and cotangents before the step's peak
+    peak = step_peak_memory(trainer, batch, gen, (
+        "port", "level_features saves the channels-last copy"))
     kernel_ms = {
-        "K1b": (cuda_ms(lambda: scatter_voxels_bwd_cuda(*tk["K1b"][2])),
-                cuda_ms(lambda: scatter_voxels_bwd(*tk["K1b"][2]))),
         "K4": (cuda_ms(lambda: [level_features_cuda(f, *p, d, ac, disp) for f, d in lv]),
                cuda_ms(lambda: [level_features_plain(f, *p, d, ac, disp) for f, d in lv])),
         # as the backward runs it: on the flat, the wrapper staging it
@@ -1643,24 +1948,26 @@ def main() -> int:
     for row in k8_rows:
         check(row["err"] <= TRAIN_KERNEL_RTOL["K8"],
               f"K8 disagrees with its plain version on a level: {row}")
-    copies = step_copy_kernels(trainer, batch, gen)
+    copies = step_copy_kernels(trainer, batch, gen, ("port", "K8's gradient channel-major",
+                                                     "K1b's cotangent made contiguous"))
     train_staged = feature_staging_ms(lv, p, (ac, disp))
     k7_kernel_ms = cuda_ms(lambda: [level_grad_points_cuda(f, *p, g, d, ac, disp)
                                     for (f, d), g in zip(lv_cl, gs)])
     gs_inputs = grid_sample_inputs(lv, p, ac, disp)
     library = {"K4": grid_sample_ms(gs_inputs, ac), "K7": grid_sample_ms(gs_inputs, ac, "points"),
-               "K8": grid_sample_ms(gs_inputs, ac, "level"), **pp["library"]}
+               "K8": grid_sample_ms(gs_inputs, ac, "level"), **pp["library"],
+               "K1": k1_t[("random", 1)]["library_ms"], "K1b": k1b_t["random"]["library_ms"]}
     del gs_inputs, lv_cl
     n_feat = p[0].numel() * 7 * sum(f.shape[1] for f, _ in lv)  # B * N * 7 * sumC
     train_gathered = gathered_bytes(lv, p, ac, disp)
     print(f"  K4/K7 gathered bytes at the training shapes: {train_gathered} of the levels' "
           f"{nbytes(*levels.flats)}", flush=True)
-    k1b_pts = tk["K1b"][2][0]
     bounds.update(pp["bounds"])
     bounds.update({
-        # points, raw grid and cotangent in, the points' gradient out; 8
-        # corners of 6 flops a point
-        "K1b": bound(nbytes(*tk["K1b"][2], k1b_pts), 48.0 * k1b_pts.shape[0] * k1b_pts.shape[1]),
+        # the touched sectors of the clamped grid and the cotangent, points
+        # in, the points' gradient out; 8 corners of 6 flops a point (random
+        # depth, B=4)
+        "K1b": k1b_t["random"]["bound"],
         # the levels' gathered sectors and the coordinates in, f32 features
         # out; 8 taps of 2 flops
         "K4": bound(train_gathered + nbytes(*p) + 4 * n_feat, 16.0 * n_feat),
@@ -1677,8 +1984,17 @@ def main() -> int:
         print(f"  full-width train step, B=4, 8192 query points, fused_query={fused}: "
               f"median {ms:.3f} ms of 5", flush=True)
     for name, (ms, plain) in kernel_ms.items():
-        what = "80,896 points" if name == "K1b" else "all 6 levels, B=4 x 8192 points"
-        print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms ({what})", flush=True)
+        print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms (all 6 levels, B=4 x 8192 points)",
+              flush=True)
+    for kind, t in k1b_t.items():
+        print(f"  K1b scatter_voxels_bwd, {kind} depth, B=4 x 80,896 points, the cotangent in the "
+              f"blur backward's strides: {t['ms']:.4f} ms a call (the host returns in "
+              f"{t['host_ms']:.4f} ms), kernel {t['kernel']:.4f} ms (torch.profiler); bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]}); plain "
+              f"{t['plain_ms']:.4f} ms; F.grid_sample's backward for the grid "
+              f"{t['library_ms']:.4f} ms (its difference from the plain result "
+              f"{t['library_err']:.2e} of the largest); launches in the 12-step fit "
+              f"{train_launches['K1b']}", flush=True)
     print_staging("training shapes, B=4 x 8192", train_staged)
     print("  K8 by level at the training shapes (CUDA-event medians; global atomic operations "
           "on this run's corners):", flush=True)
@@ -1692,15 +2008,17 @@ def main() -> int:
           f"F.grid_sample's backward for the volume {library['K8']:.4f} ms; launches in the "
           f"12-step fit {train_launches['K8']}", flush=True)
     print("  copy kernels a warm train step (count, device ms): " + ", ".join(
-        f"K8's gradient {k}: {n:g}, {ms:.3f}" for k, (n, ms) in copies.items()), flush=True)
-    check(copies["port"][0] <= copies["channel-major"][0],
-          f"the channels-last gradient added copy kernels: {copies}")
+        f"{k}: {n:g}, {ms:.3f}" for k, (n, ms) in copies.items()), flush=True)
+    check(all(copies["port"][0] <= n for n, _ in copies.values()),
+          f"a layout of the port added copy kernels: {copies}")
     print(f"  K7 apart at the training shapes: kernel alone on channels-last levels "
           f"{k7_kernel_ms:.4f} ms; the backward's K7 above stages the levels as K4 does",
           flush=True)
-    print("  peak device memory of a warm fused_query train step (max_memory_allocated): "
-          + ", ".join(f"level_features {k}: {v / 2**20:.1f} MiB" for k, v in peak.items()),
-          flush=True)
+    print("  peak device memory of a warm fused_query train step (max_memory_allocated; the "
+          f"step's own rise above what was allocated before it; with the raw grid kept "
+          f"{PEAK_RAW_GRID_MIB} MiB): "
+          + ", ".join(f"{k}: {top / 2**20:.1f} MiB, rise {rise / 2**20:.1f} MiB"
+                      for k, (top, rise) in peak.items()), flush=True)
     for line in prof_lines:
         print(f"  {line}", flush=True)
     print(f"  library calls: K4 F.grid_sample {library['K4']:.4f} ms, its backward for the "
@@ -1708,11 +2026,18 @@ def main() -> int:
           "(all 6 levels, B=4 x 8192 points)", flush=True)
 
     measured = {
-        "K1": (launches["scatter_voxels"], k1_err, k1_ms, k1_plain_ms),
+        # the random depth at the serving shape, as the row has always been
+        # read (the box scene's numbers are its "box" key); launches on both
+        # main paths
+        "K1": (launches["scatter_voxels"] + train_launches["K1"], k1_err,
+               k1_t[("random", 1)]["ms"], k1_t[("random", 1)]["plain_ms"]),
         # at the serving path's shape: the whole lattice in one launch
         **{k: (launches[name], k2_err[k], k2_whole_ms[k], k2_plain_whole_ms[k])
            for k, name in (("K2", "lattice_sweep_bf16"), ("K2f32", "lattice_sweep_f32"))},
-        **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K1b", "K4", "K7", "K8")},
+        # the random depth at the training shape, as the row has always been read
+        "K1b": (train_launches["K1b"], tk["K1b"][0], k1b_t["random"]["ms"],
+                k1b_t["random"]["plain_ms"]),
+        **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K4", "K7", "K8")},
         **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k])
            for k in ("K3", "K5", "K6", "K6bf16")},
     }
@@ -1738,6 +2063,18 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": library.get(key)})
+        if key == "K1":
+            kernels[-1]["launches_by_path"] = {"serving": launches["scatter_voxels"],
+                                               "fit": train_launches["K1"]}
+        if key in ("K1", "K1b"):  # device time, and the box scene beside the random depth
+            by = {"K1": {kind: k1_t[(kind, 1)] for kind in ("random", "box")},
+                  "K1b": k1b_t}[key]
+            kernels[-1]["device_ms"] = by["random"]["device" if key == "K1" else "kernel"]
+            t = by["box"]
+            kernels[-1]["box"] = {
+                "ms": t["ms"], "device_ms": t["device" if key == "K1" else "kernel"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,13 @@
 
 scatter_voxels_cuda replaces sv3d_tpu/ops/pallas/voxelize.py::scatter_voxels_pallas
 and is differentiable in the points, as the JAX function's custom VJP is: an
-autograd.Function whose forward runs the scatter (K1) and keeps the raw,
-unclamped grid, and whose backward runs the gather kernel K1b (the XLA
-_scatter_bwd of the JAX package).  The plain versions are
-sv3d_tpu_torch.ops.voxelize.scatter_voxels_raw and scatter_voxels_bwd; a CPU
-tensor runs them, a CUDA tensor launches the kernels or raises.
+autograd.Function whose forward makes the clamped grid in one call into the
+library (zeroing, scatter K1 and clamp, into one buffer) and keeps it, and
+whose backward runs the gather kernel K1b (the XLA _scatter_bwd of the JAX
+package) on it: the clamped grid carries the clamp's gradient mask as the
+raw grid does.  The plain versions are sv3d_tpu_torch.ops.voxelize.
+scatter_voxels_raw and scatter_voxels_bwd; a CPU tensor runs them, a CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -22,13 +24,20 @@ from sv3d_tpu_torch.ops.voxelize import scatter_voxels, scatter_voxels_bwd, scat
 __all__ = ["scatter_voxels", "scatter_voxels_cuda", "scatter_voxels_raw_cuda",
            "scatter_voxels_bwd_cuda"]
 
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = {
+    # points, grid, batch, n, d0, d1, d2, lo, hi, clamp, stream
+    "sv3d_scatter_voxels": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # points, grid, grad, out, batch, n, d0, d1, d2, grad's 4 strides, lo, hi,
+    # stream
+    "sv3d_scatter_voxels_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _F, _F, _P],
+}
+
 
 @functools.lru_cache(maxsize=None)
-def _bind(name: str, n_ptr: int):
+def _bind(name: str):
     fn = getattr(build.load(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,43 +63,52 @@ def _device_of(t: torch.Tensor, who: str) -> str:
     return t.device.type
 
 
-def scatter_voxels_raw_cuda(points: torch.Tensor, dims: tuple, eps: float = 1e-6) -> torch.Tensor:
-    """K1: the unclamped trilinear scatter (B, *dims); same contract as
-    scatter_voxels_raw, which a CPU tensor runs."""
-    dims = tuple(int(d) for d in dims)
-    if _device_of(points, "scatter_voxels") == "cpu":
-        return scatter_voxels_raw(points, dims, eps)
+def _scatter_cuda(points: torch.Tensor, dims: tuple, eps: float, clamp: bool) -> torch.Tensor:
+    """K1 on a CUDA tensor: one library call zeroes one (B, *dims) grid,
+    scatters into it and, with clamp, clamps it to [0, 1] in place."""
     _check_points(points, dims, "scatter_voxels")
     b, n, _ = points.shape
-    grid = torch.zeros((b, *dims), dtype=torch.float32, device=points.device)
+    grid = torch.empty((b, *dims), dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    rc = _bind("sv3d_scatter_voxels", 2)(
-        points.data_ptr(), grid.data_ptr(), b, n, *dims, *_bounds(eps), stream,
+    rc = _bind("sv3d_scatter_voxels")(
+        points.data_ptr(), grid.data_ptr(), b, n, *dims, *_bounds(eps), int(clamp), stream,
     )
     build.check(rc, "sv3d_scatter_voxels")
     scatter_voxels_cuda.launches += 1
     return grid
 
 
-def scatter_voxels_bwd_cuda(points: torch.Tensor, raw: torch.Tensor, grad: torch.Tensor,
+def scatter_voxels_raw_cuda(points: torch.Tensor, dims: tuple, eps: float = 1e-6) -> torch.Tensor:
+    """K1 without its clamp: the summed weights (B, *dims); same contract as
+    scatter_voxels_raw, which a CPU tensor runs."""
+    dims = tuple(int(d) for d in dims)
+    if _device_of(points, "scatter_voxels") == "cpu":
+        return scatter_voxels_raw(points, dims, eps)
+    return _scatter_cuda(points, dims, eps, clamp=False)
+
+
+def scatter_voxels_bwd_cuda(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
                             eps: float = 1e-6) -> torch.Tensor:
-    """K1b: gradient (B, N, 3) of clamp(raw) in the points; same contract as
-    scatter_voxels_bwd, which a CPU tensor runs."""
+    """K1b: gradient (B, N, 3) of the clamped scatter in the points; grid is
+    the forward's grid, clamped or raw (the clamp's mask 0 < x < 1 is the
+    same on both), grad the cotangent of the clamped grid, in any strides.
+    Same contract as scatter_voxels_bwd, which a CPU tensor runs."""
     if _device_of(points, "scatter_voxels_bwd") == "cpu":
-        return scatter_voxels_bwd(points, raw, grad, eps)
-    dims = tuple(int(d) for d in raw.shape[1:])
+        return scatter_voxels_bwd(points, grid, grad, eps)
+    dims = tuple(int(d) for d in grid.shape[1:])
     _check_points(points, dims, "scatter_voxels_bwd")
     b, n, _ = points.shape
-    for name, t in (("raw", raw), ("grad", grad)):
+    for name, t in (("grid", grid), ("grad", grad)):
         if t.device != points.device or t.dtype != torch.float32 or tuple(t.shape) != (b, *dims):
             raise ValueError(f"scatter_voxels_bwd: {name} must be float32 (B, *dims) on the "
                              f"points' device, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    raw, grad = raw.contiguous(), grad.contiguous()
+    if not grid.is_contiguous():
+        raise ValueError("scatter_voxels_bwd: grid must be contiguous")
     out = torch.empty((b, n, 3), dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    rc = _bind("sv3d_scatter_voxels_bwd", 4)(
-        points.data_ptr(), raw.data_ptr(), grad.data_ptr(), out.data_ptr(), b, n, *dims,
-        *_bounds(eps), stream,
+    rc = _bind("sv3d_scatter_voxels_bwd")(
+        points.data_ptr(), grid.data_ptr(), grad.data_ptr(), out.data_ptr(), b, n, *dims,
+        *grad.stride(), *_bounds(eps), stream,
     )
     build.check(rc, "sv3d_scatter_voxels_bwd")
     scatter_voxels_bwd_cuda.launches += 1
@@ -100,15 +118,18 @@ def scatter_voxels_bwd_cuda(points: torch.Tensor, raw: torch.Tensor, grad: torch
 class _ScatterVoxels(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, dims, eps):
-        raw = scatter_voxels_raw_cuda(points, dims, eps)
-        ctx.save_for_backward(points, raw)
+        if _device_of(points, "scatter_voxels") == "cpu":
+            out = scatter_voxels(points, dims, eps)
+        else:
+            out = _scatter_cuda(points, dims, eps, clamp=True)
+        ctx.save_for_backward(points, out)
         ctx.eps = eps
-        return raw.clamp(0.0, 1.0)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        points, raw = ctx.saved_tensors
-        return scatter_voxels_bwd_cuda(points, raw, grad, ctx.eps), None, None
+        points, out = ctx.saved_tensors
+        return scatter_voxels_bwd_cuda(points, out, grad, ctx.eps), None, None
 
 
 def scatter_voxels_cuda(points: torch.Tensor, dims: tuple, eps: float = 1e-6) -> torch.Tensor:

@@ -57,19 +57,21 @@ def scatter_voxels_raw(points: torch.Tensor, dims: tuple, eps: float = 1e-6) -> 
     return vox.reshape(b, d0, d1, d2)
 
 
-def scatter_voxels_bwd(points: torch.Tensor, raw: torch.Tensor, grad: torch.Tensor,
+def scatter_voxels_bwd(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
                        eps: float = 1e-6) -> torch.Tensor:
     """Gradient of clamp(scatter_voxels_raw(points)) in the points, port of
     sv3d_tpu/ops/pallas/voxelize.py::_scatter_bwd.
 
-    raw: the unclamped grid of the forward; grad: (B, D0, D1, D2) incoming
-    gradient of the clamped grid.  The clamp passes the gradient strictly
-    inside (0, 1); each point gathers it at its 8 corners with the
-    derivatives +-(d - 1) of its trilinear weights.  Returns (B, N, 3)."""
+    grid: the forward's grid, clamped or raw: the clamp passes the gradient
+    strictly inside (0, 1), and 0 < raw < 1 holds exactly where
+    0 < clamp(raw, 0, 1) < 1, so either carries the mask.  grad:
+    (B, D0, D1, D2) incoming gradient of the clamped grid.  Each point
+    gathers it at its 8 corners with the derivatives +-(d - 1) of its
+    trilinear weights.  Returns (B, N, 3)."""
     b = points.shape[0]
-    dims = tuple(int(d) for d in raw.shape[1:])
+    dims = tuple(int(d) for d in grid.shape[1:])
     d0, d1, d2 = dims
-    gflat = torch.where((raw > 0.0) & (raw < 1.0), grad, 0.0).reshape(b, -1)
+    gflat = torch.where((grid > 0.0) & (grid < 1.0), grad, 0.0).reshape(b, -1)
     valid, ((i0, f0), (i1, f1), (i2, f2)) = _scatter_axes(points, dims, eps)
     s0, s1, s2 = (float(d - 1.0) for d in dims)
     gp0 = torch.zeros_like(f0)

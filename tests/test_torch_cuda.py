@@ -62,7 +62,7 @@ from sv3d_tpu_torch.ops.point_query import (
     level_grad_points_plain,
     level_grad_vol_plain,
 )
-from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd
+from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd, scatter_voxels_raw
 
 torch.set_num_threads(1)
 
@@ -318,6 +318,60 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     raw = scatter_voxels_raw_cuda(pts, dims)
     assert _rel_err(p.grad, scatter_voxels_bwd(pts, raw, w)) <= 1e-5
     assert _rel_err(scatter_voxels_bwd_cuda(pts, raw, w), scatter_voxels_bwd(pts, raw, w)) <= 1e-5
+
+
+
+def _scatter_inputs(kind, device):
+    """K1's inputs at the serving dims: the points chip_smoke.py projects
+    from write_smoke_dataset's box-before-a-wall depth and from a plane at
+    3 m (B=2, 76,800 + 4,096 outside each); its degenerate input (each
+    warp's 32 lanes in one voxel); and B=3 x 1013 uniform points, N not a
+    multiple of 32 (warps straddle the samples, the last one ragged) with
+    border-dropped points inside the warps."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    dims = (139, 104, 112)
+    rng = np.random.default_rng(12)
+    if kind in ("box", "plane"):
+        from sv3d_tpu_torch.config import Config
+
+        model = smoke["seeded_scene_net"](Config(seed=0), device, 0)
+        return smoke, dims, smoke["k1_points"](model, kind, 2, rng)
+    pts = (smoke["degenerate_points"](dims, 80896, rng) if kind == "degenerate"
+           else rng.uniform(-0.7, 0.7, (3, 1013, 3)).astype(np.float32))
+    return smoke, dims, torch.tensor(pts, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["box", "plane", "degenerate", "ragged"])
+def test_scatter_kernels_on_coherent_degenerate_and_ragged_inputs_on_card(kind, cuda_device):
+    """K1 (warp-combined atomics) against its plain version: clamped at atol
+    1e-5, raw within chip_smoke.py's 2 k 2^-24 of the largest sum (k the
+    most contributions to one voxel); one launch a call.  K1b through
+    autograd (given the clamped grid the forward kept, the cotangent as the
+    blur's einsum backward strides it) and on a contiguous cotangent, at
+    1e-5 of the largest plain component."""
+    smoke, dims, pts = _scatter_inputs(kind, cuda_device)
+    before = scatter_voxels_cuda.launches
+    got = scatter_voxels_cuda(pts, dims)
+    torch.cuda.synchronize()
+    assert scatter_voxels_cuda.launches == before + 1
+    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=1e-5, rtol=0)
+    raw = scatter_voxels_raw_cuda(pts, dims)
+    assert _rel_err(raw, scatter_voxels_raw(pts, dims)) <= smoke["k1_raw_tol"](pts, dims)
+    issued, old = smoke["k1_atomics"](pts, dims)
+    assert issued <= old if kind == "ragged" else issued < old
+
+    b = pts.shape[0]
+    g = torch.randn((dims[0], b, *dims[1:]), device=cuda_device).transpose(0, 1)
+    p = pts.clone().requires_grad_()
+    before = scatter_voxels_bwd_cuda.launches
+    (scatter_voxels_cuda(p, dims) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert scatter_voxels_bwd_cuda.launches == before + 1
+    assert _rel_err(p.grad, scatter_voxels_bwd(pts, got, g)) <= 1e-5
+    for cot in (g, g.contiguous()):
+        assert _rel_err(scatter_voxels_bwd_cuda(pts, got, cot),
+                        scatter_voxels_bwd(pts, got, cot)) <= 1e-5
 
 
 FEATURE_CHANNELS = [1, 3, 16, 64, 128, 160]
