@@ -65,8 +65,9 @@
 // A chunk in wgmma's swizzled shared-memory layout and descriptors, written
 // by a gather whose rows are points, which this first tensor-core version
 // keeps simple; the MMAs are not what bounds it (a point's 2583 bf16 MACs of
-// fc0 cost less than its 8 x 2583 gathered values).  The tail: bias + ReLU +
-// bf16 into shared memory over the A buffers (64 x (H0 + 8)), fc1 and fc2 as
+// fc0 cost less than its 8 x 2583 gathered values).  The tail is
+// mma_bf16.cuh's decoder_tail, one copy with K3 bf16: bias + ReLU + bf16
+// into shared memory over the A buffers (64 x (H0 + 8)), fc1 and fc2 as
 // MMAs with their weights streamed the same way, fc_out as a 256-term f32
 // dot per point, the ragged tail's stores masked.  Levels need C = 1 or
 // C % 16 == 0 with C <= 128 (every IF-Net configuration); the wrapper raises
@@ -288,51 +289,6 @@ extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_leve
 
 namespace {
 
-// relu(acc + bias) rounded to bf16 into h[row][n0 + col] (the mma
-// accumulator layout: rows lane/4 and lane/4 + 8, columns 2 (lane % 4) + 0, 1)
-template <int kNT>
-__device__ __forceinline__ void store_hidden(const float (&acc)[4][kNT][4],
-                                             const float* __restrict__ bias, bf16* h, int hs,
-                                             int n0, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const int col = n0 + nt * 8 + (lane & 3) * 2;
-    const float c0 = __ldg(bias + col), c1 = __ldg(bias + col + 1);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int row = mt * 16 + (lane >> 2);
-      const float* v = acc[mt][nt];
-      *reinterpret_cast<uint32_t*>(h + row * hs + col) =
-          pack_bf16(fmaxf(v[0] + c0, 0.f), fmaxf(v[1] + c1, 0.f));
-      *reinterpret_cast<uint32_t*>(h + (row + 8) * hs + col) =
-          pack_bf16(fmaxf(v[2] + c0, 0.f), fmaxf(v[3] + c1, 0.f));
-    }
-  }
-}
-
-// One hidden layer of 256 outputs on the tile: h (kM x k_chunks*16 bf16) is
-// replaced by relu(W h + b) rounded to bf16 (its first 256 columns).
-template <int kNT>
-__device__ __forceinline__ void dense_bf16(bf16* h, int hs, int k_chunks, BStream<kNT / 2>& bs,
-                                           const float* __restrict__ bias, int n0, int lane) {
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  bs.start();
-  for (int k = 0; k < k_chunks; ++k) {
-    uint32_t b[kNT][2];
-    bs.get(k, b);
-    mma_chunk<kNT>(acc, h, hs, k * 16, b, lane);
-  }
-  __syncthreads();  // every warp has read h
-  store_hidden<kNT>(acc, bias, h, hs, n0, lane);
-  __syncthreads();
-}
-
 // Corner j (bits: axis 0, 1, 2) of lattice point (row, x, y) displaced by
 // copy d on a level: its element offset voxel * C in the channels-last
 // level and its trilinear weight wa * wb * wc from the plan's 2-tap tables
@@ -413,10 +369,8 @@ lattice_sweep_bf16_kernel(const bf16* const* __restrict__ vols, const int* __res
                           int row_offset, int r0, int r1, int r2) {
   constexpr int NT = NW * 32;
   constexpr int H0 = NW * 32;
-  constexpr int HS = H0 + 8;  // hidden row stride (bf16): an odd number of 16-byte units
-  constexpr int kTailNT = 32 / NW;  // n-tiles per warp in fc1 and fc2
   constexpr int kABytes = 2 * kM * kAStride * 2;
-  constexpr int kHBytes = kM * HS * 2;
+  constexpr int kHBytes = kM * (H0 + 8) * 2;  // decoder_tail's hidden tile
   constexpr int kUBytes = kABytes > kHBytes ? kABytes : kHBytes;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* abuf = reinterpret_cast<bf16*>(smem);  // A[2][kM][kAStride]; after fc0 the hidden [kM][HS]
@@ -493,22 +447,9 @@ lattice_sweep_bf16_kernel(const bf16* const* __restrict__ vols, const int* __res
     __syncthreads();
   }
 
-  // fc0 bias + ReLU -> bf16 hidden over the A buffers, then fc1, fc2
-  store_hidden<4>(acc, b0, abuf, HS, warp * 32, lane);
-  __syncthreads();
-  BStream<kTailNT / 2> bs1{w1f + warp * (kTailNT / 2) * 32, 16 * 32, H0 / 16, my_ring, lane, 0};
-  dense_bf16<kTailNT>(abuf, HS, H0 / 16, bs1, b1, warp * (256 / NW), lane);
-  BStream<kTailNT / 2> bs2{w2f + warp * (kTailNT / 2) * 32, 16 * 32, 16, my_ring, lane, 0};
-  dense_bf16<kTailNT>(abuf, HS, 16, bs2, b2, warp * (256 / NW), lane);
-
-  // fc_out: a 256-term f32 dot a point, NT / kM threads a point
-  constexpr int TP = NT / kM;
-  const int p = tid / TP, part = tid % TP;
-  float s = 0.f;
-  for (int c = part; c < 256; c += TP) s = fmaf(__bfloat162float(abuf[p * HS + c]), __ldg(w3 + c), s);
-#pragma unroll
-  for (int o = TP / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (part == 0 && p0 + p < n) out[(int64_t)b * n + p0 + p] = s + __ldg(b3);
+  // the decoder tail over the A buffers (mma_bf16.cuh, shared with K3 bf16)
+  decoder_tail<NW, 4>(acc, abuf, b0, w1f, b1, w2f, b2, w3, b3, my_ring,
+                      out + (int64_t)b * n + p0, n - p0);
 }
 
 template <int NW>

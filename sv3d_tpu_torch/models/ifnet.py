@@ -38,7 +38,7 @@ from torch import nn
 from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
-from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
+from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp, mlp_operands
 from sv3d_tpu_torch.ops.cuda.point_query import (
     fc0_block_bf16,
     level_fc0_bf16_cuda,
@@ -286,8 +286,9 @@ class IFNet(nn.Module):
         compute_dtype, the slab's displacement-major (B, 7*sumC, n_slab)
         features materialized (ops/lattice.py slab_features), then the
         decoder through K3 in compute_dtype once per batch element (its plain
-        version for CPU levels): in bf16 K3 rounds the features, the weights
-        and each ReLU output, as the JAX package's K3 does.  The feature
+        version for CPU levels), the weights laid out for it once a call
+        (mlp_operands): in bf16 K3 rounds the features, the weights and each
+        ReLU output, as the JAX package's K3 does.  The feature
         matrix is 7 * sumC * n_slab * 4 bytes (120 MB a lattice row at full
         width), so keep slab_rows small there."""
         cfg = self.config
@@ -305,6 +306,9 @@ class IFNet(nn.Module):
                           cfg.displacement)
         b = f.shape[0]
         weights = [t for layer in self.mlp for t in layer]
-        logits = torch.stack([fused_point_mlp(f[i], *weights, compute_dtype=compute_dtype)
-                              for i in range(b)])
+        # K3's weight layouts once a call, not once an element (the plain
+        # version on CPU levels reads the weights as they are)
+        operands = mlp_operands(weights, compute_dtype) if f.is_cuda else None
+        logits = torch.stack([fused_point_mlp(f[i], *weights, compute_dtype=compute_dtype,
+                                              operands=operands) for i in range(b)])
         return logits.reshape(b, slab_rows, r[1], r[2])

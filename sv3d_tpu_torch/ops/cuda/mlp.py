@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA decoder kernel (sv3d_tpu_torch/csrc/mlp.cu).
+"""Wrapper of the CUDA decoder kernels (sv3d_tpu_torch/csrc/mlp.cu).
 
   fused_point_mlp  K3, replaces sv3d_tpu/ops/pallas/mlp.py::fused_point_mlp
 
@@ -6,36 +6,99 @@ The whole IF-Net decoder, fc0 -> fc1 -> fc2 -> fc_out with biases and ReLUs,
 from a materialized (F, N) feature matrix to (N,) logits; the unfused dense
 sweep's decoder (IFNet.query_lattice(fused_tail=False)).  A CPU tensor runs
 the plain version (sv3d_tpu_torch/ops/mlp.py), a CUDA tensor launches the
-kernel or raises.  compute_dtype float32 is f32 throughout; bfloat16 is the
-JAX kernel's class (features and weights rounded here, each ReLU output in
-the kernel).  Inference-only, as the TPU kernel has no VJP: under autograd it
-raises NotImplementedError.
+kernel of compute_dtype or raises.  bfloat16 is the JAX kernel's class (the
+features rounded on load in the kernel, the weights rounded once by
+mlp_operands, each ReLU output in the kernel) on the tensor cores, for
+IF-Net's widths only (check_bf16_widths); float32 is f32 FMA throughout,
+the parity route.  mlp_operands lays the weights out as the kernel reads
+them, once for many calls with unchanged weights.  Inference-only, as the
+TPU kernel has no VJP: under autograd it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from sv3d_tpu_torch.ops.cuda import build
+from sv3d_tpu_torch.ops.cuda.layouts import mma_b_fragments
 from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES, fused_point_mlp_plain, rounded
+
+# points a block of K3 bf16 by fc0's width (at 256 chip_smoke.py times the
+# 128-point instance beside it; at 512 two accumulators of 64 points would
+# not fit a thread's registers)
+TILE_POINTS = {256: 64, 512: 32}
+
+
+class MlpOperands(NamedTuple):
+    """The decoder's weights as a K3 kernel reads them (mlp_operands)."""
+
+    compute_dtype: torch.dtype
+    shapes: tuple  # the weights' and biases' shapes, in fused_point_mlp's order
+    weights: tuple  # fc0, fc1, fc2, fc_out in the kernel's layouts
+    biases: tuple  # b0, b1, b2, b3 in f32, contiguous
+
+
+def check_bf16_widths(h0: int, h1: int, h2: int) -> None:
+    """Raise ValueError unless (h0, h1, h2) are widths K3 bf16 takes:
+    IF-Net's two decoders, (256, 256, 256) and (512, 256, 256)."""
+    if h0 not in (256, 512) or (h1, h2) != (256, 256):
+        raise ValueError("fused_point_mlp: the bf16 kernel takes hidden widths (256|512, 256, "
+                         f"256), IF-Net's; got {(h0, h1, h2)}")
+
+
+def mlp_operands(weights, compute_dtype=torch.float32) -> MlpOperands:
+    """The eight decoder tensors (w0, b0, w1, b1, w2, b2, w3, b3) as K3 of
+    compute_dtype reads them.  bfloat16: fc0's (H0, F) weight rounded to
+    bf16, its rows padded with zeros to a multiple of 16 and laid out as
+    mma_b_fragments, fc1 and fc2 likewise, fc_out's weight rounded to bf16
+    and held in f32; float32: the transposed (in, out) fc0, fc1, fc2 and
+    fc_out's weight.  Both with contiguous f32 copies of the biases."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"fused_point_mlp: compute_dtype must be one of {COMPUTE_DTYPES}")
+    w0, b0, w1, b1, w2, b2, w3, b3 = (t.detach() for t in weights)
+    shapes = tuple(tuple(t.shape) for t in (w0, b0, w1, b1, w2, b2, w3, b3))
+    with torch.no_grad():
+        if compute_dtype == torch.bfloat16:
+            check_bf16_widths(w0.shape[0], w1.shape[0], w2.shape[0])
+            w0p = F.pad(w0.to(torch.bfloat16), (0, -w0.shape[1] % 16))
+            ws = (mma_b_fragments(w0p), mma_b_fragments(w1.to(torch.bfloat16)),
+                  mma_b_fragments(w2.to(torch.bfloat16)), rounded(w3).reshape(-1).contiguous())
+        else:
+            ws = tuple(w.t().contiguous() for w in (w0, w1, w2)) + (w3.contiguous(),)
+        bs = tuple(b.contiguous() for b in (b0, b1, b2, b3))
+    return MlpOperands(compute_dtype, shapes, ws, bs)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # f, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, n_feat, n, h0, h1, h2, stream
+    "sv3d_fused_point_mlp": [_P] * 10 + [_I] * 5 + [_P],
+    # f, w0f, b0, w1f, b1, w2f, b2, w3, b3, out, n_feat, n, h0, tile_points, stream
+    "sv3d_fused_point_mlp_bf16": [_P] * 10 + [_I] * 4 + [_P],
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
-    fn = build.load().sv3d_fused_point_mlp
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _bind(name: str):
+    fn = getattr(build.load(), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3,
-                    compute_dtype=torch.float32) -> torch.Tensor:
+def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, compute_dtype=torch.float32,
+                    operands: MlpOperands | None = None) -> torch.Tensor:
     """K3: f (F, N) f32 features; w_i (H_out, H_in) with w3 (1, H2); b_i
-    (H_out,).  Returns (N,) f32 logits in compute_dtype's class.  The hidden
-    widths may be at most 512."""
+    (H_out,).  Returns (N,) f32 logits in compute_dtype's class.  operands:
+    mlp_operands((w0, ..., b3), compute_dtype), from a caller that decodes
+    many feature matrices with unchanged weights; made here when None.  In
+    float32 the hidden widths may be at most 512; bfloat16 takes IF-Net's
+    (check_bf16_widths)."""
     args = (f, w0, b0, w1, b1, w2, b2, w3, b3)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise NotImplementedError(
@@ -43,6 +106,11 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3,
             "under torch.no_grad() or torch.inference_mode()")
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"fused_point_mlp: compute_dtype must be one of {COMPUTE_DTYPES}")
+    if operands is not None and (
+            operands.compute_dtype != compute_dtype
+            or operands.shapes != tuple(tuple(t.shape) for t in args[1:])):
+        raise ValueError("fused_point_mlp: operands were made for other weights or another "
+                         "compute_dtype")
     if f.device.type == "cpu":
         return fused_point_mlp_plain(*args, compute_dtype=compute_dtype)
     if f.device.type != "cuda":
@@ -59,19 +127,43 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3,
             raise ValueError(f"fused_point_mlp: argument {i} must be {shape}, got {tuple(t.shape)}")
     if not f.is_contiguous():
         raise ValueError("fused_point_mlp: f must be contiguous")
-    if max(h0, h1, h2) > 512:
-        raise ValueError(f"fused_point_mlp: hidden widths up to 512, got {(h0, h1, h2)}")
     bf16 = compute_dtype == torch.bfloat16
     if bf16:
-        f, w0, w1, w2, w3 = (rounded(t) for t in (f, w0, w1, w2, w3))
-    w0t, w1t, w2t = (w.t().contiguous() for w in (w0, w1, w2))
-    w3c, b0c, b1c, b2c, b3c = (t.contiguous() for t in (w3, b0, b1, b2, b3))
+        check_bf16_widths(h0, h1, h2)
+    elif max(h0, h1, h2) > 512:
+        raise ValueError(f"fused_point_mlp: hidden widths up to 512, got {(h0, h1, h2)}")
+    if operands is None:
+        operands = mlp_operands(args[1:], compute_dtype)
+    elif any(t.device != f.device for t in operands.weights + operands.biases):
+        raise ValueError(f"fused_point_mlp: operands must lie on {f.device}")
+    return (_launch_bf16(f, operands, TILE_POINTS[h0]) if bf16
+            else _launch_f32(f, operands))
+
+
+def _launch_bf16(f, operands: MlpOperands, tile_points: int) -> torch.Tensor:
+    """K3 bf16 on checked inputs; tile_points TILE_POINTS[h0] or, at h0
+    256, 128."""
+    n_feat, n = f.shape
     out = torch.empty((n,), dtype=torch.float32, device=f.device)
-    rc = _bind()(
-        f.data_ptr(), w0t.data_ptr(), b0c.data_ptr(), w1t.data_ptr(), b1c.data_ptr(),
-        w2t.data_ptr(), b2c.data_ptr(), w3c.data_ptr(), b3c.data_ptr(), out.data_ptr(),
-        n_feat, n, h0, h1, h2, int(bf16), torch.cuda.current_stream(f.device).cuda_stream,
-    )
+    (w0f, w1f, w2f, w3), (b0, b1, b2, b3) = operands.weights, operands.biases
+    rc = _bind("sv3d_fused_point_mlp_bf16")(
+        f.data_ptr(), w0f.data_ptr(), b0.data_ptr(), w1f.data_ptr(), b1.data_ptr(),
+        w2f.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        n_feat, n, b0.shape[0], tile_points, torch.cuda.current_stream(f.device).cuda_stream)
+    build.check(rc, "sv3d_fused_point_mlp_bf16")
+    fused_point_mlp.launches += 1
+    return out
+
+
+def _launch_f32(f, operands: MlpOperands) -> torch.Tensor:
+    n_feat, n = f.shape
+    out = torch.empty((n,), dtype=torch.float32, device=f.device)
+    (w0t, w1t, w2t, w3), (b0, b1, b2, b3) = operands.weights, operands.biases
+    rc = _bind("sv3d_fused_point_mlp")(
+        f.data_ptr(), w0t.data_ptr(), b0.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+        w2t.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        n_feat, n, b0.shape[0], b1.shape[0], b2.shape[0],
+        torch.cuda.current_stream(f.device).cuda_stream)
     build.check(rc, "sv3d_fused_point_mlp")
     fused_point_mlp.launches += 1
     return out

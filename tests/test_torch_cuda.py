@@ -270,6 +270,24 @@ def test_k3_bf16_mean_limit_fails_wrong_rounding(net_res):
     assert smoke["rel_mean_err"](wrong, ref) > smoke["K3_BF16_REL_MEAN_TOL"]
 
 
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_k3_bf16_mean_limit_fails_unrounded_features(net_res):
+    """chip_smoke.py's plain_bf16_mlp with the features left unrounded (the
+    rounding that K3 bf16 does on load): it fails K3 bf16's mean limit on a
+    slab of the served decoder's features (CPU; measured 1.1e-2 at net_res
+    128 and 3.0e-3 at 32 against the limit's 3e-4)."""
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    dims = (17, 16, 18) if net_res == 128 else (12, 9, 10)
+    cfg, model, levels = _encoded(net_res, dims)
+    weights = [t.detach() for layer in model.mlp for t in layer]
+    with torch.inference_mode():
+        f = slab_features(levels, dims, 1, dims[0] // 2, cfg.align_corners,
+                          cfg.displacement)[0]
+        ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
+        wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("feature",))
+    assert smoke["rel_mean_err"](wrong, ref) > smoke["K3_BF16_REL_MEAN_TOL"]
+
+
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_bf16_points_mean_limit_fails_another_class(net_res, dims):
     """chip_smoke.py's points_card_vs_cpu with the CPU model on both sides:
@@ -877,8 +895,9 @@ def test_level_fc0_bf16_kernel_matches_plain_on_card(ac, disp, c, h, cuda_device
 @pytest.mark.cuda
 @pytest.mark.parametrize("net_res", [128, 32])
 def test_mlp_kernel_bf16_matches_plain_on_card(net_res, cuda_device):
-    """K3 with compute_dtype bfloat16 (features and weights rounded by the
-    wrapper, each ReLU output in the kernel) against its plain bf16 version:
+    """K3 with compute_dtype bfloat16 (the features rounded on load and each
+    ReLU output in the kernel, the weights by mlp_operands; fc0-fc2 on the
+    tensor cores) against its plain bf16 version:
     atol chip_smoke.py's K3_BF16_TOL on logits (a hidden activation may round
     the other way of a bf16 boundary) and mean |error| within
     K3_BF16_REL_MEAN_TOL of the mean |logit|, a limit that the plain bf16
@@ -899,6 +918,132 @@ def test_mlp_kernel_bf16_matches_plain_on_card(net_res, cuda_device):
     assert smoke["rel_mean_err"](got, ref) <= tol
     wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("hidden",))
     assert smoke["rel_mean_err"](wrong, ref) > tol
+
+
+def _k3_inputs(net_res, n, device, misaligned=False):
+    """IF-Net's decoder weights at net_res and the first n points of one
+    lattice row's features (F, n) at the serving dims (139, 104, 112), as
+    the unfused sweep hands them to K3: slab_features of a seeded
+    occupancy grid's pyramid; misaligned: f starts 4 bytes past a 16-byte
+    boundary."""
+    dims = (139, 104, 112)
+    cfg = IFNetConfig.for_net_res(net_res)
+    model = IFNet(cfg, device=device, generator=torch.Generator().manual_seed(net_res)).eval()
+    weights = [t.detach() for layer in model.mlp for t in layer]
+    grid = (np.random.default_rng(net_res).uniform(0, 1, (1, *dims, 1)) > 0.9).astype(np.float32)
+    with torch.inference_mode():
+        levels = model.encode(torch.tensor(grid, device=device))
+        row = slab_features(levels, dims, 1, 69, cfg.align_corners, cfg.displacement)[0]
+        vals = row[:, :n].contiguous()
+        if not misaligned:
+            return vals, weights
+        f = torch.empty(vals.numel() + 1, device=device)[1:].view(vals.shape)
+        f.copy_(vals)
+    assert f.data_ptr() % 16 == 4 and f.is_contiguous()
+    return f, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,misaligned", [(1, False), (63, False), (1001, False),
+                                          (1000, True), (11648, False)])
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_mlp_kernel_bf16_ragged_on_card(net_res, n, misaligned, cuda_device):
+    """K3 bf16 on a lattice row's features at F 2583 / 2247 (no multiple of
+    16: a zero-padded last chunk) and ragged N (a partial tile; N % 4 != 0
+    and a misaligned f take the scalar loads; 11,648 is the full row), with
+    and without mlp_operands and, at net_res 128, on both tiles (64 and 128
+    points): one launch a call, bit-identical with and without operands,
+    within chip_smoke.py's K3_BF16_TOL of the plain bf16 version and, from
+    1000 points on, within K3_BF16_REL_MEAN_TOL of the mean |logit|."""
+    from sv3d_tpu_torch.ops.cuda.mlp import TILE_POINTS, _launch_bf16, mlp_operands
+
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    f, weights = _k3_inputs(net_res, n, cuda_device, misaligned)
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        ops = mlp_operands(weights, bf16)
+        before = fused_point_mlp.launches
+        got = fused_point_mlp(f, *weights, compute_dtype=bf16, operands=ops)
+        again = fused_point_mlp(f, *weights, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        assert fused_point_mlp.launches == before + 2
+        assert torch.equal(got, again)
+        ref = fused_point_mlp_plain(f, *weights, compute_dtype=bf16)
+        other = 128 if TILE_POINTS[256] == 64 else 64
+        tiles = [got] + ([_launch_bf16(f, ops, other)] if net_res == 128 else [])
+        for out in tiles:
+            assert out.shape == (n,) and bool(torch.isfinite(out).all())
+            torch.testing.assert_close(out, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
+            if n >= 1000:
+                assert smoke["rel_mean_err"](out, ref) <= smoke["K3_BF16_REL_MEAN_TOL"]
+
+
+@pytest.mark.cuda
+def test_mlp_kernel_bf16_runs_one_kernel_on_card(cuda_device):
+    """A bf16 fused_point_mlp call with its operands made runs one kernel,
+    K3 bf16's, and no cast or copy of f (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
+
+    f, weights = _k3_inputs(128, 11648, cuda_device)
+    with torch.inference_mode():
+        ops = mlp_operands(weights, torch.bfloat16)
+        fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16, operands=ops)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16, operands=ops)
+            torch.cuda.synchronize()
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0}
+    assert len(kernels) == 1, kernels
+    (name, count), = kernels.items()
+    # a window may lose a device event (seen on the H100), never gain one
+    assert "fused_point_mlp_bf16" in name and 1 <= count <= 3, kernels
+
+
+@pytest.mark.cuda
+def test_mlp_kernel_bf16_refuses_other_widths_on_card(cuda_device):
+    """K3 bf16 on a CUDA tensor raises ValueError for widths other than
+    IF-Net's (no other kernel takes them); float32 takes them."""
+    rng = np.random.default_rng(0)
+    mk = lambda *s: torch.tensor((rng.standard_normal(s) / np.sqrt(s[-1])).astype(np.float32),
+                                 device=cuda_device)
+    f = mk(40, 100)
+    for h0, h1, h2 in ((128, 256, 256), (256, 128, 256), (256, 256, 64)):
+        ws = [mk(h0, 40), mk(h0), mk(h1, h0), mk(h1), mk(h2, h1), mk(h2), mk(1, h2), mk(1)]
+        with torch.inference_mode():
+            with pytest.raises(ValueError, match="hidden widths"):
+                fused_point_mlp(f, *ws, compute_dtype=torch.bfloat16)
+            got = fused_point_mlp(f, *ws)
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *ws), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unfused_sweep_makes_operands_once_on_card(dtype, cuda_device, monkeypatch):
+    """query_lattice(fused_tail=False) on a batch of two makes K3's operands
+    once and launches K3 once per batch element."""
+    import sv3d_tpu_torch.models.ifnet as ifnet_module
+
+    made = []
+    real = ifnet_module.mlp_operands
+    monkeypatch.setattr(ifnet_module, "mlp_operands",
+                        lambda *a, **k: made.append(1) or real(*a, **k))
+    dims = (12, 9, 10)
+    cfg = IFNetConfig.for_net_res(32)
+    model = IFNet(cfg, device=cuda_device, generator=torch.Generator().manual_seed(3)).eval()
+    grid = np.random.default_rng(3).uniform(0, 1, (2, *dims, 1)).astype(np.float32)
+    with torch.inference_mode():
+        levels = model.encode(torch.tensor(grid, device=cuda_device))
+        before = fused_point_mlp.launches
+        got = model.query_lattice(levels, dims, 1, 2, 4, dtype, fused_tail=False)
+        torch.cuda.synchronize()
+    assert len(made) == 1 and fused_point_mlp.launches == before + 2
+    assert got.shape == (2, 2, 9, 10) and bool(torch.isfinite(got).all())
 
 
 @pytest.mark.cuda
