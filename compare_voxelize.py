@@ -141,23 +141,32 @@ def design_of(source: str) -> str:
     return "one call" if re.search(r"\bclamp\b", entry.group(1)) else "zeroed"
 
 
-def build_versions(checkouts: dict) -> dict:
-    """{label: checkout root} -> {label: Version}, one nvcc each, all at
-    once."""
+def build_alone(checkouts: dict, source: str) -> dict:
+    """{label: checkout root} -> {label: (library, source text)}: each
+    checkout's sv3d_tpu_torch/csrc/<source> compiled alone by nvcc (its
+    headers beside it) into OUT_DIR, one nvcc each, all at once."""
     from sv3d_tpu_torch.ops.cuda import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, todo, libs = build._nvcc(), [], {}
     for label, root in checkouts.items():
-        src = Path(root) / "sv3d_tpu_torch" / "csrc" / "voxelize.cu"
+        src = Path(root) / "sv3d_tpu_torch" / "csrc" / source
         text = src.read_text()
-        digest = hashlib.sha256((" ".join(build.NVCC_FLAGS) + text).encode()).hexdigest()[:16]
-        lib = OUT_DIR / f"libvoxelize_{digest}.so"
+        headers = "".join(h.read_text() for h in sorted(src.parent.glob("*.cuh")))
+        digest = hashlib.sha256((" ".join(build.NVCC_FLAGS) + text + headers).encode()
+                                ).hexdigest()[:16]
+        lib = OUT_DIR / f"lib{src.stem}_{digest}.so"
         if not lib.exists():
             todo.append([nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)])
-        libs[label] = (lib, design_of(text))
+        libs[label] = (lib, text)
     build._run_all(todo)
-    return {label: Version(label, lib, design) for label, (lib, design) in libs.items()}
+    return libs
+
+
+def build_versions(checkouts: dict) -> dict:
+    """{label: checkout root} -> {label: Version}."""
+    return {label: Version(label, lib, design_of(text))
+            for label, (lib, text) in build_alone(checkouts, "voxelize.cu").items()}
 
 
 def main(argv=None) -> int:

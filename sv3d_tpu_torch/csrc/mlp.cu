@@ -17,9 +17,8 @@
 // 128: 0.036 ms at 3.35 TB/s), against 2 (F H0 + H0 H1 + H1 H2) tensor flops
 // a point (0.019 ms at 989 TFLOP/s), so the bytes; the hidden activations
 // never leave the block.  The block tile is K2 bf16's (sweep.cu): kM = 16
-// kMT points (64 at H0 256, or 128 in the kMT = 8 instance that
-// chip_smoke.py times beside it; 32 at H0 512, for the registers) and all
-// H0 fc0 columns, NW = H0 / 32 warps, warp w owning columns [32 w, 32 w +
+// kMT points (64 at H0 256; 32 at H0 512, for the registers) and all H0
+// fc0 columns, NW = H0 / 32 warps, warp w owning columns [32 w, 32 w +
 // 32) for every point of the tile, mma.sync m16n8k16 bf16 -> f32 through
 // mma_bf16.cuh, fc0's sums promoted from a partial every chunk (Fc0Sums),
 // one block an SM.  fc0 streams the tile's (F, kM) slice of f in chunks of
@@ -41,8 +40,9 @@
 // and the next chunk take 254 registers, so 8 warps an SM leave the
 // mma.sync chain latency-bound; 182 tiles of 64 fill 132 SMs in two waves;
 // each block re-reads W0 from L2 (1.33 MB in bf16, 241 MB a row against
-// 120 MB of features from HBM); kM = 128 halves that but leaves 91 blocks
-// for 132 SMs and keeps its sums in shared memory.  Widths: H0 256 or 512,
+// 120 MB of features from HBM); kM = 128 halves that but was slower on the
+// H100 (PERF.md: 91 blocks for 132 SMs, its sums spilled out of the
+// registers).  Widths: H0 256 or 512,
 // H1 = H2 = 256 (IF-Net's two configurations); the wrapper raises on
 // others.
 //
@@ -270,13 +270,11 @@ struct FChunk {
 // the logits' mean error against the plain version reached
 // K3_BF16_REL_MEAN_TOL on the H100.  So each chunk's 8 steps go into a fresh
 // partial (part) that is then added to the running sums in f32, rounded to
-// nearest.  The sums live in registers, or, where a thread's two arrays
-// would not fit its 255 registers (kMT = 8), in shared memory, each
-// thread's own float4 slots.
-template <int kMT, bool kShared>
+// nearest.
+template <int kMT>
 struct Fc0Sums {
   float s[kMT][4][4];
-  __device__ __forceinline__ void init(void*) {
+  __device__ __forceinline__ void init() {
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -306,51 +304,14 @@ struct Fc0Sums {
   }
 };
 
-template <int kMT>
-struct Fc0Sums<kMT, true> {
-  float4* m;  // this thread's slot of [kMT * 4][blockDim.x] float4
-  __device__ __forceinline__ void init(void* p) {
-    m = reinterpret_cast<float4*>(p) + threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < kMT * 4; ++i) m[i * blockDim.x] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __device__ __forceinline__ void add(float (&part)[kMT][4][4]) {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float4 v = m[(mt * 4 + nt) * blockDim.x];
-        float* q = part[mt][nt];
-        v = make_float4(v.x + q[0], v.y + q[1], v.z + q[2], v.w + q[3]);
-        m[(mt * 4 + nt) * blockDim.x] = v;
-        q[0] = q[1] = q[2] = q[3] = 0.f;
-      }
-  }
-  __device__ __forceinline__ void get(float (&part)[kMT][4][4]) const {
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float4 v = m[(mt * 4 + nt) * blockDim.x];
-        part[mt][nt][0] = v.x;
-        part[mt][nt][1] = v.y;
-        part[mt][nt][2] = v.z;
-        part[mt][nt][3] = v.w;
-      }
-  }
-};
-
 template <int NW, int kMT>
 struct K3Smem {
   static constexpr int kTM = kMT * 16;
   static constexpr int kABytes = 2 * kTM * kAStride * 2;
   static constexpr int kHBytes = kTM * (NW * 32 + 8) * 2;  // decoder_tail's hidden tile
   static constexpr int kUBytes = kABytes > kHBytes ? kABytes : kHBytes;
-  static constexpr bool kShared = kMT > 4;  // Fc0Sums in shared memory
-  // fc0's B ring: a chunk's 8 steps ahead; 3 where the sums take the room
-  static constexpr int kDepth = kShared ? kStages : kFChunk / 16;
-  static constexpr int kRingBytes = NW * kDepth * 2 * 32 * 16;
-  static constexpr int kBytes = kUBytes + kRingBytes + (kShared ? kMT * 4 * NW * 32 * 16 : 0);
+  static constexpr int kDepth = kFChunk / 16;  // fc0's B ring: a chunk's 8 steps ahead
+  static constexpr int kBytes = kUBytes + NW * kDepth * 2 * 32 * 16;
 };
 
 // NW warps, H0 = 32 NW fc0 outputs, kTM = 16 kMT points a block: warp w owns
@@ -378,8 +339,8 @@ fused_point_mlp_bf16_kernel(const float* __restrict__ f, int n_feat, int n,
   uint4* my_ring = ring + warp * S::kDepth * 2 * 32;
   BStream<2, S::kDepth> bs0{w0f + warp * 2 * 32, (H0 / 16) * 32, k16, my_ring, lane, 0};
   bs0.start();
-  Fc0Sums<kMT, S::kShared> sums;
-  sums.init(smem_bytes + S::kUBytes + S::kRingBytes);
+  Fc0Sums<kMT> sums;
+  sums.init();
 
   // chunk c's A tile lives in buffer c % 2; the registers hold chunk c + 1
   // while chunk c is multiplied
@@ -438,21 +399,18 @@ int launch_bf16(const float* f, int n_feat, int n, const void* w0f, const void* 
 }  // namespace
 
 // K3 bf16: w0f, w1f, w2f in mma_b_fragments order (w0f's rows padded to a
-// multiple of 16), w3 rounded to bf16 and held in f32; tile_points 64 or
-// 128 at h0 256, 32 at h0 512
+// multiple of 16), w3 rounded to bf16 and held in f32; 64 points a block at
+// h0 256, 32 at h0 512
 extern "C" int sv3d_fused_point_mlp_bf16(const void* f, const void* w0f, const void* b0,
                                          const void* w1f, const void* b1, const void* w2f,
                                          const void* b2, const void* w3, const void* b3,
-                                         void* out, int n_feat, int n, int h0, int tile_points,
-                                         void* stream) {
+                                         void* out, int n_feat, int n, int h0, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   auto* s = (cudaStream_t)stream;
   const float* F = (const float*)f;
-  if (h0 == 256 && tile_points == 64)
+  if (h0 == 256)
     return launch_bf16<8, 4>(F, n_feat, n, w0f, b0, w1f, b1, w2f, b2, w3, b3, (float*)out, s);
-  if (h0 == 256 && tile_points == 128)
-    return launch_bf16<8, 8>(F, n_feat, n, w0f, b0, w1f, b1, w2f, b2, w3, b3, (float*)out, s);
-  if (h0 == 512 && tile_points == 32)
+  if (h0 == 512)
     return launch_bf16<16, 2>(F, n_feat, n, w0f, b0, w1f, b1, w2f, b2, w3, b3, (float*)out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,7 @@
 // (point_query.cu::level_fc0_bf16_kernel).
 //
 // The tile: kM = 64 points, 4 m-tiles of 16 rows (K3 bf16 also
-// instantiates 2 and 8 m-tiles, 32 and 128 points), its A chunk (a point's
+// instantiates 2 m-tiles, 32 points, at H0 512), its A chunk (a point's
 // features of one group, up to 128 of them) row-major bf16 in shared
 // memory with rows padded to kAStride.  B (a weight matrix) arrives in the fragment order of
 // ops/cuda/layouts.py::mma_b_fragments through a per-warp cp.async ring

@@ -3,15 +3,33 @@
   stage_channels_last  the channels-last (B, G, C) copy of a (B, C, G)
                        level that K4, K5, K7, K2 bf16 and K6 bf16 read
   mma_b_fragments      a weight in the register order of mma.m16n8k16's B
-                       operand, as K2 bf16 and K6 bf16 stream it
+                       operand, as K2 bf16, K3 bf16 and K6 bf16 stream it
+  tensor_record        what a layout made once for many calls records of
+                       a tensor it was made from (matches_record checks it)
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
+
+
+def tensor_record(t: torch.Tensor) -> tuple:
+    """What a layout made once for many calls (SweepPlan, MlpOperands)
+    records of a tensor it was made from: the object (a weak reference), its
+    data pointer, shape and dtype, and its version counter where it has one
+    (an inference tensor, as the levels of a sweep under
+    torch.inference_mode are, has none)."""
+    return (weakref.ref(t), t.data_ptr(), tuple(t.shape), t.dtype,
+            None if t.is_inference() else t._version)
+
+
+def matches_record(record: tuple, t: torch.Tensor) -> bool:
+    """Whether t is the tensor of tensor_record's record, unchanged since."""
+    return record[0]() is t and record[1:] == tensor_record(t)[1:]
 
 
 def stage_channels_last(flat: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,10 @@ features rounded on load in the kernel, the weights rounded once by
 mlp_operands, each ReLU output in the kernel) on the tensor cores, for
 IF-Net's widths only (check_bf16_widths); float32 is f32 FMA throughout,
 the parity route.  mlp_operands lays the weights out as the kernel reads
-them, once for many calls with unchanged weights.  Inference-only, as the
-TPU kernel has no VJP: under autograd it raises NotImplementedError.
+them, once for many calls with unchanged weights, and records which weights
+it was made from: operands made from other weights, or from weights that
+changed in place since, raise ValueError.  Inference-only, as the TPU
+kernel has no VJP: under autograd it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,20 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from sv3d_tpu_torch.ops.cuda import build
-from sv3d_tpu_torch.ops.cuda.layouts import mma_b_fragments
+from sv3d_tpu_torch.ops.cuda.layouts import matches_record, mma_b_fragments, tensor_record
 from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES, fused_point_mlp_plain, rounded
-
-# points a block of K3 bf16 by fc0's width (at 256 chip_smoke.py times the
-# 128-point instance beside it; at 512 two accumulators of 64 points would
-# not fit a thread's registers)
-TILE_POINTS = {256: 64, 512: 32}
 
 
 class MlpOperands(NamedTuple):
     """The decoder's weights as a K3 kernel reads them (mlp_operands)."""
 
     compute_dtype: torch.dtype
-    shapes: tuple  # the weights' and biases' shapes, in fused_point_mlp's order
+    made_from: tuple  # tensor_record of each weight and bias, in fused_point_mlp's order
     weights: tuple  # fc0, fc1, fc2, fc_out in the kernel's layouts
     biases: tuple  # b0, b1, b2, b3 in f32, contiguous
 
@@ -57,11 +54,12 @@ def mlp_operands(weights, compute_dtype=torch.float32) -> MlpOperands:
     bf16, its rows padded with zeros to a multiple of 16 and laid out as
     mma_b_fragments, fc1 and fc2 likewise, fc_out's weight rounded to bf16
     and held in f32; float32: the transposed (in, out) fc0, fc1, fc2 and
-    fc_out's weight.  Both with contiguous f32 copies of the biases."""
+    fc_out's weight.  Both with contiguous f32 copies of the biases, and
+    tensor_record of each of the eight, which fused_point_mlp checks."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"fused_point_mlp: compute_dtype must be one of {COMPUTE_DTYPES}")
+    made_from = tuple(tensor_record(t) for t in weights)
     w0, b0, w1, b1, w2, b2, w3, b3 = (t.detach() for t in weights)
-    shapes = tuple(tuple(t.shape) for t in (w0, b0, w1, b1, w2, b2, w3, b3))
     with torch.no_grad():
         if compute_dtype == torch.bfloat16:
             check_bf16_widths(w0.shape[0], w1.shape[0], w2.shape[0])
@@ -71,15 +69,15 @@ def mlp_operands(weights, compute_dtype=torch.float32) -> MlpOperands:
         else:
             ws = tuple(w.t().contiguous() for w in (w0, w1, w2)) + (w3.contiguous(),)
         bs = tuple(b.contiguous() for b in (b0, b1, b2, b3))
-    return MlpOperands(compute_dtype, shapes, ws, bs)
+    return MlpOperands(compute_dtype, made_from, ws, bs)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # f, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, n_feat, n, h0, h1, h2, stream
     "sv3d_fused_point_mlp": [_P] * 10 + [_I] * 5 + [_P],
-    # f, w0f, b0, w1f, b1, w2f, b2, w3, b3, out, n_feat, n, h0, tile_points, stream
-    "sv3d_fused_point_mlp_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    # f, w0f, b0, w1f, b1, w2f, b2, w3, b3, out, n_feat, n, h0, stream
+    "sv3d_fused_point_mlp_bf16": [_P] * 10 + [_I] * 3 + [_P],
 }
 
 
@@ -96,7 +94,9 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, compute_dtype=torch.float
     """K3: f (F, N) f32 features; w_i (H_out, H_in) with w3 (1, H2); b_i
     (H_out,).  Returns (N,) f32 logits in compute_dtype's class.  operands:
     mlp_operands((w0, ..., b3), compute_dtype), from a caller that decodes
-    many feature matrices with unchanged weights; made here when None.  In
+    many feature matrices with unchanged weights; made here when None;
+    operands made for another compute_dtype or from other tensors than
+    these, or before one of them changed in place, raise ValueError.  In
     float32 the hidden widths may be at most 512; bfloat16 takes IF-Net's
     (check_bf16_widths)."""
     args = (f, w0, b0, w1, b1, w2, b2, w3, b3)
@@ -108,9 +108,11 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, compute_dtype=torch.float
         raise ValueError(f"fused_point_mlp: compute_dtype must be one of {COMPUTE_DTYPES}")
     if operands is not None and (
             operands.compute_dtype != compute_dtype
-            or operands.shapes != tuple(tuple(t.shape) for t in args[1:])):
-        raise ValueError("fused_point_mlp: operands were made for other weights or another "
-                         "compute_dtype")
+            or len(operands.made_from) != len(args) - 1
+            or not all(matches_record(rec, t) for rec, t in zip(operands.made_from, args[1:]))):
+        raise ValueError("fused_point_mlp: the operands are stale: they were made for another "
+                         "compute_dtype or from other weights, or the weights changed in place "
+                         "since; make them anew with mlp_operands")
     if f.device.type == "cpu":
         return fused_point_mlp_plain(*args, compute_dtype=compute_dtype)
     if f.device.type != "cuda":
@@ -136,20 +138,17 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, compute_dtype=torch.float
         operands = mlp_operands(args[1:], compute_dtype)
     elif any(t.device != f.device for t in operands.weights + operands.biases):
         raise ValueError(f"fused_point_mlp: operands must lie on {f.device}")
-    return (_launch_bf16(f, operands, TILE_POINTS[h0]) if bf16
-            else _launch_f32(f, operands))
+    return _launch_bf16(f, operands) if bf16 else _launch_f32(f, operands)
 
 
-def _launch_bf16(f, operands: MlpOperands, tile_points: int) -> torch.Tensor:
-    """K3 bf16 on checked inputs; tile_points TILE_POINTS[h0] or, at h0
-    256, 128."""
+def _launch_bf16(f, operands: MlpOperands) -> torch.Tensor:
     n_feat, n = f.shape
     out = torch.empty((n,), dtype=torch.float32, device=f.device)
     (w0f, w1f, w2f, w3), (b0, b1, b2, b3) = operands.weights, operands.biases
     rc = _bind("sv3d_fused_point_mlp_bf16")(
         f.data_ptr(), w0f.data_ptr(), b0.data_ptr(), w1f.data_ptr(), b1.data_ptr(),
         w2f.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        n_feat, n, b0.shape[0], tile_points, torch.cuda.current_stream(f.device).cuda_stream)
+        n_feat, n, b0.shape[0], torch.cuda.current_stream(f.device).cuda_stream)
     build.check(rc, "sv3d_fused_point_mlp_bf16")
     fused_point_mlp.launches += 1
     return out

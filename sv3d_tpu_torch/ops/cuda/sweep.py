@@ -27,33 +27,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
-
 import numpy as np
 import torch
 
 from sv3d_tpu_torch.ops.cuda import build
 from sv3d_tpu_torch.ops.cuda.layouts import (
     fragment_order,
+    matches_record,
     mma_b_fragments,
     stage_channels_last,
+    tensor_record,
 )
 from sv3d_tpu_torch.ops.lattice import axis0_rows, axis_taps, slab_features
 from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES
 from sv3d_tpu_torch.ops.mlp import rounded as _rounded
-
-
-def _identity(t: torch.Tensor) -> tuple:
-    """What a plan records of a tensor it was made from: the object (a weak
-    reference), its data pointer, shape and dtype, and its version counter
-    where it has one (an inference tensor, as the levels of a sweep under
-    torch.inference_mode are, has none)."""
-    return (weakref.ref(t), t.data_ptr(), tuple(t.shape), t.dtype,
-            None if t.is_inference() else t._version)
-
-
-def _same(record: tuple, t: torch.Tensor) -> bool:
-    return record[0]() is t and record[1:] == _identity(t)[1:]
 
 
 def lattice_sweep_plain(
@@ -207,8 +194,8 @@ class SweepPlan:
             raise ValueError(f"lattice_sweep: compute_dtype must be one of {COMPUTE_DTYPES}")
         levels = [(flat, tuple(int(x) for x in dims)) for flat, dims in levels]
         mlp = list(mlp)
-        self._made_from = ([(_identity(flat), dims) for flat, dims in levels],
-                           [_identity(t) for layer in mlp for t in layer])
+        self._made_from = ([(tensor_record(flat), dims) for flat, dims in levels],
+                           [tensor_record(t) for layer in mlp for t in layer])
         self.levels = [(flat.detach(), dims) for flat, dims in levels]
         self.mlp = [(w.detach(), b.detach()) for w, b in mlp]
         self.r = tuple(int(x) for x in r)
@@ -261,9 +248,9 @@ class SweepPlan:
         params = [t for layer in mlp for t in layer]
         lv, ps = self._made_from
         if len(levels) != len(lv) or len(params) != len(ps) \
-                or not all(_same(rec, flat) and d == dims for (rec, d), (flat, dims)
+                or not all(matches_record(rec, flat) and d == dims for (rec, d), (flat, dims)
                            in zip(lv, levels)) \
-                or not all(_same(rec, t) for rec, t in zip(ps, params)):
+                or not all(matches_record(rec, t) for rec, t in zip(ps, params)):
             raise ValueError("lattice_sweep: the plan is stale: it was made from other levels "
                              "or weights, or they changed in place since; make a new plan")
 

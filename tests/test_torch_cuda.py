@@ -951,11 +951,11 @@ def test_mlp_kernel_bf16_ragged_on_card(net_res, n, misaligned, cuda_device):
     """K3 bf16 on a lattice row's features at F 2583 / 2247 (no multiple of
     16: a zero-padded last chunk) and ragged N (a partial tile; N % 4 != 0
     and a misaligned f take the scalar loads; 11,648 is the full row), with
-    and without mlp_operands and, at net_res 128, on both tiles (64 and 128
-    points): one launch a call, bit-identical with and without operands,
-    within chip_smoke.py's K3_BF16_TOL of the plain bf16 version and, from
-    1000 points on, within K3_BF16_REL_MEAN_TOL of the mean |logit|."""
-    from sv3d_tpu_torch.ops.cuda.mlp import TILE_POINTS, _launch_bf16, mlp_operands
+    and without mlp_operands: one launch a call, bit-identical with and
+    without operands, within chip_smoke.py's K3_BF16_TOL of the plain bf16
+    version and, from 1000 points on, within K3_BF16_REL_MEAN_TOL of the
+    mean |logit|."""
+    from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
 
     smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     f, weights = _k3_inputs(net_res, n, cuda_device, misaligned)
@@ -969,40 +969,30 @@ def test_mlp_kernel_bf16_ragged_on_card(net_res, n, misaligned, cuda_device):
         assert fused_point_mlp.launches == before + 2
         assert torch.equal(got, again)
         ref = fused_point_mlp_plain(f, *weights, compute_dtype=bf16)
-        other = 128 if TILE_POINTS[256] == 64 else 64
-        tiles = [got] + ([_launch_bf16(f, ops, other)] if net_res == 128 else [])
-        for out in tiles:
-            assert out.shape == (n,) and bool(torch.isfinite(out).all())
-            torch.testing.assert_close(out, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
-            if n >= 1000:
-                assert smoke["rel_mean_err"](out, ref) <= smoke["K3_BF16_REL_MEAN_TOL"]
+        assert got.shape == (n,) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
+        if n >= 1000:
+            assert smoke["rel_mean_err"](got, ref) <= smoke["K3_BF16_REL_MEAN_TOL"]
 
 
 @pytest.mark.cuda
 def test_mlp_kernel_bf16_runs_one_kernel_on_card(cuda_device):
-    """A bf16 fused_point_mlp call with its operands made runs one kernel,
-    K3 bf16's, and no cast or copy of f (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Bf16 fused_point_mlp calls with their operands made run one kernel
+    each, K3 bf16's, and no cast or copy of f (chip_smoke.py's
+    one_kernel_a_call): in every torch.profiler window of 10 calls nothing
+    but that kernel, never more often than fused_point_mlp.launches
+    counted, and in one of up to 5 windows exactly as often."""
     from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
 
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     f, weights = _k3_inputs(128, 11648, cuda_device)
     with torch.inference_mode():
         ops = mlp_operands(weights, torch.bfloat16)
-        fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16, operands=ops)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16, operands=ops)
-            torch.cuda.synchronize()
-    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
-                        or getattr(e, "self_cuda_time_total", 0))
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0}
-    assert len(kernels) == 1, kernels
-    (name, count), = kernels.items()
-    # a window may lose a device event (seen on the H100), never gain one
-    assert "fused_point_mlp_bf16" in name and 1 <= count <= 3, kernels
+        windows = smoke["one_kernel_a_call"](
+            lambda: fused_point_mlp(f, *weights, compute_dtype=torch.bfloat16, operands=ops),
+            "fused_point_mlp_bf16", lambda: fused_point_mlp.launches, calls=10, tries=5)
+    (name, count), = windows[-1][0].items()
+    assert "fused_point_mlp_bf16" in name and count == windows[-1][1] == 10, windows
 
 
 @pytest.mark.cuda

@@ -3,8 +3,12 @@
 mlp_operands lays the decoder's weights out as the K3 kernels read them:
 un-permuting the bf16 fragment-order fc0 with layouts.py's index gives back
 the rounded weight with zero pad rows; the operands do not change what the
-wrapper computes; bf16 takes IF-Net's widths only.  The kernels themselves
+wrapper computes, and operands made from other weights, or from weights
+changed in place since, raise; bf16 takes IF-Net's widths only.  The kernels themselves
 are held to the plain version on the card (tests/test_torch_cuda.py)."""
+
+import runpy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,16 +16,17 @@ import torch
 
 from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.ifnet import IFNet
-from sv3d_tpu_torch.ops.cuda.layouts import fragment_order
+from sv3d_tpu_torch.ops.cuda.layouts import fragment_order, matches_record
 from sv3d_tpu_torch.ops.cuda.mlp import check_bf16_widths, fused_point_mlp, mlp_operands
 from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain, rounded
 
 torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
 
 
-def _decoder(net_res):
+def _decoder(net_res, seed=None):
     model = IFNet(IFNetConfig.for_net_res(net_res),
-                  generator=torch.Generator().manual_seed(net_res)).eval()
+                  generator=torch.Generator().manual_seed(net_res if seed is None else seed)).eval()
     return model, [t.detach() for layer in model.mlp for t in layer]
 
 
@@ -54,7 +59,8 @@ def test_mlp_operands_bf16_layout(net_res):
     for got, b in zip(ops.biases, (b0, b1, b2, b3)):
         assert got.dtype == torch.float32 and got.is_contiguous() and torch.equal(got, b)
     assert ops.compute_dtype == torch.bfloat16
-    assert ops.shapes == tuple(tuple(t.shape) for t in ws)
+    assert len(ops.made_from) == 8
+    assert all(matches_record(rec, t) for rec, t in zip(ops.made_from, ws))
 
 
 @pytest.mark.parametrize("net_res", [128, 32])
@@ -108,3 +114,53 @@ def test_bf16_width_check_raises(widths):
     with pytest.raises(ValueError, match="hidden widths"):
         mlp_operands(ws, torch.bfloat16)
     assert mlp_operands(ws, torch.float32).weights[0].shape == (40, h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["other_weights", "in_place"])
+def test_stale_operands_raise(case, dtype):
+    """Operands made from the weights of another IF-Net of the same config
+    (same shapes, other values), or from these weights before an in-place
+    update, raise ValueError instead of decoding with the weights they
+    hold; operands made anew after the update serve the call."""
+    model, ws = _decoder(32)
+    f = torch.tensor(np.random.default_rng(1).standard_normal(
+        (model.feature_size, 70)).astype(np.float32))
+    if case == "other_weights":
+        _, ws_other = _decoder(32, seed=33)
+        assert all(a.shape == b.shape for a, b in zip(ws, ws_other))
+        stale = mlp_operands(ws_other, dtype)
+    else:
+        stale = mlp_operands(ws, dtype)
+        with torch.no_grad():
+            model.mlp[1][0].mul_(0.5)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="stale"):
+            fused_point_mlp(f, *ws, compute_dtype=dtype, operands=stale)
+        got = fused_point_mlp(f, *ws, compute_dtype=dtype, operands=mlp_operands(ws, dtype))
+        assert torch.equal(got, fused_point_mlp_plain(f, *ws, compute_dtype=dtype))
+
+
+@pytest.mark.parametrize("entry,design", [
+    ("extern \"C\" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,\n"
+     "    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3,\n"
+     "    const void* b3, void* out, int n_feat, int n, int h0, int h1,\n"
+     "    int h2, int round_hidden, void* stream) {", "round_hidden"),
+    ("extern \"C\" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,\n"
+     "    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3,\n"
+     "    const void* b3, void* out, int n_feat, int n, int h0, int h1,\n"
+     "    int h2, void* stream) {", "mma"),
+])
+def test_compare_mlp_tells_the_two_c_interfaces_apart(entry, design):
+    """compare_mlp.py calls each checkout's K3 entries with the arguments of
+    its design: the f32 kernel with a round_hidden flag (the bf16 class on
+    it), or without one beside the mma.sync bf16 kernel.  This checkout's
+    source is the mma design, called as its wrapper calls it."""
+    from sv3d_tpu_torch.ops.cuda import mlp as wrapper
+
+    cmp = runpy.run_path(str(ROOT / "compare_mlp.py"))
+    assert cmp["design_of"](entry) == design
+    src = (ROOT / "sv3d_tpu_torch" / "csrc" / "mlp.cu").read_text()
+    assert cmp["design_of"](src) == "mma"
+    assert cmp["_ARGTYPES"]["mma"] == wrapper._ARGTYPES
+    assert set(cmp["_ARGTYPES"][design]) >= {"sv3d_fused_point_mlp"}
