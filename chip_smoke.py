@@ -23,11 +23,21 @@ that each ran its kernels:
             bf16 ones within their class; then the unfused dense sweep
             (query_lattice(fused_tail=False)): kernel K3 (decoder), bf16
             on the tensor cores and f32, held on one full-width row against
-            their plain versions and timed beside the cuBLAS bf16 chain;
+            their plain versions and timed beside the cuBLAS bf16 and f32
+            chains;
   training  SceneNetTrainer(...).fit on a seeded one-scene dataset tree that
             the script writes, B=4, 2x2048 supervision + 4096 projected
             points, fused_query: kernels K1, K1b (scatter backward), K4
-            (point features), K7 and K8 (their backward).
+            (point features), K7 and K8 (their backward);
+  IF-Net-only workflow  a seeded raw tree (the box scene with its distance
+            field, and a view past the far plane) through the preprocessing
+            CLI (the bad view quarantined); ImplicitRefinementTrainer(...).fit
+            on it at full width, B=16 x 4096 points, fused_query: kernels K4
+            and K8 (the points are data, so no K7) and, in its meshed
+            validations, K2 bf16; its meshes normalized (scaled_obj) and
+            scored by the evaluation CLI; an analytic box pair of IoU 1/3;
+  UNet-only DepthRegressorTrainer(...).fit, UNetMini (B=16) and UNet
+            (resize_input), whose checkpoint warm-starts SceneNetTrainer.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -41,17 +51,18 @@ stage (evaluate_points stages its pyramid once a call, rounded to bf16 on
 the bf16 routes); the script times the staging and the kernels apart, at
 both shapes, and prints the layout in which cuDNN returns the conv outputs
 that the levels come from.  K8 is timed per level, with the count of global
-atomic operations it issues.
+atomic operations it issues.  K4, K7 and K8 are also held and timed at the
+IF-Net-only trainer's shape.
 
-It also resumes the fit from its checkpoint, checks that the loss drops over
-10 steps on one fixed batch, holds one f32 train step on the card (kernels)
-and on the CPU (plain versions) against the same step in float64 on the
-CPU, and times kernels, paths and the train step with CUDA events, beside
-each kernel's bound on the card and the time of one PyTorch library call that
-computes the same function, where there is one.  Imports nothing of JAX.  Raises (exit
-code 1) without CUDA, when sv3d_tpu_torch is not beside it (the script
-copied alone) and when any phase fails.  The last line is
-{"ok": true, "device": {...}}.
+It also resumes each fit from its checkpoint, checks that each trainer's
+loss drops over 10 steps on one fixed batch, holds one f32 train step of
+each trainer on the card (kernels) and on the CPU (plain versions) against
+the same step in float64 on the CPU, and times kernels, paths and the train
+steps with CUDA events, beside each kernel's bound on the card and the time
+of one PyTorch library call that computes the same function, where there is
+one.  Imports nothing of JAX.  Raises (exit code 1) without CUDA, when
+sv3d_tpu_torch is not beside it (the script copied alone) and when any phase
+fails.  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -247,14 +259,9 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     of the grid that Config(scale_factor=scale_factor) trains on; the
     supervision points are box-surface samples with N(0, sigma) noise plus
     10% uniform points, labelled against the mesh.  Returns root."""
-    from PIL import Image
-
     from sv3d_tpu_torch.config import Config
     from sv3d_tpu_torch.data.splits import write_split
-    from sv3d_tpu_torch.io.exr import write_exr
     from sv3d_tpu_torch.io.mesh import TriMesh, save_obj
-    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
-    from sv3d_tpu_torch.geometry.frustum import FrustumGrid
     from sv3d_tpu_torch.preprocessing.occupancies import _normalize_mesh, determine_occupancy
 
     rng = np.random.default_rng(seed)
@@ -268,20 +275,9 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     for split in ("train", "val"):
         write_split(root, "overfit", split, [item])
 
-    depth, dirs = box_scene_depth()
-    write_exr(raw / "distance.exr",
-              {"R": (depth * np.linalg.norm(dirs, axis=-1)).astype(np.float32)})
-    shade = np.clip(1.1 - depth / WALL_Z, 0.0, 1.0)[..., None] * np.array([0.9, 0.7, 0.5])
-    shade = shade + 0.05 * rng.standard_normal(shade.shape)
-    Image.fromarray((np.clip(shade, 0, 1) * 255).astype(np.uint8)).save(raw / "rgb.png")
-
-    intr = parse_intrinsics(INTRINSICS)
-    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
+    write_box_view(raw, rng)
     dims = Config(seed=seed, scale_factor=scale_factor).dims
-    c2f = np.asarray(FrustumGrid.create(intr, voxel_size=0.05 * scale_factor).camera2frustum)
-    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
-                        for z in (lo[2], hi[2])])
-    verts = corners @ c2f[:3, :3].T + c2f[:3, 3]
+    verts = box_vertices(scale_factor)
     save_obj(raw / "mesh.obj", verts, _BOX_FACES)
 
     mesh = _normalize_mesh(TriMesh(verts, _BOX_FACES), dims)
@@ -294,9 +290,92 @@ def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
     return root
 
 
-def box_scene_depth() -> tuple:
+def write_box_view(raw: Path, rng, wall_z: float = WALL_Z) -> None:
+    """rgb.png and distance.exr of BOX before a wall at wall_z, into raw."""
+    from PIL import Image
+
+    from sv3d_tpu_torch.io.exr import write_exr
+
+    depth, dirs = box_scene_depth(wall_z)
+    write_exr(raw / "distance.exr",
+              {"R": (depth * np.linalg.norm(dirs, axis=-1)).astype(np.float32)})
+    shade = np.clip(1.1 - depth / WALL_Z, 0.0, 1.0)[..., None] * np.array([0.9, 0.7, 0.5])
+    shade = shade + 0.05 * rng.standard_normal(shade.shape)
+    Image.fromarray((np.clip(shade, 0, 1) * 255).astype(np.uint8)).save(raw / "rgb.png")
+
+
+def box_vertices(scale_factor: int = 1) -> np.ndarray:
+    """BOX's 8 corners (the order of _BOX_FACES) in the voxel-index space of
+    the frustum grid of voxel size 0.05 * scale_factor."""
+    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
+    from sv3d_tpu_torch.geometry.frustum import FrustumGrid
+
+    intr = parse_intrinsics(INTRINSICS)
+    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
+    c2f = np.asarray(FrustumGrid.create(intr, voxel_size=0.05 * scale_factor).camera2frustum)
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                        for z in (lo[2], hi[2])])
+    return corners @ c2f[:3, :3].T + c2f[:3, 3]
+
+
+def box_distance_field() -> np.ndarray:
+    """The distance (voxel units) of each voxel of the full-resolution grid
+    (139, 104, 112) to the solid BOX (0 inside), float32: a
+    distance_field.df whose level-1.0 surface is the box grown by one
+    voxel."""
+    verts = box_vertices(1)
+    lo, hi = verts.min(axis=0), verts.max(axis=0)
+    p = np.indices((139, 104, 112), dtype=np.float64)
+    out = np.maximum(np.maximum(lo[:, None, None, None] - p, p - hi[:, None, None, None]), 0.0)
+    return np.linalg.norm(out, axis=0).astype(np.float32)
+
+
+def iou_box_pair() -> tuple:
+    """A box in the evaluation's unit cube [-0.5, 0.5]^3 that fills a tenth
+    of it (0.4 x 0.5 x 0.5), and the same box shifted by half its width
+    along x: their volumetric IoU is (1/2) / (3/2) = 1/3.  Returns
+    (vertices (2, 8, 3), faces)."""
+    lo, hi = np.array([-0.3, -0.25, -0.25]), np.array([0.1, 0.25, 0.25])
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                        for z in (lo[2], hi[2])])
+    return np.stack([corners, corners + [0.2, 0.0, 0.0]]), _BOX_FACES
+
+
+#: the raw tree's far view: its wall lies past the frustum's 6 m far plane
+FAR_WALL_Z = 7.0
+
+
+def write_raw_tree(root) -> Path:
+    """A seeded raw tree in the layout process_sample_pipeline walks (its
+    CLI reads <root>/raw/<splitsdir>/<scene>/<view> and
+    <root>/raw/intrinsics.txt; the trainers read <root>/intrinsics.txt):
+    scene 00000, view 00 the box scene of write_smoke_dataset with its
+    full-resolution distance_field.df, view 01 the same box before a wall at
+    FAR_WALL_Z, whose grid index past the far end the pipeline must
+    quarantine (IndexError); and splits/overfit/{train,val}.txt listing
+    00000/00.  <splitsdir> is "overfit": the train split repeats its scene
+    50 times.  Returns root."""
+    from sv3d_tpu_torch.data.splits import write_split
+    from sv3d_tpu_torch.io.volume import write_df
+
+    rng = np.random.default_rng(0)
+    root = Path(root)
+    df = box_distance_field()
+    for view, wall_z in (("00", WALL_Z), ("01", FAR_WALL_Z)):
+        raw = root / "raw" / "overfit" / "00000" / view
+        raw.mkdir(parents=True, exist_ok=True)
+        write_box_view(raw, rng, wall_z)
+        write_df(raw / "distance_field.df", df)
+    for path in (root / "intrinsics.txt", root / "raw" / "intrinsics.txt"):
+        path.write_text(INTRINSICS)
+    for split in ("train", "val"):
+        write_split(root, "overfit", split, ["00000/00"])
+    return root
+
+
+def box_scene_depth(wall_z: float = WALL_Z) -> tuple:
     """The one-scene dataset's view: the planar depth (240, 320) of BOX
-    before a wall at WALL_Z, rendered exactly (ray-box distances), and the
+    before a wall at wall_z, rendered exactly (ray-box distances), and the
     ray directions of planar depth 1 (240, 320, 3)."""
     from sv3d_tpu_torch.geometry.camera import parse_intrinsics
 
@@ -311,7 +390,7 @@ def box_scene_depth() -> tuple:
         t_lo, t_hi = lo / dirs, hi / dirs
     t_near = np.minimum(t_lo, t_hi).max(axis=-1)
     t_far = np.maximum(t_lo, t_hi).min(axis=-1)
-    return np.where((t_near <= t_far) & (t_near > 0), t_near, WALL_Z), dirs
+    return np.where((t_near <= t_far) & (t_near > 0), t_near, wall_z), dirs
 
 
 # K1's inputs: a depth map per image, (B, 240, 320) metres
@@ -500,14 +579,15 @@ def window_kernels(fn, calls: int = 10, counter=None) -> tuple:
     return kernels, None if counter is None else counter() - start
 
 
-def one_kernel_a_call(fn, part: str, counter, calls: int = 10, tries: int = 3) -> list:
+def one_kernel_a_call(fn, part: str, counter, calls: int = 10, tries: int = 6) -> list:
     """Check that each call of fn launches one kernel, whose name holds
     part, and runs no other: in every profiled window (window_kernels)
     counter rises by `calls`, no other kernel shows, and that kernel shows
     no more often than counter counted; and one of up to `tries` windows
-    holds every launch.  The profiler now and then loses a device event
-    (seen on the H100: 9 of 10 launches in a window), never adds one, so a
-    short window is profiled again.  Returns the windows profiled."""
+    holds every launch.  The profiler now and then loses device events
+    (seen on the H100: 9 of 10 launches in a window, and in one run 2, 0
+    and 0 of 10 in three windows in a row), never adds one, so a short
+    window is profiled again.  Returns the windows profiled."""
     seen = []
     for _ in range(tries):
         kernels, launched = window_kernels(fn, calls, counter)
@@ -907,6 +987,17 @@ def bf16_chain(f, w0t, b0, w1t, b1, w2t, b2, w3t, b3) -> torch.Tensor:
     return (matmul_bf16(h, w3t) + b3)[:, 0]
 
 
+def f32_chain(f, w0, b0, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """K3 f32's library yardstick: the decoder as a chain of cuBLAS f32
+    products (TF32 off, as the script runs), bias and ReLU between them."""
+    import torch.nn.functional as F
+
+    h = f.t()
+    for w, b in ((w0, b0), (w1, b1), (w2, b2)):
+        h = torch.relu(F.linear(h, w, b))
+    return F.linear(h, w3, b3)[:, 0]
+
+
 def k3_checks(f, weights) -> dict:
     """K3 on one full-width lattice row f (F, N): both kernels against their
     plain versions (bf16 also on the mean limit, which the plain bf16
@@ -940,6 +1031,7 @@ def k3_checks(f, weights) -> dict:
             wrong[skip] = (float((w - ref[bf16]).abs().max()), rel_mean_err(w, ref[bf16]))
         chain = bf16_chain(f, *wt)
         chain_err = (float((chain - ref[bf16]).abs().max()), rel_mean_err(chain, ref[bf16]))
+        chain32_err = float((f32_chain(f, *weights) - ref[f32]).abs().max())
     torch.cuda.synchronize()
     print(f"K3 fused_point_mlp on one full-width row, f {tuple(f.shape)}: max_abs_err bf16 "
           f"{err[bf16]:.3e} (tol {K3_BF16_TOL:g}), mean_abs_err / mean |logit| {mean:.3e} (tol "
@@ -949,11 +1041,14 @@ def k3_checks(f, weights) -> dict:
           f"{wrong['hidden'][1]:.3e} (K3 bf16's mean limit fails it); with its features left "
           f"unrounded: {wrong['feature'][0]:.3e}, mean {wrong['feature'][1]:.3e} (the mean limit "
           f"{'fails' if wrong['feature'][1] > K3_BF16_REL_MEAN_TOL else 'does NOT fail'} it); "
-          f"the cuBLAS bf16 chain: {chain_err[0]:.3e}, mean {chain_err[1]:.3e}", flush=True)
+          f"the cuBLAS bf16 chain: {chain_err[0]:.3e}, mean {chain_err[1]:.3e}; the cuBLAS f32 "
+          f"chain against the plain f32 decoder {chain32_err:.3e} (tol {K3_TOL:g})", flush=True)
     check(err[f32] <= K3_TOL and err[bf16] <= K3_BF16_TOL and mean <= K3_BF16_REL_MEAN_TOL,
           f"K3 disagrees with its plain version: {err}, mean {mean}")
     check(wrong["hidden"][1] > K3_BF16_REL_MEAN_TOL,
           f"K3 bf16's mean limit would pass a decoder without its hidden rounding: {wrong}")
+    check(chain32_err <= K3_TOL, f"the cuBLAS f32 chain disagrees with K3's plain f32: "
+          f"{chain32_err}")
 
     call = lambda: fused_point_mlp(f, *weights, compute_dtype=bf16, operands=ops[bf16])
     with torch.inference_mode():
@@ -968,6 +1063,7 @@ def k3_checks(f, weights) -> dict:
         }
         call_ms = cuda_ms(lambda: fused_point_mlp(f, *weights, compute_dtype=bf16), reps=21)
         chain_ms = cuda_ms(lambda: bf16_chain(f, *wt), reps=21)
+        chain32_ms = cuda_ms(lambda: f32_chain(f, *weights), reps=21)
         # the kernel and the chain in turns, K3, chain, chain, K3: 30 calls
         # back to back between two events, so the device, not the host,
         # sets the pace
@@ -999,8 +1095,10 @@ def k3_checks(f, weights) -> dict:
           + ", ".join(f"{t:.4f}" for t in turns["K3"]) + "; the cuBLAS bf16 chain "
           + ", ".join(f"{t:.4f}" for t in turns["chain"]), flush=True)
     print(f"  K3 f32 (1 row): {ms['K3f32'][0]:.4f} ms, bound {bounds['K3f32'][0]:.4f} ms "
-          f"({bounds['K3f32'][1]}), plain {ms['K3f32'][1]:.4f} ms", flush=True)
-    return {"err": err, "ms": ms, "bounds": bounds, "device_ms": dev, "library_ms": chain_ms}
+          f"({bounds['K3f32'][1]}), plain {ms['K3f32'][1]:.4f} ms; the cuBLAS f32 chain (TF32 "
+          f"off) {chain32_ms:.4f} ms a call", flush=True)
+    return {"err": err, "ms": ms, "bounds": bounds, "device_ms": dev,
+            "library_ms": {"K3": chain_ms, "K3f32": chain32_ms}}
 
 
 POINT_ROUTES = (
@@ -1231,7 +1329,7 @@ def points_path(served, vox, pts_np, smi) -> dict:
             "err": {"K6": checks["K6"][0], "K6bf16": k6b["abs"], "K5": checks["K5"][0],
                     "K3": k3["err"][torch.bfloat16], "K3f32": k3["err"][torch.float32]},
             "ms": {**timed, **k3["ms"]}, "bounds": {**bounds, **k3["bounds"]},
-            "library": {**library, "K3": k3["library_ms"]}, "K3 device_ms": k3["device_ms"]}
+            "library": {**library, **k3["library_ms"]}, "K3 device_ms": k3["device_ms"]}
 
 
 def k1_timings(inputs: dict, dims) -> dict:
@@ -1441,11 +1539,16 @@ def parity_step(cfg, device, dtype=torch.float32, labels=None) -> dict:
     so that every run trains on one set of labels.  Returns the loss, the
     gradients, the state after the step (on the CPU) and the labels."""
     from sv3d_tpu_torch.data.loader import collate
-    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer, to_device, train_step
+    from sv3d_tpu_torch.training.trainer_scene_net import (
+        TENSORS,
+        SceneNetTrainer,
+        to_device,
+        train_step,
+    )
 
     trainer = SceneNetTrainer(cfg, device=device, experiment_dir=WORK / f"parity_{device}")
     ds = trainer.train_dataset()
-    batch = to_device(collate([ds[0], ds[1]]), device)
+    batch = to_device(collate([ds[0], ds[1]]), device, TENSORS)
     state = trainer.build_state()
     state.model.to(dtype)
     batch = {k: v.to(dtype) if torch.is_tensor(v) else v for k, v in batch.items()}
@@ -1479,9 +1582,10 @@ def step_parity(dev, data_root) -> dict:
     return {"card": _against_exact(cfg, card, exact), "cpu": _against_exact(cfg, cpu32, exact)}
 
 
-def _against_exact(cfg, run, exact) -> dict:
+def _against_exact(cfg, run, exact, bn_fed=BN_FED_BIASES) -> dict:
     """The f32 run against the float64 run, each difference as a fraction of
-    its bound (STEP_* above)."""
+    its bound (STEP_* above); bn_fed names the conv biases that feed a
+    train-mode BatchNorm."""
     out = {"loss": (abs(run["loss"] - exact["loss"]) / abs(exact["loss"]) / STEP_RTOL, ""),
            "grads": (0.0, ""), "params": (0.0, ""), "bn": (0.0, "")}
 
@@ -1494,7 +1598,7 @@ def _against_exact(cfg, run, exact) -> dict:
         lr = cfg.lr * (10.0 if n.startswith("project.") else 1.0)
         v = exact["state"][n]
         diff = float((run["state"][n] - v).abs().max())
-        if n in BN_FED_BIASES:
+        if n in bn_fed:
             bound = 1e-4 * float(exact["grads"][n[: -len("bias")] + "weight"].abs().max())
             worst("grads", float(run["grads"][n].abs().max()) / bound, n)
             worst("params", diff / (2 * lr), n)
@@ -1679,6 +1783,340 @@ def step_peak_memory(trainer, batch, gen, names) -> dict:
         return top, top - before
 
     return {name: _run_variant(variants[name], peak) for name in names}
+
+
+def _new_trainer(kind: str):
+    """(trainer class, its module) of the IF-Net-only ("ifnet") or UNet-only
+    ("unet") trainer."""
+    from sv3d_tpu_torch.training import trainer_ifnet, trainer_unet
+
+    if kind == "ifnet":
+        return trainer_ifnet.ImplicitRefinementTrainer, trainer_ifnet
+    return trainer_unet.DepthRegressorTrainer, trainer_unet
+
+
+def fixed_batch(trainer, n: int) -> dict:
+    """The first n samples of the trainer's train split, collated (host)."""
+    from sv3d_tpu_torch.data.loader import collate
+
+    ds = trainer.train_dataset()
+    return collate([ds[i] for i in range(n)])
+
+
+def new_trainer_step(kind: str, cfg, device, dtype=torch.float32) -> dict:
+    """One train step of the IF-Net-only or UNet-only trainer from its
+    seeded weights on the first two samples, on device in dtype (its module's
+    train_step on the batch's device tensors).  Returns the loss, the
+    gradients and the state after the step (on the CPU), as parity_step."""
+    cls, mod = _new_trainer(kind)
+    trainer = cls(cfg, device=device, experiment_dir=WORK / f"parity_{kind}_{device}")
+    host = fixed_batch(trainer, 2)
+    batch = {k: torch.as_tensor(np.asarray(host[k]), dtype=dtype, device=device)
+             for k in mod.TENSORS}
+    state = trainer.build_state()
+    state.model.to(dtype)
+    metrics = mod.train_step(state, batch) if kind == "ifnet" else mod.train_step(state, batch,
+                                                                                   cfg)
+    model = state.model
+    return {
+        "loss": float(next(iter(metrics.values()))),
+        "grads": {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+        "state": {k: v.detach().cpu().double() for k, v in model.state_dict().items()},
+    }
+
+
+def new_step_parity(dev, kind: str, cfg) -> dict:
+    """new_trainer_step on the card (kernels, f32) and on the CPU (plain
+    versions, f32), each held to the same step on the CPU in float64, as
+    step_parity holds the scene step."""
+    exact = new_trainer_step(kind, cfg, "cpu", torch.float64)
+    bn_fed = tuple(b[len("unet."):] for b in BN_FED_BIASES) if kind == "unet" else ()
+    return {run: _against_exact(cfg, new_trainer_step(kind, cfg, device), exact, bn_fed)
+            for run, device in (("card", dev), ("cpu", "cpu"))}
+
+
+def preprocessing_phase(root: Path, scale_factor: int = 1,
+                        num_samples: int = 100000) -> tuple:
+    """write_raw_tree at root, then the preprocessing CLI on it.  Checks the
+    processed view's four files and the far view's quarantine.  Returns
+    (root, seconds of the CLI, samples it walked)."""
+    from sv3d_tpu_torch.preprocessing.process_sample import cli_main as preprocess
+
+    shutil.rmtree(root, ignore_errors=True)
+    write_raw_tree(root)
+    t0 = time.perf_counter()
+    processed, quarantined = preprocess(["--datasetdir", str(root), "--splitsdir", "overfit",
+                                         "--scale_factor", str(scale_factor),
+                                         "--num_samples", str(num_samples)])
+    seconds = time.perf_counter() - t0
+    out = root / "processed" / "overfit" / "00000" / "00"
+    files = ("depth_grid.npz", "target.df", "occupancy_0.01.npz", "occupancy_0.10.npz")
+    check(all((out / f).exists() for f in files), f"preprocessing wrote {sorted(out.iterdir())}")
+    check([Path(q).name for q in quarantined] == ["01"] and len(processed) == 1
+          and (root / "raw" / "quarantine" / "overfit" / "00000" / "01").is_dir()
+          and not (root / "raw" / "overfit" / "00000" / "01").exists(),
+          f"the far view was not quarantined: {processed}, {quarantined}")
+    return root, seconds, len(processed) + len(quarantined)
+
+
+def read_metrics(exp_dir: Path) -> list:
+    return [json.loads(line) for line in (exp_dir / "logs" / "metrics.jsonl").read_text()
+            .splitlines()]
+
+
+def ifnet_fit_phase(cfg, counters) -> dict:
+    """The IF-Net-only fit through the trainer's entry point: fit(12) with
+    the kernel counters read around it (K7 must stay at 0: the step takes no
+    gradient of its points), its logs, its two meshed
+    validations (the GT mesh at cfg.dims) and one resumed step.  Returns
+    {"launches", "seconds", "trainer", "vis"}."""
+    from sv3d_tpu_torch.io.mesh import load_obj
+    from sv3d_tpu_torch.training.trainer_ifnet import ImplicitRefinementTrainer
+
+    exp = WORK / "fit_ifnet"
+    for d in (exp, WORK / "fit_ifnet_resume"):
+        shutil.rmtree(d, ignore_errors=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = ImplicitRefinementTrainer(cfg, device="cuda", experiment_dir=exp)
+    state = trainer.fit(max_steps=12)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    recs = read_metrics(exp)
+    losses = [r["train_ce_loss"] for r in recs if "train_ce_loss" in r]
+    vals = [r["val_ce_loss"] for r in recs if "val_ce_loss" in r]
+    vis = exp / "vis" / "00000" / "00000"
+    gt = load_obj(vis / "00_gt.obj")
+    pred_lines = (vis / "00_predicted.obj").read_text().splitlines()
+    pred_faces = sum(line.startswith("f ") for line in pred_lines)
+    target = trainer.val_dataset()[0]["target"]
+    print(f"IF-Net-only fit: fit(max_steps=12) at B={cfg.batch_size}, {2 * cfg.num_points} points "
+          f"a sample, dims {cfg.dims}, fused_query={cfg.fused_query}, in {seconds:.2f} s; "
+          f"launches {launches}; logged train_ce_loss {losses}, val_ce_loss {vals}; meshes: "
+          f"predicted {pred_faces} faces (level 0.5), GT {len(gt.faces)} faces in "
+          f"[{gt.vertices.min(axis=0).round(2).tolist()}, "
+          f"{gt.vertices.max(axis=0).round(2).tolist()}] (target {target.shape})", flush=True)
+    # the step asks no gradient of its points (data), so K7 has nothing to do
+    check(all(n > 0 for k, n in launches.items() if k != "K7") and launches.get("K7", 0) == 0,
+          f"the IF-Net-only path did not run K4, K8 and K2 bf16 (and not K7): {launches}")
+    check(state.step == 12 and len(losses) == 2 and bool(np.isfinite(losses).all())
+          and len(vals) == 2 and bool(np.isfinite(vals).all()),
+          "the IF-Net-only fit did not log finite losses and two validations")
+    check(len(gt.faces) > 0, "the GT validation mesh has no faces")
+    check(target.shape == (*cfg.dims, 1) and (gt.vertices.min(axis=0) >= 0).all()
+          and (gt.vertices.max(axis=0) <= np.asarray(cfg.dims) - 1).all(),
+          f"the GT mesh is not at the grid's dims {cfg.dims}")
+    last = exp / "checkpoints" / "last"
+    check(last.exists(), "checkpoints/last was not written")
+    resumed = ImplicitRefinementTrainer(cfg.replace(resume=str(last)), device="cuda",
+                                        experiment_dir=WORK / "fit_ifnet_resume")
+    check(resumed.fit(max_steps=13).step == 13, "IF-Net-only resume did not step 12 -> 13")
+    print("IF-Net-only resume: checkpoints/last restored at step 12, one more step to 13",
+          flush=True)
+    return {"launches": launches, "seconds": seconds, "trainer": trainer, "vis": vis,
+            "model": state.model, "pred_faces": pred_faces}
+
+
+def unet_fit_phase(cfg) -> dict:
+    """The UNet-only fits: UNetMini, 12 steps with two validations writing
+    depth maps; UNet (resize_input), 3 steps; then SceneNetTrainer warm-
+    started from the UNetMini checkpoint (--pretrain_unet) holds it bit for
+    bit.  Returns {"seconds": {variant: s}, "trainer": the UNetMini one}."""
+    from sv3d_tpu_torch.io.exr import read_exr
+    from sv3d_tpu_torch.training.checkpoint import restore_tree
+    from sv3d_tpu_torch.training.trainer_unet import DepthRegressorTrainer
+
+    seconds = {}
+    for name, c, steps in (("UNetMini", cfg, 12),
+                           ("UNet", cfg.replace(resize_input=True, visualize=False), 3)):
+        exp = WORK / f"fit_unet_{name}"
+        shutil.rmtree(exp, ignore_errors=True)
+        t0 = time.perf_counter()
+        trainer = DepthRegressorTrainer(c, device="cuda", experiment_dir=exp)
+        state = trainer.fit(max_steps=steps)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        recs = read_metrics(exp)
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        vals = [r["val_loss"] for r in recs if "val_loss" in r]
+        print(f"UNet-only fit, {name}: fit(max_steps={steps}) at B={c.batch_size} in "
+              f"{seconds[name]:.2f} s; logged train_loss {losses}, val_loss {vals}", flush=True)
+        check(state.step == steps and len(losses) >= 1 and bool(np.isfinite(losses).all()),
+              f"the UNet-only fit ({name}) did not log finite losses")
+        if name == "UNetMini":
+            depth = read_exr(exp / "vis" / "00000" / "00000" / "depth_map.exr")
+            d = next(iter(depth.values()))
+            check(len(vals) == 2 and d.shape == (240, 320) and bool(np.isfinite(d).all()),
+                  f"the UNet-only fit did not validate twice with a depth map: {vals}")
+            mini, ckpt = trainer, exp / "checkpoints" / "last"
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+
+    scene = SceneNetTrainer(cfg.replace(pretrain_unet=str(ckpt), batch_size=4),
+                            device="cuda", experiment_dir=WORK / "warm")
+    sd = scene.build_state().model.state_dict()
+    saved = restore_tree(ckpt, map_location="cuda")["model"]
+    unet_keys = [k for k in sd if k.startswith("unet.")]
+    same = all(torch.equal(sd[k], saved[k[len("unet."):]]) for k in unet_keys)
+    print(f"--pretrain_unet: SceneNetTrainer's {len(unet_keys)} unet. tensors equal the "
+          f"UNet-only checkpoint's bit for bit: {same}", flush=True)
+    check(same and len(unet_keys) == len(saved), "the warm start changed a unet. tensor")
+    return {"seconds": seconds, "trainer": mini}
+
+
+def loss_drops(trainer) -> list:
+    """The losses of 10 train steps of a fresh state on one fixed batch of
+    16."""
+    batch = fixed_batch(trainer, 16)
+    state = trainer.build_state()
+    gen = torch.Generator().manual_seed(0)
+    return [float(next(iter(trainer.train_step(state, batch, gen).values())))
+            for _ in range(10)]
+
+
+def evaluation_phase(fit: dict, dims) -> dict:
+    """scaled_obj on the IF-Net-only fit's validation meshes and the
+    evaluation CLI on the normalized predicted meshes against the
+    normalized GT meshes (in its own working directory); then the analytic
+    pair (a box against itself shifted by half its width: IoU 1/3) at the
+    default n_points.  Twelve steps from random weights may leave the
+    prediction on one side of 0.5 everywhere (an empty mesh, which the
+    evaluation cannot load): the predicted meshes scored are then the
+    fitted model's on the same grid at the median of its occupancy field,
+    as phase 4's smoke mesh is."""
+    import os
+
+    from sv3d_tpu_torch.evaluation.metrics import cli_main as evaluate
+    from sv3d_tpu_torch.evaluation.metrics import eval_mesh
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid, implicit_to_mesh
+    from sv3d_tpu_torch.io.mesh import TriMesh
+    from sv3d_tpu_torch.preprocessing.scaled_obj import convert_tree
+
+    out = WORK / "eval"
+    shutil.rmtree(out, ignore_errors=True)
+    vis = out / "meshes" / "00000"
+    shutil.copytree(fit["vis"], vis)
+    level = 0.5
+    if not fit["pred_faces"]:
+        model = fit["model"].eval()
+        grid = torch.as_tensor(fit["trainer"].val_dataset()[0]["input"][None],
+                               device=next(model.parameters()).device)
+        values = evaluate_on_grid(model, grid, dims)
+        level = 1.0 - float(np.median(values))
+        print(f"  the fit's level-0.5 mesh is empty (occupancy field in [{values.min():.4f}, "
+              f"{values.max():.4f}], median {1.0 - level:.4f}); scoring its mesh at the median "
+              "level", flush=True)
+        implicit_to_mesh(model, grid, dims, level, vis / "00_predicted.obj",
+                         transfer_dtype=torch.float32)
+    preds = convert_tree(vis, "*_predicted.obj", dims)
+    preds = convert_tree(vis, "*_predicted.obj", dims)
+    gts = convert_tree(vis, "*_gt.obj", dims)
+    pf = out / "path_files"
+    pf.mkdir(parents=True, exist_ok=True)
+    (pf / "predicted.txt").write_text("".join(f"{p}\n" for p in preds))
+    (pf / "gt.txt").write_text("".join(f"{p}\n" for p in gts))
+    cwd = os.getcwd()
+    os.chdir(out)
+    try:
+        t0 = time.perf_counter()
+        results = evaluate(["--path_files", str(pf), "--experiment", "predicted.txt",
+                            "--gt", "gt.txt"])
+        seconds = (time.perf_counter() - t0) / len(preds)
+    finally:
+        os.chdir(cwd)
+    check((out / "results" / "exp_predicted.txt").exists(), "the evaluation wrote no results")
+    check(all(np.isfinite(results["mean"][k]) for k in ("chamfer_l2", "iou", "normals")),
+          f"non-finite evaluation metrics: {results['mean']}")
+    v, f = iou_box_pair()
+    t0 = time.perf_counter()
+    box = eval_mesh(TriMesh(v[0], f), TriMesh(v[1], f))
+    box_s = time.perf_counter() - t0
+    print(f"evaluation: {len(preds)} predicted mesh(es) (level {level:.4f}) against the GT, "
+          f"{seconds:.3f} s a pair (100,000 points): "
+          + ", ".join(f"{k} {x:.5g}" for k, x in results["mean"].items())
+          + f"; the analytic pair (a box, and the box shifted by half its width) in {box_s:.3f}"
+          f" s: IoU {box['iou']:.5f} (1/3 +- 0.01), chamfer_l2 {box['chamfer_l2']:.5g}",
+          flush=True)
+    check(abs(box["iou"] - 1.0 / 3.0) <= 0.01, f"the analytic pair's IoU is {box['iou']}")
+    return {"mean": results["mean"], "seconds": seconds, "box_iou": box["iou"], "level": level}
+
+
+def peak_step_mib(fn) -> float:
+    """Peak device memory (MiB) of one warm call of fn."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def ifnet_kernel_timings(model, batch, smi) -> dict:
+    """K4, K7 and K8 at the IF-Net-only path's shape (the seeded model's six
+    levels of the batch's depth grids, B x 2 num_points points): each held
+    to its plain version at 1e-5 relative, CUDA-event ms beside the plain
+    version's, the bound (gathered sectors) and the F.grid_sample
+    yardstick.  Returns {name: {"err", "ms", "plain_ms", "bound", "library_ms"}}."""
+    from sv3d_tpu_torch.ops.cuda.point_query import (
+        level_features_cuda,
+        level_grad_points_cuda,
+        level_grad_vol_cuda,
+    )
+    from sv3d_tpu_torch.ops.point_query import (
+        level_features_plain,
+        level_grad_points_plain,
+        level_grad_vol_plain,
+    )
+
+    cfg = model.config
+    ac, disp = cfg.align_corners, cfg.displacement
+    dev = next(model.parameters()).device
+    grid = torch.as_tensor(np.asarray(batch["input"]), device=dev)
+    pts = torch.as_tensor(np.asarray(batch["points"]), device=dev)
+    model.eval()
+    with torch.no_grad():
+        lv = list(model.encode(grid))
+        p = tuple((2.0 * pts[..., i]).contiguous() for i in range(3))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        gs = [torch.randn((*pts.shape[:2], 7 * f.shape[1]), device=dev, generator=gen)
+              for f, _ in lv]
+        calls = {
+            "K4": (lambda: [level_features_cuda(f, *p, d, ac, disp) for f, d in lv],
+                   lambda: [level_features_plain(f, *p, d, ac, disp) for f, d in lv]),
+            "K7": (lambda: [level_grad_points_cuda(f, *p, g, d, ac, disp)
+                            for (f, d), g in zip(lv, gs)],
+                   lambda: [level_grad_points_plain(f, *p, g, d, ac, disp)
+                            for (f, d), g in zip(lv, gs)]),
+            "K8": (lambda: [level_grad_vol_cuda(*p, g, d, ac, disp) for (_, d), g in zip(lv, gs)],
+                   lambda: [level_grad_vol_plain(*p, g, d, ac, disp)
+                            for (_, d), g in zip(lv, gs)]),
+        }
+        out = {}
+        for name, (kernel, plain) in calls.items():
+            err = max(rel_err(a, b)[1] for a, b in zip(kernel(), plain()))
+            torch.cuda.synchronize()
+            out[name] = {"err": err, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, reps=3)}
+        gathered = gathered_bytes(lv, p, ac, disp)
+        n_feat = p[0].numel() * 7 * sum(f.shape[1] for f, _ in lv)
+        out["K4"]["bound"] = bound(gathered + nbytes(*p) + 4 * n_feat, 16.0 * n_feat)
+        out["K7"]["bound"] = bound(gathered + nbytes(*p, *gs) + 12 * p[0].numel(), 64.0 * n_feat)
+        out["K8"]["bound"] = bound(nbytes(*p, *gs, *(f for f, _ in lv)), 16.0 * n_feat)
+    inputs = grid_sample_inputs(lv, p, ac, disp)
+    for name, backward in (("K4", None), ("K7", "points"), ("K8", "level")):
+        out[name]["library_ms"] = grid_sample_ms(inputs, ac, backward)
+    model.train()
+    b, n = pts.shape[:2]
+    print(f"  K4/K7/K8 at the IF-Net-only shape (6 levels, B={b} x {n} points; gathered bytes "
+          f"{gathered} of the levels' {nbytes(*(f for f, _ in lv))}) on {smi}:", flush=True)
+    for name, t in out.items():
+        print(f"    {name}: {t['ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), "
+              f"plain {t['plain_ms']:.4f} ms, F.grid_sample{'' if name == 'K4' else ' backward'} "
+              f"{t['library_ms']:.4f} ms; max rel err {t['err']:.2e} (tol "
+              f"{TRAIN_KERNEL_RTOL[name]:g})", flush=True)
+        check(t["err"] <= TRAIN_KERNEL_RTOL[name],
+              f"{name} disagrees with its plain version at the IF-Net-only shape: {t['err']}")
+    return out
 
 
 def main() -> int:
@@ -2160,6 +2598,109 @@ def main() -> int:
           f"points K7 {library['K7']:.4f} ms and for the levels K8 {library['K8']:.4f} ms "
           "(all 6 levels, B=4 x 8192 points)", flush=True)
 
+    # -- phase 12: offline preprocessing, through its CLI ---------------------
+    ifnet_root, pre_s, pre_n = preprocessing_phase(WORK / "ifnet_data")
+    print(f"preprocessing: process_sample's CLI at --num_samples 100000, full dims: {pre_n} "
+          f"samples (1 processed, 1 quarantined: IndexError past the far plane) in {pre_s:.3f} s, "
+          f"{pre_s / pre_n:.3f} s a sample", flush=True)
+
+    # -- phase 13: the IF-Net-only fit at full width, through its entry point -
+    t_phase = time.perf_counter()
+    ifnet_cfg = Config(seed=0, net_res=128, scale_factor=1, batch_size=16, num_points=2048,
+                       fused_query=True, visualize=True, sanity_steps=0, val_check_interval=6,
+                       datasetdir=str(ifnet_root), splitsdir="overfit", experiment="smoke_ifnet")
+    ifnet_counters = {k: v for k, v in _counters().items() if k in ("K4", "K7", "K8")}
+    ifnet_counters["K2"] = lattice_sweep_bf16_cuda
+    fit_ifnet = ifnet_fit_phase(ifnet_cfg, ifnet_counters)
+    print(f"phase 13 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 14: the UNet-only fits --------------------------------------------
+    t_phase = time.perf_counter()
+    unet_cfg = Config(seed=0, batch_size=16, visualize=True, sanity_steps=0,
+                      val_check_interval=6, datasetdir=str(data_root), splitsdir="overfit",
+                      experiment="smoke_unet")
+    fit_unet = unet_fit_phase(unet_cfg)
+    print(f"phase 14 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 15: the loss drops over 10 steps on one fixed batch, each trainer
+    t_phase = time.perf_counter()
+    drops = {"IF-Net-only": loss_drops(fit_ifnet["trainer"]),
+             "UNet-only": loss_drops(fit_unet["trainer"])}
+    for name, losses in drops.items():
+        print(f"10 {name} steps on one batch of 16: loss {', '.join(f'{x:.5f}' for x in losses)}",
+              flush=True)
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"the {name} loss did not drop: {losses}")
+    print(f"phase 15 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 16: one step of each new trainer, card against CPU ----------------
+    t_phase = time.perf_counter()
+    ifnet8_root, _, _ = preprocessing_phase(WORK / "ifnet_data8", scale_factor=8,
+                                            num_samples=4000)
+    shapes = {"IF-Net-only": "fused_query, scale_factor 8", "UNet-only": "UNetMini, 240x320"}
+    new_par = {
+        "IF-Net-only": new_step_parity(dev, "ifnet", Config(
+            seed=0, scale_factor=8, batch_size=2, num_points=256, fused_query=True,
+            datasetdir=str(ifnet8_root), splitsdir="overfit")),
+        "UNet-only": new_step_parity(dev, "unet", Config(
+            seed=0, batch_size=2, datasetdir=str(data_root), splitsdir="overfit")),
+    }
+    for kind, par_k in new_par.items():
+        for run, res in par_k.items():
+            print(f"{kind} train step ({shapes[kind]}, B=2), {run} f32 vs CPU float64, largest difference as a fraction of its "
+                  "bound (<= 1 passes): "
+                  + ", ".join(f"{k} {r:.3e} {n}" for k, (r, n) in res.items()), flush=True)
+            check(max(r for r, _ in res.values()) <= 1.0,
+                  f"the {run}'s f32 {kind} step disagrees with the float64 step: {res}")
+    print(f"phase 16 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 17: evaluation ----------------------------------------------------
+    t_phase = time.perf_counter()
+    evaluation = evaluation_phase(fit_ifnet, ifnet_cfg.dims)
+    print(f"phase 17 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 18: timings of the new paths ---------------------------------------
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    ifnet_batch = fixed_batch(fit_ifnet["trainer"], 16)
+    new_step_ms, new_peak = {}, {}
+    for name, trainer_kw, batch_of in (
+        ("IF-Net-only fused_query=True", ("ifnet", ifnet_cfg), ifnet_batch),
+        ("IF-Net-only fused_query=False", ("ifnet", ifnet_cfg.replace(fused_query=False)),
+         ifnet_batch),
+        ("UNet-only UNetMini", ("unet", unet_cfg), None),
+        ("UNet-only UNet (resize_input)", ("unet", unet_cfg.replace(resize_input=True)), None),
+    ):
+        cls, _ = _new_trainer(trainer_kw[0])
+        t = cls(trainer_kw[1], device="cuda", experiment_dir=WORK / "time_new")
+        b = batch_of if batch_of is not None else fixed_batch(t, 16)
+        st = t.build_state()
+        new_step_ms[name] = cuda_ms(lambda t=t, st=st, b=b: t.train_step(st, b, gen), reps=5)
+        new_peak[name] = peak_step_mib(lambda t=t, st=st, b=b: t.train_step(st, b, gen))
+        if name == "IF-Net-only fused_query=True":
+            fused_trainer, fused_state = t, st
+        del st
+    _, wall, device_t, events = _profile(
+        lambda: fused_trainer.train_step(fused_state, ifnet_batch, gen), 3)
+    ifnet_prof = [f"profiled IF-Net-only fused_query step (B=16, 4096 points a sample): "
+                  f"{wall:.3f} ms host clock, {device_t:.3f} ms device self time, device idle "
+                  f"{100.0 * (1.0 - device_t / wall):.1f}% (torch.profiler, 3 steps)",
+                  *_top_lines(events, device_t, 3)]
+    for kname, part in (("K4", "level_features_kernel"), ("K7", "level_grad_points"),
+                        ("K8", "level_grad_vol")):
+        ms = sum(_dev_us(e) for e in events if part in e.key) / 1e3 / 3
+        ifnet_prof.append(f"  {kname} ({part}): {ms:.4f} ms a step, "
+                          f"{100.0 * ms / device_t:.3f}% of device time")
+    del fused_state
+    ifnet_k = ifnet_kernel_timings(fit_ifnet["trainer"].build_state().model, ifnet_batch, smi)
+    print(f"IF-Net-only and UNet-only timings on {smi}:", flush=True)
+    for name, ms in new_step_ms.items():
+        print(f"  {name} train step, B=16: median {ms:.3f} ms of 5 (CUDA events, 2 warm-ups); "
+              f"peak device memory {new_peak[name]:.1f} MiB", flush=True)
+    for line in ifnet_prof:
+        print(f"  {line}", flush=True)
+    print(f"phase 18 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
@@ -2167,12 +2708,18 @@ def main() -> int:
         "K1": (launches["scatter_voxels"] + train_launches["K1"], k1_err,
                k1_t[("random", 1)]["ms"], k1_t[("random", 1)]["plain_ms"]),
         # at the serving path's shape: the whole lattice in one launch
-        **{k: (launches[name], k2_err[k], k2_whole_ms[k], k2_plain_whole_ms[k])
-           for k, name in (("K2", "lattice_sweep_bf16"), ("K2f32", "lattice_sweep_f32"))},
+        # K2 bf16 on the serving path and in the IF-Net-only fit's validations
+        "K2": (launches["lattice_sweep_bf16"] + fit_ifnet["launches"]["K2"], k2_err["K2"],
+               k2_whole_ms["K2"], k2_plain_whole_ms["K2"]),
+        "K2f32": (launches["lattice_sweep_f32"], k2_err["K2f32"], k2_whole_ms["K2f32"],
+                  k2_plain_whole_ms["K2f32"]),
         # the random depth at the training shape, as the row has always been read
         "K1b": (train_launches["K1b"], tk["K1b"][0], k1b_t["random"]["ms"],
                 k1b_t["random"]["plain_ms"]),
-        **{k: (train_launches[k], tk[k][0], *kernel_ms[k]) for k in ("K4", "K7", "K8")},
+        # both fits' launches; times at the end-to-end fit's shape, as the rows
+        # have always been read (the IF-Net-only shape under "fit_ifnet")
+        **{k: (train_launches[k] + fit_ifnet["launches"][k], tk[k][0], *kernel_ms[k])
+           for k in ("K4", "K7", "K8")},
         **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k])
            for k in ("K3", "K3f32", "K5", "K6", "K6bf16")},
     }
@@ -2202,9 +2749,22 @@ def main() -> int:
         if key == "K3":  # the kernel's device time, and what the library time is
             kernels[-1]["device_ms"] = pp["K3 device_ms"]
             kernels[-1]["library"] = "cuBLAS bf16 chain: 4 matmul_bf16 with bias and ReLU"
+        if key == "K3f32":
+            kernels[-1]["library"] = "cuBLAS f32 chain (TF32 off): 4 F.linear with ReLU"
         if key == "K1":
             kernels[-1]["launches_by_path"] = {"serving": launches["scatter_voxels"],
                                                "fit": train_launches["K1"]}
+        if key == "K2":
+            kernels[-1]["launches_by_path"] = {"serving": launches["lattice_sweep_bf16"],
+                                               "fit_ifnet": fit_ifnet["launches"]["K2"]}
+        if key in ("K4", "K7", "K8"):
+            t = ifnet_k[key]
+            kernels[-1]["launches_by_path"] = {"fit": train_launches[key],
+                                               "fit_ifnet": fit_ifnet["launches"][key]}
+            kernels[-1]["fit_ifnet"] = {
+                "max_abs_err_rel": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"]}
         if key in ("K1", "K1b"):  # device time, and the box scene beside the random depth
             by = {"K1": {kind: k1_t[(kind, 1)] for kind in ("random", "box")},
                   "K1b": k1b_t}[key]

@@ -1,4 +1,4 @@
-"""Binary .df distance-field reader (a copy of the part of
+"""Binary .df distance-field reader and writer (a copy of the part of
 sv3d_tpu/io/volume.py that the port uses).
 
 Matches reference data_processing/volume_reader.py:20-62: a .df file is
@@ -21,6 +21,13 @@ def read_df(path: str | Path, scale_factor: int = 1) -> np.ndarray:
     if scale_factor != 1:
         df = down_sample(df, scale_factor)
     return np.ascontiguousarray(df)
+
+
+def write_df(path: str | Path, df: np.ndarray):
+    df = np.asarray(df, dtype=np.float32)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<3Q", *df.shape))
+        f.write(np.asfortranarray(df).tobytes(order="F"))
 
 
 def down_sample(df: np.ndarray, factor: int = 2) -> np.ndarray:

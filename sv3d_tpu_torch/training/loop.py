@@ -8,6 +8,9 @@ torch.Generator seeded with config.seed (the JAX loop splits one PRNGKey),
 model initialization from another; the data order and per-item draws are the
 seeded numpy ones of the data layer (sv3d_tpu_torch.data).  One device, given
 by the caller: the multi-device mesh of the JAX loop is not ported yet.
+Every trainer runs float32 with TF32 off (cuDNN's and cuBLAS's TF32
+defaults would break parity with the JAX package's f32 convs and matmuls);
+precision 16 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ from sv3d_tpu_torch.training.logging import MetricLogger
 TRACE_STEPS = 20
 
 
+def to_device(batch: dict, device, keys) -> dict:
+    """The batch with its entries named in keys as float32 tensors on
+    device; the others (names, mesh paths, flags) stay on the host."""
+    out = dict(batch)
+    for k in keys:
+        if k in batch:
+            out[k] = torch.as_tensor(np.asarray(batch[k], np.float32), device=device)
+    return out
+
+
 class BaseTrainer:
     """Subclasses implement:
       build_state() -> TrainState
@@ -45,10 +58,14 @@ class BaseTrainer:
     def __init__(self, config: Config, device="cuda", experiment_dir: Optional[Path] = None):
         if config.dp * config.sp > 1:
             raise NotImplementedError(MULTI_GPU)
+        if config.precision != 32:
+            raise NotImplementedError("sv3d_tpu_torch runs float32 only (precision=32)")
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: CUDA is not available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         random.seed(config.seed)
         np.random.seed(config.seed)
         self.generator = torch.Generator().manual_seed(config.seed)

@@ -32,11 +32,12 @@ from sv3d_tpu_torch.data.datasets import SceneNetDataset
 from sv3d_tpu_torch.geometry import FrustumGrid, read_intrinsics
 from sv3d_tpu_torch.models.scene_net import SceneNet
 from sv3d_tpu_torch.preprocessing.occupancies import determine_occupancy
-from sv3d_tpu_torch.training.loop import BaseTrainer
+from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
 from sv3d_tpu_torch.training.state import TrainState
 
-_TENSORS = ("rgb", "depthmap_target", "points", "occupancies")
+#: the batch entries that go to the device
+TENSORS = ("rgb", "depthmap_target", "points", "occupancies")
 
 
 def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma):
@@ -65,16 +66,6 @@ def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma
 
 def _prefixed(prefix: str, metrics: dict) -> dict:
     return {k if k.startswith("sigma") else f"{prefix}_{k}": v for k, v in metrics.items()}
-
-
-def to_device(batch: dict, device) -> dict:
-    """The batch's float arrays as float32 tensors on device; mesh paths,
-    names and flip flags stay on the host."""
-    out = dict(batch)
-    for k in _TENSORS:
-        if k in batch:
-            out[k] = torch.as_tensor(np.asarray(batch[k], np.float32), device=device)
-    return out
 
 
 def _microbatches(batch: dict, accum: int) -> list:
@@ -136,11 +127,6 @@ class SceneNetTrainer(BaseTrainer):
 
     def __init__(self, config: Config, device="cuda", **kw):
         super().__init__(config, device=device, **kw)
-        if config.precision != 32:
-            raise NotImplementedError("sv3d_tpu_torch runs float32 only (precision=32)")
-        # full f32 convs and matmuls, as the JAX package's parity paths
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         intr_path = Path(config.datasetdir) / "intrinsics.txt"
         if not intr_path.exists():
             raise FileNotFoundError(f"expected shared intrinsics at {intr_path}")
@@ -227,15 +213,16 @@ class SceneNetTrainer(BaseTrainer):
 
     def train_step(self, state, batch, generator):
         idx = self._subsample(batch, generator, max(int(self.config.accum_steps), 1))
-        return train_step(state, to_device(batch, self.device), self.config, idx,
-                          self.label_cloud)
+        return train_step(state, to_device(batch, self.device, TENSORS), self.config,
+                          idx, self.label_cloud)
 
     def _eval_forward(self, state, batch):
         # a fixed subsample for every evaluation, as the JAX eval's PRNGKey(0)
         idx = self._subsample(batch, torch.Generator().manual_seed(0), 1)
         state.model.eval()
         with torch.no_grad():
-            return scene_forward(state.model, self.config, to_device(batch, self.device),
+            return scene_forward(state.model, self.config,
+                                 to_device(batch, self.device, TENSORS),
                                  None if idx is None else idx[0], self.label_cloud)
 
     def eval_step(self, state, batch):

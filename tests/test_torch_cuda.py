@@ -1061,3 +1061,82 @@ def test_stale_plan_raises_on_card(dtype, cuda_device):
                                    cfg.displacement, dtype)
     torch.testing.assert_close(fresh, want, atol=K2_BF16_ATOL, rtol=0)
     assert not torch.equal(fresh, before)
+
+
+class _PlainLevelFeatures(torch.autograd.Function):
+    """level_features with the plain versions of K4, K8 and K7."""
+
+    @staticmethod
+    def forward(ctx, flat, p0, p1, p2, dims, align_corners, displacement):
+        ctx.save_for_backward(flat, p0, p1, p2)
+        ctx.args = (dims, align_corners, displacement)
+        return level_features_plain(flat, p0, p1, p2, dims, align_corners, displacement)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, p0, p1, p2 = ctx.saved_tensors
+        g = g.contiguous()
+        gvol = level_grad_vol_plain(p0, p1, p2, g, *ctx.args)
+        gp = (None, None, None)
+        if any(ctx.needs_input_grad[1:4]):
+            gpts = level_grad_points_plain(flat, p0, p1, p2, g, *ctx.args)
+            gp = tuple(gpts[..., i] for i in range(3))
+        return (gvol, *gp, None, None, None)
+
+
+@pytest.mark.cuda
+def test_ifnet_only_train_step_kernels_match_plain_on_card(cuda_device, monkeypatch):
+    """One IF-Net-only train step at the trainer's default shape (net_res 128,
+    full dims, B=16 x 4096 points, fused_query, cuDNN deterministic) through
+    K4 forward and K8 backward, against the same step with the plain
+    versions of the three, each in f32, and both against the plain step in
+    float64: the losses at 1e-6 of it; the kernels' gradients within 1e-5
+    of the exact ones, relative to each tensor's largest magnitude, or no
+    further from them than twice the plain f32 step.  (The first convs'
+    weight gradients sum 26M products of a BatchNorm backward over a nearly
+    constant sparse grid: there the f32 step itself is ill-conditioned.)
+    The step asks no gradient of its points (data) nor of level 0 (the input
+    grid): K4 runs on 6 levels, K8 on 5, K7 never."""
+    from sv3d_tpu_torch.config import Config
+    from sv3d_tpu_torch.ops.cuda import point_query as pq
+    from sv3d_tpu_torch.training.optim import build_optimizer
+    from sv3d_tpu_torch.training.state import TrainState
+    from sv3d_tpu_torch.training.trainer_ifnet import train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = Config(seed=0, fused_query=True)
+    rng = np.random.default_rng(0)
+    b, n = 16, 4096
+    batch = {
+        "input": (rng.random((b, *cfg.dims, 1)) < 0.005).astype(np.float32),
+        "points": rng.uniform(-0.5, 0.5, (b, n, 3)).astype(np.float32),
+        "occupancies": (rng.random((b, n)) < 0.4).astype(np.float32),
+    }
+    counters = (level_features_cuda, level_grad_vol_cuda, level_grad_points_cuda)
+
+    def step(dtype=torch.float32):
+        model = IFNet(cfg.ifnet(), device=cuda_device, generator=torch.Generator().manual_seed(0))
+        model.to(dtype)
+        state = TrainState(model, build_optimizer(cfg.lr, model))
+        for fn in counters:
+            fn.launches = 0
+        loss = float(train_step(state, {k: torch.tensor(v, dtype=dtype, device=cuda_device)
+                                        for k, v in batch.items()})["train_ce_loss"])
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().double() for k, p in model.named_parameters()}
+        return loss, grads, [fn.launches for fn in counters]
+
+    loss, grads, launched = step()
+    assert launched == [6, 5, 0]
+    monkeypatch.setattr(pq, "_LevelFeatures", _PlainLevelFeatures)
+    plain_loss, plain, launched = step()
+    exact_loss, exact, _ = step(torch.float64)
+    assert launched == [0, 0, 0]
+    for got in (loss, plain_loss):
+        assert np.isfinite(got) and abs(got - exact_loss) <= 1e-6 * abs(exact_loss)
+    errs = {k: (_rel_err(grads[k], e), _rel_err(plain[k], e), _rel_err(grads[k], plain[k]))
+            for k, e in exact.items()}
+    print("kernels vs float64, plain vs float64, kernels vs plain (fraction of the largest "
+          "|gradient|):", {k: tuple(f"{x:.2e}" for x in v) for k, v in errs.items()})
+    for k, (err, plain_err, _) in errs.items():
+        assert err <= max(1e-5, 2.0 * plain_err), (k, err, plain_err)

@@ -55,6 +55,11 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.io.image", "sv3d_tpu_torch.io.volume", "sv3d_tpu_torch.native",
         "sv3d_tpu_torch.utils.visualize", "sv3d_tpu_torch.utils.profiling",
         "sv3d_tpu_torch.data.loader", "sv3d_tpu_torch.data.splits", "sv3d_tpu_torch.ops.mlp", "sv3d_tpu_torch.ops.cuda.mlp",
+        "sv3d_tpu_torch.preprocessing", "sv3d_tpu_torch.preprocessing.process_sample",
+        "sv3d_tpu_torch.preprocessing.create_split", "sv3d_tpu_torch.preprocessing.copy_data",
+        "sv3d_tpu_torch.preprocessing.scaled_obj", "sv3d_tpu_torch.evaluation",
+        "sv3d_tpu_torch.evaluation.metrics", "sv3d_tpu_torch.training.trainer_ifnet",
+        "sv3d_tpu_torch.training.trainer_unet",
     ]
     for m in modules:
         importlib.import_module(m)

@@ -185,10 +185,12 @@ def _f64_grads(cfg, variables, batch, subsample_idx=None, label_fn=None) -> dict
     return {n: p.grad.numpy() for n, p in state.model.named_parameters()}
 
 
-def _compare_step(state, metrics, jstate, jmetrics, jgrads, jgrads64, grads64):
+def _compare_step(state, metrics, jstate, jmetrics, jgrads, jgrads64, grads64,
+                  grad_rtol=GRAD_RTOL, bn_fed=chip_smoke.BN_FED_BIASES):
     """The port's f32 step (state, metrics) and float64 gradients (grads64)
     against JAX's step: its new state and metrics, and its f32 and float64
-    gradients."""
+    gradients (the IF-Net's f32 ones at grad_rtol).  bn_fed: the conv biases
+    that feed a train-mode BatchNorm."""
     for k, v in jmetrics.items():
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-5, atol=1e-5, err_msg=k)
     named = dict(state.model.named_parameters())
@@ -199,7 +201,7 @@ def _compare_step(state, metrics, jstate, jmetrics, jgrads, jgrads64, grads64):
     certain = {}  # elements whose gradient sign both frameworks must share
     for name, p in named.items():
         got, want, exact = p.grad.numpy(), jgrads[name], jgrads64[name]
-        if name in chip_smoke.BN_FED_BIASES:
+        if name in bn_fed:
             weight_g = np.abs(jgrads64[name[: -len("bias")] + "weight"]).max()
             assert max(np.abs(got).max(), np.abs(want).max()) <= 1e-4 * weight_g, name
             assert max(np.abs(grads64[name]).max(), np.abs(exact).max()) <= 1e-12 * weight_g, name
@@ -208,7 +210,7 @@ def _compare_step(state, metrics, jstate, jmetrics, jgrads, jgrads64, grads64):
         np.testing.assert_allclose(grads64[name], exact,
                                    atol=EXACT_RTOL * np.abs(exact).max() + 1e-12 * scale,
                                    err_msg=name)
-        rtol = GRID_GRAD_RTOL if name.startswith(("unet.", "project.")) else GRAD_RTOL
+        rtol = GRID_GRAD_RTOL if name.startswith(("unet.", "project.")) else grad_rtol
         np.testing.assert_allclose(got, exact, atol=rtol * np.abs(exact).max() + floor,
                                    err_msg=name)
         tol = JAX_GRAD_RTOL * np.abs(exact).max() + floor
@@ -245,7 +247,7 @@ def test_train_step_matches_jax(accum, fused):
 
     pcfg = cfg.replace(fused_query=fused)
     state = _port_state(pcfg, variables)
-    metrics = train_step(state, to_device(batch, "cpu"), pcfg)
+    metrics = train_step(state, to_device(batch, "cpu", _TENSORS), pcfg)
     assert state.step == 1
     _compare_step(state, metrics, new_jstate, jmetrics, jgrads, jgrads64,
                   _f64_grads(pcfg, variables, batch))
@@ -277,7 +279,7 @@ def test_subsample_step_matches_jax(smoke_data, tmp_path):
         labels.append(trainer.label_cloud(pc, b))
         return labels[-1]
 
-    metrics = train_step(state, to_device(batch, "cpu"), cfg, [idx], label_fn)
+    metrics = train_step(state, to_device(batch, "cpu", _TENSORS), cfg, [idx], label_fn)
     np.testing.assert_array_equal(labels[0].numpy(), jocc[:, :256])
     assert 0 < labels[0].mean() < 1
     jb = [jnp.asarray(batch[k]) for k in ("rgb", "depthmap_target", "points")] + [jnp.asarray(jocc)]
@@ -307,7 +309,7 @@ def test_train_step_labels_the_queried_cloud(smoke_data, tmp_path):
     hook = state.model.ifnet.register_forward_pre_hook(
         lambda mod, args: queried.append(args[1].detach().clone()))
     label_fn = lambda pc, b: used.append(trainer.label_cloud(pc, b)) or used[-1]
-    train_step(state, to_device(batch, "cpu"), cfg, [idx], label_fn)
+    train_step(state, to_device(batch, "cpu", _TENSORS), cfg, [idx], label_fn)
     hook.remove()
 
     pc_queried = queried[0][:, :256]
