@@ -870,9 +870,14 @@ def point_kernel_checks(ifnet, levels, pts) -> dict:
     with torch.inference_mode():
         for (flat, dims), w0l in zip(levels, ifnet.fc0_operands(4, torch.float32)):
             args = (dims, cfg.align_corners, cfg.displacement)
-            a, r = rel_err(level_fc0_cuda(flat, w0l, *p, *args),
-                           level_fc0_plain(flat, w0l, *p, *args))
+            got = level_fc0_cuda(flat, w0l, *p, *args)
+            a, r = rel_err(got, level_fc0_plain(flat, w0l, *p, *args))
             worst("K6", a, r / K6_RTOL)
+            # K6 f32 reads the level channels-last: a staged view and the
+            # channel-major flat (staged in the wrapper) give the same partial
+            cl = stage_channels_last(flat).transpose(1, 2)
+            check(torch.equal(level_fc0_cuda(cl, w0l, *p, *args), got),
+                  f"K6 f32 gives another partial on a staged level (C {flat.shape[1]})")
             level16 = stage_channels_last(flat.to(torch.bfloat16)).transpose(1, 2)
             worst("K5", *k5_error(level_features_banded_cuda(level16, *p, *args),
                                   level_features_banded_plain(level16, *p, *args)))
@@ -1051,10 +1056,16 @@ def k3_checks(f, weights) -> dict:
           f"{chain32_err}")
 
     call = lambda: fused_point_mlp(f, *weights, compute_dtype=bf16, operands=ops[bf16])
+    call32 = lambda: fused_point_mlp(f, *weights, operands=ops[f32])
     with torch.inference_mode():
         windows = one_kernel_a_call(call, "fused_point_mlp_bf16",
                                     lambda: fused_point_mlp.launches)
         dev = device_ms(call, ["fused_point_mlp_bf16"])["fused_point_mlp_bf16"]
+        # K3 f32's kernel is fused_point_mlp_kernel<kM, HP>, a name that the
+        # bf16 kernel's does not hold
+        windows32 = one_kernel_a_call(call32, "fused_point_mlp_kernel",
+                                      lambda: fused_point_mlp.launches)
+        dev32 = device_ms(call32, ["fused_point_mlp_kernel"])["fused_point_mlp_kernel"]
         ms = {
             "K3": (cuda_ms(call, reps=21),
                    cuda_ms(lambda: fused_point_mlp_plain(f, *weights, compute_dtype=bf16))),
@@ -1067,9 +1078,10 @@ def k3_checks(f, weights) -> dict:
         # the kernel and the chain in turns, K3, chain, chain, K3: 30 calls
         # back to back between two events, so the device, not the host,
         # sets the pace
-        turns = {"K3": [], "chain": []}
-        for key in ("K3", "chain", "chain", "K3"):
-            fn = (lambda: bf16_chain(f, *wt)) if key == "chain" else call
+        turns = {"K3": [], "chain": [], "K3f32": [], "chain32": []}
+        for key in ("K3", "chain", "chain", "K3", "K3f32", "chain32", "chain32", "K3f32"):
+            fn = {"K3": call, "chain": lambda: bf16_chain(f, *wt), "K3f32": call32,
+                  "chain32": lambda: f32_chain(f, *weights)}[key]
             turns[key].append(cuda_ms(lambda fn=fn: [fn() for _ in range(30)], reps=5) / 30)
     n_feat, n = f.shape
     w, b = weights[::2], weights[1::2]
@@ -1094,11 +1106,18 @@ def k3_checks(f, weights) -> dict:
     print("  K3 bf16 back to back (ms a call, in turns): "
           + ", ".join(f"{t:.4f}" for t in turns["K3"]) + "; the cuBLAS bf16 chain "
           + ", ".join(f"{t:.4f}" for t in turns["chain"]), flush=True)
-    print(f"  K3 f32 (1 row): {ms['K3f32'][0]:.4f} ms, bound {bounds['K3f32'][0]:.4f} ms "
-          f"({bounds['K3f32'][1]}), plain {ms['K3f32'][1]:.4f} ms; the cuBLAS f32 chain (TF32 "
-          f"off) {chain32_ms:.4f} ms a call", flush=True)
-    return {"err": err, "ms": ms, "bounds": bounds, "device_ms": dev,
-            "library_ms": {"K3": chain_ms, "K3f32": chain32_ms}}
+    print(f"  K3 f32 (1 row): {ms['K3f32'][0]:.4f} ms a call with mlp_operands (CUDA events), "
+          f"kernel {dev32:.4f} ms (torch.profiler), the only kernel of the call (K3 kernels / "
+          f"launches by profiled window of 10 calls: "
+          + ", ".join(f"{sum(k.values())}/{n}" for k, n in windows32)
+          + f"); bound {bounds['K3f32'][0]:.4f} ms ({bounds['K3f32'][1]}), plain "
+          f"{ms['K3f32'][1]:.4f} ms; the cuBLAS f32 chain (TF32 off) {chain32_ms:.4f} ms a call",
+          flush=True)
+    print("  K3 f32 back to back (ms a call, in turns): "
+          + ", ".join(f"{t:.4f}" for t in turns["K3f32"]) + "; the cuBLAS f32 chain "
+          + ", ".join(f"{t:.4f}" for t in turns["chain32"]), flush=True)
+    return {"err": err, "ms": ms, "bounds": bounds, "device_ms": dev, "device_ms_f32": dev32,
+            "turns": turns, "library_ms": {"K3": chain_ms, "K3f32": chain32_ms}}
 
 
 POINT_ROUTES = (
@@ -1172,10 +1191,10 @@ def points_path(served, vox, pts_np, smi) -> dict:
     for name, kernel in want.items():
         check(launches[name] == {k: n_levels * n_tiles if k == kernel else 0 for k in counters},
               f"route {name} launched {launches[name]}")
-    # each kernel route but K6 f32's stages its pyramid once a call: every
-    # level but the C = 1 one
+    # each kernel route stages its pyramid once a call: every level but the
+    # C = 1 one
     staged = sum(c > 1 for c in cfg.feature_channels)
-    check(stagings == {"K6 bf16": staged, "K5 bf16": staged, "K6 f32": 0, "K4 f32": staged,
+    check(stagings == {"K6 bf16": staged, "K5 bf16": staged, "K6 f32": staged, "K4 f32": staged,
                        "gather": 0}, f"stagings by route {stagings}")
     check(evaluate_points(ifnet, vox, pts_np[:0]).shape == (0,), "evaluate_points on no points")
 
@@ -1244,9 +1263,31 @@ def points_path(served, vox, pts_np, smi) -> dict:
             route_ms[name].append(cuda_ms(lambda kw=kw: evaluate_points(ifnet, vox, pts_np, **kw),
                                           warmup=1, reps=3))
         k6b_out = torch.zeros((1, len(pts_np), h0), device=dev)
+        # as query_fused runs K6 f32 and K4 + matmul: on the pyramid staged
+        # channels-last once (evaluate_points'), the six partials summed in
+        # one buffer that starts as fc0's bias
+        lvcl = [(stage_channels_last(fl).transpose(1, 2), d) for fl, d in lv]
+        bias = ifnet.fc0.bias.detach()
+
+        def k6_levels():
+            h = bias.expand(1, len(pts_np), h0).contiguous()
+            for (fl, d), w in zip(lvcl, w0ls):
+                level_fc0_cuda(fl, w, *p, d, *args, out=h)
+            return h
+
+        def k4_matmul_levels():
+            h = bias
+            for (fl, d), w in zip(lvcl, ifnet.fc0_blocks()):
+                h = h + torch.matmul(level_features_cuda(fl, *p, d, *args), w)
+            return h
+
+        k6_pair = {"K6": [], "K4+matmul": []}
+        for key in ("K6", "K4+matmul", "K4+matmul", "K6"):
+            k6_pair[key].append(cuda_ms(k6_levels if key == "K6" else k4_matmul_levels))
+        k6_cm = cuda_ms(lambda: [level_fc0_cuda(fl, w, *p, d, *args)
+                                 for (fl, d), w in zip(lv, w0ls)])
         timed = {
-            "K6": (cuda_ms(lambda: [level_fc0_cuda(fl, w, *p, d, *args)
-                                    for (fl, d), w in zip(lv, w0ls)]),
+            "K6": (statistics.median(k6_pair["K6"]),
                    cuda_ms(lambda: [level_fc0_plain(fl, w, *p, d, *args)
                                     for (fl, d), w in zip(lv, w0ls)], warmup=1, reps=3)),
             # as query_fused runs it: the six levels adding into one buffer
@@ -1282,6 +1323,12 @@ def points_path(served, vox, pts_np, smi) -> dict:
     for name, (ms, plain) in timed.items():
         print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms (all 6 levels, {len(pts_np)} points)",
               flush=True)
+    print(f"  K6 f32 over the 6 levels as query_fused runs it (staged channels-last, adding "
+          f"into one buffer), in turns: " + ", ".join(f"{t:.4f}" for t in k6_pair["K6"])
+          + " ms; K4 + the f32 torch.matmul over the same levels (the bands=None route, two "
+          f"calls a level): " + ", ".join(f"{t:.4f}" for t in k6_pair["K4+matmul"])
+          + f" ms; K6 f32 on the channel-major flats (each staged in the wrapper) {k6_cm:.4f} ms",
+          flush=True)
     print(f"  K6 bf16 by level (C {[fl.shape[1] for fl, _ in lv]}): "
           + ", ".join(f"{t:.4f}" for t in k6b_levels) + " ms", flush=True)
     # the levels' gathered sectors and the coordinates in; (1, N, 7 * sumC)
@@ -1322,14 +1369,15 @@ def points_path(served, vox, pts_np, smi) -> dict:
     }
     print(f"  K6 bf16 bound {bounds['K6bf16'][0]:.4f} ms ({bounds['K6bf16'][1]}; gathered bf16 "
           f"bytes {lvl_bytes16})", flush=True)
-    del levels, f, lv16, k6b_out
+    del levels, f, lv16, k6b_out, lvcl
     return {"launches": {"K6": launches["K6 f32"]["K6"], "K6bf16": launches["K6 bf16"]["K6 bf16"],
                          "K5": launches["K5 bf16"]["K5"], "K3": k3_launches[torch.bfloat16],
                          "K3f32": k3_launches[torch.float32]},
             "err": {"K6": checks["K6"][0], "K6bf16": k6b["abs"], "K5": checks["K5"][0],
                     "K3": k3["err"][torch.bfloat16], "K3f32": k3["err"][torch.float32]},
             "ms": {**timed, **k3["ms"]}, "bounds": {**bounds, **k3["bounds"]},
-            "library": {**library, **k3["library_ms"]}, "K3 device_ms": k3["device_ms"]}
+            "library": {**library, **k3["library_ms"]}, "K3 device_ms": k3["device_ms"],
+            "K3f32 device_ms": k3["device_ms_f32"], "K6 yardstick": k6_pair}
 
 
 def k1_timings(inputs: dict, dims) -> dict:
@@ -2181,6 +2229,17 @@ def main() -> int:
     geom = native.build()  # the host geometry library
     print(f"build: {lib.name} and {geom.name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # ptxas's registers and spills (store + load bytes) of the f32 FMA-core
+    # kernels, from the build's report (build.resources)
+    registers = {}
+    for key, part in (("K3f32", "fused_point_mlp_kernel"), ("K6", "level_fc0_kernel")):
+        res = build.resources(part)
+        check(bool(res), f"no ptxas report of {part}")
+        registers[key] = (max(r for r, _, _ in res.values()),
+                          max(st + ld for _, st, ld in res.values()))
+        print(f"registers: {part}: " + ", ".join(
+            f"{name.split(part)[-1].split('EEEv')[0] or '<>'} {r} registers, spill stores "
+            f"{st} B, loads {ld} B" for name, (r, st, ld) in sorted(res.items())), flush=True)
 
     config = Config(seed=0)  # net_res 128, scale_factor 1, inf_res 1, UNetMini
     dims = config.dims
@@ -2750,7 +2809,13 @@ def main() -> int:
             kernels[-1]["device_ms"] = pp["K3 device_ms"]
             kernels[-1]["library"] = "cuBLAS bf16 chain: 4 matmul_bf16 with bias and ReLU"
         if key == "K3f32":
+            kernels[-1]["device_ms"] = pp["K3f32 device_ms"]
             kernels[-1]["library"] = "cuBLAS f32 chain (TF32 off): 4 F.linear with ReLU"
+        if key == "K6":  # a two-call route, not a library call: library_ms stays null
+            kernels[-1]["yardstick_ms"] = pp["K6 yardstick"]["K4+matmul"]
+            kernels[-1]["yardstick"] = "K4 + f32 torch.matmul over the same levels, in turns"
+        if key in registers:
+            kernels[-1]["registers"], kernels[-1]["spill_bytes"] = registers[key]
         if key == "K1":
             kernels[-1]["launches_by_path"] = {"serving": launches["scatter_voxels"],
                                                "fit": train_launches["K1"]}

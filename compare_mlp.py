@@ -6,15 +6,17 @@ one card.
 
 DIR is the root of another checkout of the repository (a `git archive` of
 an earlier commit, unpacked).  Each checkout's mlp.cu is compiled alone by
-nvcc (compare_voxelize.build_alone) and loaded with ctypes.  Two designs of
-its C entries are known:
+nvcc (compare_voxelize.build_alone) and loaded with ctypes.  Three designs
+of its C entries are known:
 
 - "round_hidden": sv3d_fused_point_mlp (f32 FMA) takes a round_hidden flag;
   the bf16 class is that kernel with the flag set on features and weights
   that the wrapper rounded to bf16 in the call;
-- "mma": sv3d_fused_point_mlp has no flag (f32 only), and the bf16 class is
-  sv3d_fused_point_mlp_bf16 (mma.sync, the features rounded on load) on
-  ops/cuda/mlp.py::mlp_operands' layout.
+- "mma": sv3d_fused_point_mlp has no flag (f32 only, one output column a
+  thread), and the bf16 class is sv3d_fused_point_mlp_bf16 (mma.sync, the
+  features rounded on load) on ops/cuda/mlp.py::mlp_operands' layout;
+- "fma": the C entries and layouts of "mma", with K3 f32 on the
+  register-tiled f32 FMA core of csrc/fma_f32.cuh (mlp.cu includes it).
 
 The input is one lattice row at net_res 128, as chip_smoke.py's k3_checks
 takes it (2583 x 11,648: slab_features of a seeded occupancy grid's pyramid
@@ -58,18 +60,23 @@ _ARGTYPES = {
         "sv3d_fused_point_mlp_bf16": [_P] * 10 + [_I] * 3 + [_P],
     },
 }
+_ARGTYPES["fma"] = _ARGTYPES["mma"]
 # the part of a kernel's name that the profiler's events are summed by
 KERNEL = {("round_hidden", "f32"): "fused_point_mlp_kernel",
           ("round_hidden", "bf16"): "fused_point_mlp_kernel",
           ("mma", "f32"): "fused_point_mlp_kernel",
-          ("mma", "bf16"): "fused_point_mlp_bf16_kernel"}
+          ("mma", "bf16"): "fused_point_mlp_bf16_kernel",
+          ("fma", "f32"): "fused_point_mlp_kernel",
+          ("fma", "bf16"): "fused_point_mlp_bf16_kernel"}
 
 
 def design_of(source: str) -> str:
     entry = re.search(r"int\s+sv3d_fused_point_mlp\s*\(([^)]*)\)", source)
     if entry is None:
         raise ValueError("no sv3d_fused_point_mlp entry in the source")
-    return "round_hidden" if "round_hidden" in entry.group(1) else "mma"
+    if "round_hidden" in entry.group(1):
+        return "round_hidden"
+    return "fma" if '#include "fma_f32.cuh"' in source else "mma"
 
 
 class Version:
@@ -108,7 +115,7 @@ class Version:
         out = torch.empty((n,), dtype=torch.float32, device=f.device)
         stream = torch.cuda.current_stream().cuda_stream
         bf16 = dtype == "bf16"
-        if bf16 and self.design == "mma":
+        if bf16 and self.design != "round_hidden":
             name = "sv3d_fused_point_mlp_bf16"
             rc = self.fns[name](f.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
                                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),

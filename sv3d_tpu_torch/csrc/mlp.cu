@@ -46,137 +46,138 @@
 // H1 = H2 = 256 (IF-Net's two configurations); the wrapper raises on
 // others.
 //
-// f32 design (the port's own parity route, f32 FMA throughout): the weights
-// come transposed to (in, out) so that reads along the outputs are
-// coalesced.  What bounds it: 2 * (F*H0 + H0*H1 + H1*H2 + H2) flop a point
-// (1.8 MFLOP at net_res 128) against F*4 bytes of features, so at the
-// card's f32 rate it is compute-bound.  A block owns kMlpPoints points; fc0
-// streams the block's (F, T) tile of f through shared memory kMlpChunk rows
-// at a time, each thread accumulating R output rows (j = threadIdx.x + r *
-// 256) for all T points in registers; the activations of each layer go to
-// one (maxH, T) shared buffer that the next layer reads as broadcasts, and
-// only the logits are written.  F need not be a multiple of anything: the
-// last chunk is masked, and every load is a scalar load (no alignment
-// assumed).
+// f32 design (the port's own parity route, f32 FMA throughout, no tensor
+// cores): the weights come transposed to (in, out), rows of H contiguous.
+// What bounds it: 2 * (F*H0 + H0*H1 + H1*H2 + H2) flop a point on the f32
+// units (1.58 MFLOP at net_res 128: 18.46 GFLOP a lattice row, 0.2756 ms
+// at 67 TFLOP/s) against F*4 bytes of features (0.036 ms), so operations.
+// The block tile is fma_f32.cuh's FmaTile: kM points x HP columns, HP = 256
+// (every width <= 256) or 512 (up to 512), widths padded in the kernel
+// (columns past a layer's width load as zeros and hold relu(0 + 0) = 0),
+// each thread an 8 x 8 register tile, 16 FMAs a shared-memory load.  fc0
+// streams the tile's (F, kM) slice of f through a two-stage cp.async ring
+// (16-byte copies where N % 4 == 0 and f is 16-byte aligned, else 4-byte
+// ones; features past F and points past N are zeros) and W0's rows through
+// the B ring, read once per kM points; the next chunk's copies are in
+// flight during this chunk's FMAs, one barrier a chunk.  fc0's bias + ReLU
+// go into a shared (HP, kM) activation buffer (over the A ring), which fc1
+// and then fc2 read as their resident A operand, their weights streamed
+// through the same B ring; fc_out is an f32 dot a point, TP threads a point
+// summed in shared memory.  Only the logits are written.  Tile: kM = 96
+// at HP 256 (384 threads, 128 KB of shared memory, one block an SM: 122
+// blocks for a lattice row of 11,648 points, one wave on 132 SMs; 64
+// points would make 182 blocks, two on 50 SMs and one on the rest), kM = 48
+// at HP 512 (384 threads, 128 KB).  Each output sums its terms in order k =
+// 0, 1, ... from 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fma_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kMlpPoints = 32;   // T: points per block
-constexpr int kMlpThreads = 256;
-constexpr int kMlpChunk = 32;    // rows of f per shared-memory round
-
-// acc[r][t] += sum_k xs[k][t] * wt[(k0 + k) * h_out + j_r] for k < kk
-template <int R>
-__device__ __forceinline__ void dense_rows(const float* __restrict__ xs, int kk,
-                                           const float* __restrict__ wt,
-                                           int h_out, int k0,
-                                           float (&acc)[R][kMlpPoints]) {
-  for (int k = 0; k < kk; ++k) {
-    const float* x = xs + k * kMlpPoints;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = threadIdx.x + r * kMlpThreads;
-      if (j < h_out) {
-        const float w = wt[(int64_t)(k0 + k) * h_out + j];
-#pragma unroll
-        for (int t = 0; t < kMlpPoints; ++t) acc[r][t] = fmaf(x[t], w, acc[r][t]);
-      }
-    }
+// fc0's A operand: the tile's (kK, kM) slice of f, chunk c in stage c % 2
+// of a [2][kK][kM] ring; 16-byte copies where N % 4 == 0 and f is 16-byte
+// aligned (a quad of points is then all in or all out), else 4-byte copies;
+// features past F and points past N are zeros.
+template <int kM, int kK, int NT>
+struct FeatureA {
+  float* ring;
+  const float* f;
+  int n_feat, n, n0;
+  bool vec;
+  __device__ __forceinline__ void issue(int c) {
+    load_tile<kK, kM, NT>(ring + (c & 1) * kK * kM, f, n_feat, n, c * kK, n0, vec);
   }
+  __device__ __forceinline__ void finish(int) {}
+  __device__ __forceinline__ const float* chunk(int c) const { return ring + (c & 1) * kK * kM; }
+};
+
+// K3 f32's shared memory: the activations, then the B ring
+template <int kM, int HP>
+constexpr int k3_smem() {
+  return HP * kM * 4 + FmaTile<kM, HP>::kBBytes;
 }
 
-// hs[j][t] = relu(acc[r][t] + bias[j]) for this thread's rows; zero acc
-template <int R>
-__device__ __forceinline__ void store_relu(float* __restrict__ hs,
-                                           const float* __restrict__ bias,
-                                           int h_out, float (&acc)[R][kMlpPoints]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = threadIdx.x + r * kMlpThreads;
-    if (j < h_out) {
-      const float bj = bias[j];
-#pragma unroll
-      for (int t = 0; t < kMlpPoints; ++t) {
-        hs[j * kMlpPoints + t] = fmaxf(acc[r][t] + bj, 0.0f);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kMlpPoints; ++t) acc[r][t] = 0.0f;
-  }
+// the blocks an SM holds by shared memory (227 KB, 1 KB reserved a block):
+// the register budget that __launch_bounds__ asks for
+template <int kM, int HP>
+constexpr int k3_blocks() {
+  return 232448 / (k3_smem<kM, HP>() + 1024) > 0 ? 232448 / (k3_smem<kM, HP>() + 1024) : 1;
 }
 
-template <int R>
-__global__ void __launch_bounds__(kMlpThreads)
+// K3 f32: a block owns kM points and all HP (>= every hidden width, padded)
+// columns of each layer.
+template <int kM, int HP>
+__global__ void __launch_bounds__(FmaTile<kM, HP>::NT, (k3_blocks<kM, HP>()))
 fused_point_mlp_kernel(const float* __restrict__ f, int n_feat, int n,
                        const float* __restrict__ w0t, const float* __restrict__ b0,
                        const float* __restrict__ w1t, const float* __restrict__ b1,
                        const float* __restrict__ w2t, const float* __restrict__ b2,
                        const float* __restrict__ w3, const float* __restrict__ b3,
                        float* __restrict__ out, int h0, int h1, int h2) {
+  using T = FmaTile<kM, HP>;
+  constexpr int NT = T::NT, kK = T::kK;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                                 // (R * 256, T) activations
-  float* fs = smem + R * kMlpThreads * kMlpPoints;  // (kMlpChunk, T) tile of f
-  const int64_t n0 = (int64_t)blockIdx.x * kMlpPoints;
-  float acc[R][kMlpPoints];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int t = 0; t < kMlpPoints; ++t) acc[r][t] = 0.0f;
+  float* act = smem;              // [HP][kM] activations; fc0's A ring at its start
+  float* bring = smem + HP * kM;  // [2][kK][HP] weight rows
+  const int n0 = blockIdx.x * kM;
 
-  // fc0: stream f through shared memory, kMlpChunk rows a round
-  for (int k0 = 0; k0 < n_feat; k0 += kMlpChunk) {
-    const int kk = min(kMlpChunk, n_feat - k0);
-    __syncthreads();  // the previous round's readers are done
-    for (int i = threadIdx.x; i < kMlpChunk * kMlpPoints; i += kMlpThreads) {
-      const int k = i / kMlpPoints, t = i % kMlpPoints;
-      const int64_t col = n0 + t;
-      fs[i] = (k < kk && col < n) ? f[(int64_t)(k0 + k) * n + col] : 0.0f;
-    }
-    __syncthreads();
-    dense_rows<R>(fs, kk, w0t, h0, k0, acc);
-  }
-  store_relu<R>(hs, b0, h0, acc);
+  T t;
+  t.init();
+  FeatureA<kM, kK, NT> fa{act, f, n_feat, n, n0, (n & 3) == 0 && aligned16(f)};
+  contract(t, fa, w0t, n_feat, h0, 0, bring);
+  __syncthreads();  // the A ring (over act) and the B ring are read
+  t.store_relu(act, b0, h0);
+  ResidentA<kM, kK> hidden{act};
+  contract(t, hidden, w1t, h0, h1, 0, bring);
   __syncthreads();
-  dense_rows<R>(hs, h0, w1t, h1, 0, acc);
-  __syncthreads();  // every thread has read fc0's activations
-  store_relu<R>(hs, b1, h1, acc);
+  t.store_relu(act, b1, h1);
+  contract(t, hidden, w2t, h1, h2, 0, bring);
   __syncthreads();
-  dense_rows<R>(hs, h1, w2t, h2, 0, acc);
+  t.store_relu(act, b2, h2);
   __syncthreads();
-  store_relu<R>(hs, b2, h2, acc);
+
+  // fc_out: TP threads a point, each a strided share of the h2 terms, summed
+  // over the shares in order in shared memory (over the B ring)
+  constexpr int TP = NT / kM;
+  const int p = threadIdx.x % kM, part = threadIdx.x / kM;
+  float s = 0.f;
+  for (int c = part; c < h2; c += TP) s = fmaf(act[c * kM + p], __ldg(w3 + c), s);
+  bring[part * kM + p] = s;
   __syncthreads();
-  // fc_out: one thread a point
-  if (threadIdx.x < kMlpPoints) {
-    const int t = threadIdx.x;
-    float s = 0.0f;
-    for (int k = 0; k < h2; ++k) s = fmaf(hs[k * kMlpPoints + t], w3[k], s);
-    if (n0 + t < n) out[n0 + t] = s + b3[0];
+  if (threadIdx.x < kM && n0 + p < n) {
+    float r = bring[p];
+#pragma unroll
+    for (int q = 1; q < TP; ++q) r += bring[q * kM + p];
+    out[n0 + p] = r + __ldg(b3);
   }
 }
 
-template <int R>
+template <int kM, int HP>
 int launch(const float* f, int n_feat, int n, const float* w0t, const float* b0,
            const float* w1t, const float* b1, const float* w2t, const float* b2,
            const float* w3, const float* b3, float* out, int h0, int h1, int h2,
            cudaStream_t stream) {
-  const int smem = (R * kMlpThreads + kMlpChunk) * kMlpPoints * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_point_mlp_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using T = FmaTile<kM, HP>;
+  constexpr int smem = k3_smem<kM, HP>();
+  static_assert(HP * kM >= 2 * T::kK * kM && T::kBBytes >= T::NT * 4, "shared-memory reuse");
+  cudaError_t err = cudaFuncSetAttribute(fused_point_mlp_kernel<kM, HP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)(((int64_t)n + kMlpPoints - 1) / kMlpPoints);
-  fused_point_mlp_kernel<R><<<blocks, kMlpThreads, smem, stream>>>(
+  const unsigned blocks = (unsigned)(((int64_t)n + kM - 1) / kM);
+  fused_point_mlp_kernel<kM, HP><<<blocks, T::NT, smem, stream>>>(
       f, n_feat, n, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, h0, h1, h2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// K3 f32: w0t, w1t, w2t the transposed (in, out) weights, w3 (1, h2); hidden
+// widths up to 512, each padded in the kernel to HP = 256 or 512
 extern "C" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,
                                     const void* w1t, const void* b1, const void* w2t,
                                     const void* b2, const void* w3, const void* b3,
@@ -188,10 +189,12 @@ extern "C" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* 
   const float *F = (const float*)f, *W0 = (const float*)w0t, *B0 = (const float*)b0,
               *W1 = (const float*)w1t, *B1 = (const float*)b1, *W2 = (const float*)w2t,
               *B2 = (const float*)b2, *W3 = (const float*)w3, *B3 = (const float*)b3;
-  if (hmax <= kMlpThreads)
-    return launch<1>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2, s);
-  if (hmax <= 2 * kMlpThreads)
-    return launch<2>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1, h2, s);
+  if (hmax <= 256)
+    return launch<96, 256>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out,
+                                     h0, h1, h2, s);
+  if (hmax <= 512)
+    return launch<48, 512>(F, n_feat, n, W0, B0, W1, B1, W2, B2, W3, B3, (float*)out, h0, h1,
+                           h2, s);
   return (int)cudaErrorInvalidValue;
 }
 

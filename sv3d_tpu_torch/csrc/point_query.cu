@@ -89,9 +89,9 @@
 // relative to the gradient's largest magnitude (chip_smoke.py,
 // tests/test_torch_cuda.py).
 //
-// K6 f32 reads the channel-major flat as it is; lanes go to (point,
-// channel) pairs and each lane recomputes the point's 8 corner indices and
-// weights per copy, so each 4-byte read is its own 32-byte sector.
+// K6 f32 reads the channels-last level too (its wrapper stages any other
+// layout; evaluate_points stages its pyramid once a call): a corner's
+// channels are one run, read 16 bytes at a time.
 //
 // K5 is K4 with its features stored as bf16 (round to nearest even), the
 // output type of the TPU's 2-D (slab, band) bucketed kernel; the bucketing
@@ -106,14 +106,26 @@
 // K6 (f32, the parity route) is K4 with the level's block of fc0 contracted
 // in the kernel: out[b, n, h] = sum_{d, c} feat[b, n, d*C + c] * w0l[d*C +
 // c, h], feat being K4's exact f32 features, so the (B, N, 7C) features
-// never reach device memory (what the TPU kernel keeps out of HBM).  A block
-// owns kFc0Points consecutive points and all H outputs, one thread per h, a
-// register accumulator per point; per copy the first warp computes the
-// points' corners into shared memory, the block gathers kFc0Chans channels a
-// round, and every thread contracts them with rows d*C + c of w0l.  It does
+// never reach device memory (what the TPU kernel keeps out of HBM).  It does
 // 2 * 7C * H flop a point in f32 FMA: 346.7 GFLOP at 262,144 points and the
-// six net_res-128 levels, at least 5.2 ms at the f32 rate.  With accumulate
-// set it adds into out, so the caller sums the six partials in one buffer.
+// six net_res-128 levels, at least 5.2 ms at the f32 rate, so operations
+// bound it.  It runs on fma_f32.cuh's core, K3 f32's: a block owns kM = 64
+// points (of the B*N flattened) and 256 columns of H (blockIdx.y takes the
+// next 256, so H up to 1024), each thread an 8 x 8 register tile; the
+// corners of all 7 copies of its points (32-bit offset and weight) go into
+// shared memory once; the 7C feature rows are the A operand, gathered 16
+// rows a chunk: an item is 4 channels of one point (4 adjacent lanes read
+// one corner's 64-byte run), its 8 corners copied by 16-byte cp.async into
+// the thread's staging slots while the chunk before runs its FMAs, then
+// summed in the plain order j = 0..7 into the chunk (a scalar gather for C
+// % 4 != 0 or a misaligned level); the level's block of fc0 streams through
+// the B ring, read once per 64 points.  With accumulate set it adds into out,
+// so the caller sums the six partials in one buffer.  On the H100 it runs
+// at about half its bound, a few percent ahead of K4 plus cuBLAS's f32
+// matmul over the same levels (PERF.md): the core runs at K3 f32's rate,
+// and the gathers (8 corner reads a feature, through the shared-memory
+// staging) take the SM's load/store path that the core's operand reads
+// need too.
 //
 // K6 bf16 (the point query's default, the JAX kernel's precision class): the
 // level rounded to bf16 and read from a channels-last bf16 copy (staged once
@@ -127,7 +139,7 @@
 // point's 8 channels as one 16-byte read a corner into the A chunk, corners
 // and A chunks are double-buffered (one barrier a copy), and the level's
 // block of fc0 streams in fragment order through a per-warp cp.async ring,
-// read once per 64 points (the f32 kernel re-read it once per 32 from L2).
+// read once per 64 points.
 // A one-channel level packs its 7 copies into one k16 chunk.  Levels need C
 // = 1 or C % 16 == 0 up to 128 and H of 256 or 512 (every IF-Net
 // configuration); the wrapper raises otherwise.  Bound: the tensor cores'
@@ -137,6 +149,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fma_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -169,31 +182,6 @@ __device__ __forceinline__ void axis_tap(float p, int s, float disp, int size,
   const float fl = floorf(ix);
   i = (int)fl;
   f = ix - fl;
-}
-
-struct Corners {
-  int64_t lin[8];
-  float w[8];       // trilinear weight, 0 when the corner is out of range
-};
-
-__device__ __forceinline__ void corners(const Level& L, float p0, float p1,
-                                        float p2, int d, Corners& k) {
-  int i0, i1, i2;
-  float f0, f1, f2;
-  axis_tap(p0, kDisp[d][0], L.disp, L.g0, L.ac, i0, f0);
-  axis_tap(p1, kDisp[d][1], L.disp, L.g1, L.ac, i1, f1);
-  axis_tap(p2, kDisp[d][2], L.disp, L.g2, L.ac, i2, f2);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c0 = j >> 2, c1 = (j >> 1) & 1, c2 = j & 1;
-    const int a = i0 + c0, b = i1 + c1, e = i2 + c2;
-    const bool valid = a >= 0 && a < L.g0 && b >= 0 && b < L.g1 && e >= 0 && e < L.g2;
-    const float w0 = c0 ? f0 : 1.0f - f0;
-    const float w1 = c1 ? f1 : 1.0f - f1;
-    const float w2 = c2 ? f2 : 1.0f - f2;
-    k.lin[j] = valid ? ((int64_t)a * L.g1 + b) * L.g2 + e : 0;
-    k.w[j] = valid ? w0 * w1 * w2 : 0.0f;
-  }
 }
 
 // -- K4 / K5 on the channels-last level --------------------------------------
@@ -536,82 +524,228 @@ level_grad_vol_kernel(const float* __restrict__ q0, const float* __restrict__ q1
   }
 }
 
-constexpr int kFc0Points = 32;  // points per block (register accumulators)
-constexpr int kFc0Chans = 128;  // channels gathered per shared-memory round
+// -- K6 f32 (see the note at the top) -----------------------------------------
 
-// K6: blockDim.x >= h_dim threads; thread h owns output column h for the
-// block's kFc0Points points (of the B*N flattened).
-__global__ void level_fc0_kernel(const float* __restrict__ vol,
-                                 const float* __restrict__ w0l,
-                                 const float* __restrict__ q0,
-                                 const float* __restrict__ q1,
-                                 const float* __restrict__ q2,
-                                 float* __restrict__ out, int batch, int n,
-                                 Level L, int h_dim, int accumulate) {
-  __shared__ __align__(16) float feat[kFc0Chans][kFc0Points];
-  __shared__ int64_t lin[kFc0Points][8];
-  __shared__ float wt[kFc0Points][8];
-  __shared__ int64_t base[kFc0Points];
-  const int h = threadIdx.x;
-  const int64_t total = (int64_t)batch * n;
-  const int64_t pt0 = (int64_t)blockIdx.x * kFc0Points;
-  float acc[kFc0Points];
-#pragma unroll
-  for (int t = 0; t < kFc0Points; ++t) acc[t] = 0.0f;
+constexpr int kFc0H = 256;   // columns a block (blockIdx.y picks the slice of H)
 
-  for (int d = 0; d < 7; ++d) {
-    // corners of copy d (the previous copy's gathers are done: every thread
-    // passed the barrier before its contraction)
-    if (threadIdx.x < kFc0Points) {
-      const int t = threadIdx.x;
-      const int64_t pt = pt0 + t;
-      if (pt < total) {
-        Corners k;
-        corners(L, q0[pt], q1[pt], q2[pt], d, k);
+// K6 f32's A operand: chunk c holds rows [kK c, kK c + kK) of the level's
+// 7C features (row d*C + ch: channel ch of copy d) for the tile's kM points,
+// in stage c % 2 of a [2][kK][kM] ring.  The corners of all 7 copies lie in
+// shared memory (off[(d * 8 + j) * kM + p]: 32-bit element offset into the
+// sample's channels-last level, w likewise, base[p] the sample's first
+// element).  vec (C % 4 == 0, level 16-byte aligned): an item is 4 channels
+// of one point, and the 4 items of a point's chunk lie on adjacent lanes (one
+// 64-byte run of each corner a quarter-warp); issue() copies its 8 corners'
+// float4 into the thread's own slots of the staging buffer by cp.async,
+// finish() sums them, j = 0..7, into 4 rows of the A chunk.
+// Otherwise finish() gathers each (row, point) with 8 scalar loads.  Rows
+// past 7C are zeros.
+template <int kM, int kK, int NT>
+struct GatherA {
+  static constexpr int kQ = kK / 4;         // a point's items a chunk, on adjacent lanes
+  static constexpr int kItems = kQ * kM;    // vec items a chunk
+  static constexpr int kPer = (kItems + NT - 1) / NT;
+  float* ring;
+  float4* stage;  // [8][kItems]: corner j of item i at j * kItems + i
+  const float* __restrict__ vol;
+  const int* off;
+  const float* w;
+  const int64_t* base;
+  int c, k_total;
+  bool vec;
+  float inv_c;  // 1 / c, so that copy() needs no integer division
+
+  // the copy of feature row k < 7c, k / c: (k + 1/2) / c lies 1 / (2c) or
+  // more from an integer, and the f32 product errs by under 7 * 2^-23, so
+  // it is exact for c < 2^19 (the entry refuses larger c)
+  __device__ __forceinline__ int copy(int k) const {
+    return (int)(((float)k + 0.5f) * inv_c);
+  }
+
+  __device__ __forceinline__ void issue(int ch) {
+    if (!vec) return;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          lin[t][j] = k.lin[j];
-          wt[t][j] = k.w[j];
-        }
-        base[t] = (pt / n) * L.c * L.gsize;
-      } else {  // padding lanes read voxel 0 with weight 0
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * NT;
+      const int p = i / kQ, k = ch * kK + 4 * (i % kQ);
+      if ((kItems % NT != 0 && i >= kItems) || k >= k_total) continue;
+      const int d = copy(k);
+      const float* src = vol + base[p] + (k - d * c);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          lin[t][j] = 0;
-          wt[t][j] = 0.0f;
-        }
-        base[t] = 0;
-      }
+      for (int j = 0; j < 8; ++j)
+        cp_async16(stage + j * kItems + i, src + off[(d * 8 + j) * kM + p]);
     }
-    for (int c0 = 0; c0 < L.c; c0 += kFc0Chans) {
-      const int cc = min(kFc0Chans, L.c - c0);
-      __syncthreads();  // corners written; the previous round's readers done
-      for (int i = threadIdx.x; i < cc * kFc0Points; i += blockDim.x) {
-        const int c = i / kFc0Points, t = i % kFc0Points;
-        const float* vc = vol + base[t] + (int64_t)(c0 + c) * L.gsize;
-        float v = 0.0f;
+  }
+  __device__ __forceinline__ void finish(int ch) {
+    float* a = ring + (ch & 1) * kK * kM;
+    if (vec) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v += wt[t][j] * vc[lin[t][j]];
-        feat[c][t] = v;
-      }
-      __syncthreads();
-      if (h < h_dim) {
-        const float* wrow = w0l + ((int64_t)d * L.c + c0) * h_dim + h;
-        for (int c = 0; c < cc; ++c) {
-          const float w = wrow[(int64_t)c * h_dim];
+      for (int r = 0; r < kPer; ++r) {
+        const int i = threadIdx.x + r * NT;
+        if (kItems % NT != 0 && i >= kItems) continue;
+        const int p = i / kQ, q = i % kQ, k = ch * kK + 4 * q;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < k_total) {
+          const int d = copy(k);
 #pragma unroll
-          for (int t = 0; t < kFc0Points; ++t) acc[t] = fmaf(feat[c][t], w, acc[t]);
+          for (int j = 0; j < 8; ++j) {
+            const float4 x = stage[j * kItems + i];
+            const float wj = w[(d * 8 + j) * kM + p];
+            s.x = fmaf(wj, x.x, s.x);
+            s.y = fmaf(wj, x.y, s.y);
+            s.z = fmaf(wj, x.z, s.z);
+            s.w = fmaf(wj, x.w, s.w);
+          }
         }
+        a[(4 * q) * kM + p] = s.x;
+        a[(4 * q + 1) * kM + p] = s.y;
+        a[(4 * q + 2) * kM + p] = s.z;
+        a[(4 * q + 3) * kM + p] = s.w;
+      }
+    } else {
+      // a fixed trip count, so that every load of the thread is in flight at once
+#pragma unroll
+      for (int u = 0; u < (kK * kM + NT - 1) / NT; ++u) {
+        const int i = threadIdx.x + u * NT;
+        if ((kK * kM) % NT != 0 && i >= kK * kM) continue;
+        const int r = i / kM, p = i - r * kM;
+        const int k = ch * kK + r;
+        float s = 0.f;
+        if (k < k_total) {
+          const int d = copy(k);
+          const float* src = vol + base[p] + (k - d * c);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            s = fmaf(w[(d * 8 + j) * kM + p], __ldg(src + off[(d * 8 + j) * kM + p]), s);
+        }
+        a[i] = s;
       }
     }
   }
-  if (h < h_dim) {
+  __device__ __forceinline__ const float* chunk(int ch) const {
+    return ring + (ch & 1) * kK * kM;
+  }
+};
+
+// K6 f32's tile and shared memory: 64 points x 256 columns, 256 threads,
+// chunks of 16 rows; 101 KB, two blocks an SM (127 registers, no spills).
+// evaluate_points' tile of 65,536 points is 1,024 blocks, 3.9 waves of 264;
+// 96 points (one block of 384 threads an SM) made 683 blocks, 5.2 waves of
+// 132, and ran slower at 65,536 and at 262,144 points on the H100.
+struct Fc0Smem {
+  using Tile = FmaTile<64, kFc0H>;
+  static constexpr int kM = Tile::kM, kK = Tile::kK;
+  static constexpr int NT = Tile::NT;
+  using Gather = GatherA<kM, kK, NT>;
+  static constexpr int kCornerBytes = 7 * 8 * kM * 4;  // off, and w
+  static constexpr int kBaseBytes = kM * 8;
+  static constexpr int kStageBytes = 8 * Gather::kItems * 16;
+  static constexpr int kRingBytes = 2 * kK * kM * 4;
+  static constexpr int kBytes =
+      2 * kCornerBytes + kBaseBytes + kStageBytes + kRingBytes + Tile::kBBytes;
+  static_assert(2 * (kBytes + 1024) <= 232448, "two blocks an SM");
+};
+
+// K6 f32: the block's tile is points [kM blockIdx.x, + kM) of the B*N
+// flattened and columns [256 blockIdx.y, + 256) of H; vol the channels-last
+// (B, G, C) level, w0l the level's (7C, H) block of fc0, out (B, N, H).
+__global__ void __launch_bounds__(Fc0Smem::NT, 2)
+level_fc0_kernel(const float* __restrict__ vol, const float* __restrict__ w0l,
+                 const float* __restrict__ q0, const float* __restrict__ q1,
+                 const float* __restrict__ q2, float* __restrict__ out, int batch, int n,
+                 Level L, int h_dim, int accumulate) {
+  using S = Fc0Smem;
+  constexpr int kM = S::kM, NT = S::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* stage = reinterpret_cast<float4*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + S::kStageBytes);
+  float* aring = bring + S::Tile::kBBytes / 4;
+  int* s_off = reinterpret_cast<int*>(aring + S::kRingBytes / 4);
+  float* s_w = reinterpret_cast<float*>(s_off + 7 * 8 * kM);
+  int64_t* s_base = reinterpret_cast<int64_t*>(s_w + 7 * 8 * kM);
+
+  const int64_t total = (int64_t)batch * n;
+  const int64_t pt0 = (int64_t)blockIdx.x * kM;
+  const int c0 = blockIdx.y * kFc0H;
+  // the corners of every (point, copy); the ragged tail repeats the last
+  // point, its stores masked
+  for (int i = threadIdx.x; i < 7 * kM; i += NT) {
+    const int p = i % kM, d = i / kM;
+    const int64_t pt = pt0 + p < total ? pt0 + p : total - 1;
+    int i0, i1, i2;
+    float f0, f1, f2;
+    axis_tap(q0[pt], kDisp[d][0], L.disp, L.g0, L.ac, i0, f0);
+    axis_tap(q1[pt], kDisp[d][1], L.disp, L.g1, L.ac, i1, f1);
+    axis_tap(q2[pt], kDisp[d][2], L.disp, L.g2, L.ac, i2, f2);
 #pragma unroll
-    for (int t = 0; t < kFc0Points; ++t) {
-      const int64_t pt = pt0 + t;
-      if (pt < total) {
-        float* o = out + pt * h_dim + h;
-        *o = accumulate ? *o + acc[t] : acc[t];
+    for (int j = 0; j < 8; ++j)
+      corner(L, j, i0, i1, i2, f0, f1, f2, s_off[(d * 8 + j) * kM + p], s_w[(d * 8 + j) * kM + p]);
+    if (d == 0) s_base[p] = (pt / n) * L.gsize * L.c;
+  }
+  __syncthreads();
+
+  S::Tile t;
+  t.init();
+  S::Gather ga{aring, stage, vol, s_off, s_w, s_base, L.c, 7 * L.c,
+               L.c % 4 == 0 && aligned16(vol), 1.0f / L.c};
+  contract(t, ga, w0l, 7 * L.c, h_dim, c0, bring);
+
+  // out[pt, c] (+)= acc: float4 stores of 4 columns where H % 4 == 0 and out
+  // is 16-byte aligned.  The earlier partials of 4 points are loaded before
+  // their first store, so that those 8 loads are in flight together (a store
+  // between two loads would order the second after it).
+  const bool vec = h_dim % 4 == 0 && aligned16(out);
+#pragma unroll
+  for (int i0 = 0; i0 < 8; i0 += 4) {
+    if (accumulate) {
+      float4 prev[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t pt = pt0 + t.point(i0 + i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + t.col(4 * h);
+          const float* o = out + pt * h_dim + c;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (pt < total && vec && c < h_dim) {
+            v = *reinterpret_cast<const float4*>(o);
+          } else if (pt < total && !vec) {
+            if (c < h_dim) v.x = o[0];
+            if (c + 1 < h_dim) v.y = o[1];
+            if (c + 2 < h_dim) v.z = o[2];
+            if (c + 3 < h_dim) v.w = o[3];
+          }
+          prev[i][h] = v;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* a = t.acc[i0 + i] + 4 * h;
+          a[0] = prev[i][h].x + a[0];
+          a[1] = prev[i][h].y + a[1];
+          a[2] = prev[i][h].z + a[2];
+          a[3] = prev[i][h].w + a[3];
+        }
+    }
+#pragma unroll
+    for (int i = i0; i < i0 + 4; ++i) {
+      const int64_t pt = pt0 + t.point(i);
+      if (pt >= total) continue;
+      float* o = out + pt * h_dim;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + t.col(4 * h);
+        if (vec) {
+          if (c < h_dim)
+            *reinterpret_cast<float4*>(o + c) = make_float4(
+                t.acc[i][4 * h], t.acc[i][4 * h + 1], t.acc[i][4 * h + 2], t.acc[i][4 * h + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c + e < h_dim) o[c + e] = t.acc[i][4 * h + e];
+        }
       }
     }
   }
@@ -886,23 +1020,26 @@ extern "C" int sv3d_level_features_bf16(const void* vol, const void* q0,
                                                     g1, g2, align_corners, disp, stream);
 }
 
+// K6 f32: vol the channels-last (B, G, C) f32 level, w0l the level's (7C, H)
+// block of fc0, out (B, N, H) f32; H up to 1024 (four 256-column slices).
 extern "C" int sv3d_level_fc0(const void* vol, const void* w0l, const void* q0,
                               const void* q1, const void* q2, void* out,
                               int h_dim, int accumulate, int batch, int n,
                               int c, int g0, int g1, int g2, int align_corners,
                               float disp, void* stream) {
-  if (h_dim < 1 || h_dim > 1024) return (int)cudaErrorInvalidValue;
   const Level L{g0, g1, g2, (int64_t)g0 * g1 * g2, c, align_corners, disp};
+  if (h_dim < 1 || h_dim > 1024 || c < 1 || c >= (1 << 19) ||
+      L.gsize * c >= (int64_t{1} << 31))
+    return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)batch * n;
-  if (total > 0) {
-    // whole warps, and at least one warp for the corner pass
-    const int threads = (h_dim + 31) / 32 * 32;
-    level_fc0_kernel<<<blocks_for(total, kFc0Points), threads, 0,
-                       (cudaStream_t)stream>>>(
-        (const float*)vol, (const float*)w0l, (const float*)q0,
-        (const float*)q1, (const float*)q2, (float*)out, batch, n, L, h_dim,
-        accumulate);
-  }
+  if (total <= 0) return (int)cudaGetLastError();
+  const cudaError_t err = cudaFuncSetAttribute(
+      level_fc0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Fc0Smem::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(blocks_for(total, Fc0Smem::kM), (unsigned)((h_dim + kFc0H - 1) / kFc0H));
+  level_fc0_kernel<<<grid, Fc0Smem::NT, Fc0Smem::kBytes, (cudaStream_t)stream>>>(
+      (const float*)vol, (const float*)w0l, (const float*)q0, (const float*)q1, (const float*)q2,
+      (float*)out, batch, n, L, h_dim, accumulate);
   return (int)cudaGetLastError();
 }
 

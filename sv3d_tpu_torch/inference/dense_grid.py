@@ -121,8 +121,8 @@ def evaluate_points(
     padded.reshape(-1, 3)[:m] = pts
     with torch.inference_mode():
         levels = model.encode(torch.as_tensor(grid, dtype=torch.float32, device=device))
-        if use_kernel and (compute_dtype == torch.bfloat16 or not bands):
-            # the kernels but K6 f32 read each level channels-last (K6 bf16 and
+        if use_kernel:
+            # every kernel route reads each level channels-last (K6 bf16 and
             # K5 its bf16 rounding): stage the pyramid once for all tiles, as
             # channel-major views that the wrappers take as they are
             cast = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32

@@ -8,12 +8,13 @@ concurrent loader never opens a half-written file and a stale build is never
 reused.  Each source compiles in its own nvcc process, all started together,
 and one more nvcc links the objects.  Building with nvcc alone takes seconds;
 a source that includes PyTorch's headers would take minutes, so the C entries
-take raw pointers.
+take raw pointers.  Each compile runs with ``-Xptxas -v``, and what ptxas
+says of every kernel (registers, shared memory, spills) is kept beside the
+library.
 
     python -m sv3d_tpu_torch.ops.cuda.build --report
 
-compiles each source once more with ``-Xptxas -v`` and prints every kernel's
-registers, shared memory and spills.
+builds if needed and prints that report.
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+COMPILE_FLAGS = ("-Xptxas", "-v")  # the per-source compiles: ptxas's resource report
 
 
 def _sources() -> list:
@@ -42,7 +44,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -59,33 +61,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def report_path() -> Path:
+    """Where ptxas's resource report of the current library lives."""
+    lib = library_path()
+    return lib.with_name(f"{lib.stem}.ptxas.txt")
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; raises
     RuntimeError with the compiler's output when the build fails."""
     lib = library_path()
-    if lib.exists():
+    if lib.exists() and report_path().exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"tmp.{os.getpid()}"
     tmp = lib.with_name(f"{lib.name}.{tag}")
+    tmp_report = report_path().with_name(f"{report_path().name}.{tag}")
     objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in _sources()]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    cmds = [[nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(_sources(), objs)]
     cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)])
     try:
-        _run_all(cmds[:-1])  # one nvcc per source, all at once
+        outs = _run_all(cmds[:-1])  # one nvcc per source, all at once
         _run_all(cmds[-1:])  # the link
+        tmp_report.write_text("\n".join(f"== {src.name}\n{out}"
+                                         for src, out in zip(_sources(), outs)))
+        os.replace(tmp_report, report_path())
         os.replace(tmp, lib)
     finally:
-        for f in [*objs, tmp]:
+        for f in [*objs, tmp, tmp_report]:
             f.unlink(missing_ok=True)
     return lib
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> list:
     """Run the commands in parallel, wait for all; raise with the output of
-    the ones that failed."""
+    the ones that failed.  Returns each command's output (stdout, then
+    stderr)."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
     outs = [p.communicate() for p in procs]
@@ -95,6 +108,7 @@ def _run_all(cmds) -> None:
     ]
     if failed:
         raise RuntimeError("\n".join(failed))
+    return [out + err for out, err in outs]
 
 
 @functools.lru_cache(maxsize=1)
@@ -110,16 +124,31 @@ def check(rc: int, name: str) -> None:
 
 
 def report() -> str:
-    """ptxas's resource usage (registers, shared memory, spills) of every
-    kernel, one nvcc -Xptxas -v per source, all started together."""
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory() as tmp:
-        cmds = [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / f"{src.stem}.o"),
-                 str(src)] for src in _sources()]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        return "\n".join(f"== {src.name}\n{p.communicate()[0]}"
-                         for src, p in zip(_sources(), procs))
+    """ptxas's resource report (registers, shared memory, spills) of every
+    kernel of the current library, built if needed."""
+    build()
+    return report_path().read_text()
+
+
+def resources(part: str, text: str | None = None) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} of the kernels whose name holds part, from report()'s text (or
+    the given text)."""
+    text = report() if text is None else text
+    out, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None and part in name:
+            out[name] = (int(m.group(1)), *spills)
+    return out
 
 
 if __name__ == "__main__":

@@ -48,6 +48,21 @@ def check_bf16_widths(h0: int, h1: int, h2: int) -> None:
                          f"256), IF-Net's; got {(h0, h1, h2)}")
 
 
+def _check_weights(weights) -> None:
+    """Raise unless the eight decoder tensors are float32 on one device with
+    the shapes of one decoder: w_i (H_out, H_in), b_i (H_out,), w3 (1, H2),
+    b3 (1,)."""
+    w0, b0, w1, b1, w2, b2, w3, b3 = weights
+    h0, h1, h2, n_feat = w0.shape[0], w1.shape[0], w2.shape[0], w0.shape[-1]
+    shapes = ((h0, n_feat), (h0,), (h1, h0), (h1,), (h2, h1), (h2,), (1, h2), (1,))
+    for i, (t, shape) in enumerate(zip(weights, shapes), start=1):
+        if t.device != w0.device or t.dtype != torch.float32:
+            raise TypeError(f"fused_point_mlp: argument {i} must be float32 on {w0.device}, "
+                            f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_point_mlp: argument {i} must be {shape}, got {tuple(t.shape)}")
+
+
 def mlp_operands(weights, compute_dtype=torch.float32) -> MlpOperands:
     """The eight decoder tensors (w0, b0, w1, b1, w2, b2, w3, b3) as K3 of
     compute_dtype reads them.  bfloat16: fc0's (H0, F) weight rounded to
@@ -58,6 +73,7 @@ def mlp_operands(weights, compute_dtype=torch.float32) -> MlpOperands:
     tensor_record of each of the eight, which fused_point_mlp checks."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"fused_point_mlp: compute_dtype must be one of {COMPUTE_DTYPES}")
+    _check_weights(weights)
     made_from = tuple(tensor_record(t) for t in weights)
     w0, b0, w1, b1, w2, b2, w3, b3 = (t.detach() for t in weights)
     with torch.no_grad():
@@ -117,27 +133,23 @@ def fused_point_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, compute_dtype=torch.float
         return fused_point_mlp_plain(*args, compute_dtype=compute_dtype)
     if f.device.type != "cuda":
         raise ValueError(f"fused_point_mlp: unsupported device {f.device}")
-    n_feat, n = f.shape
-    h0, h1, h2 = w0.shape[0], w1.shape[0], w2.shape[0]
-    shapes = ((f, (n_feat, n)), (w0, (h0, n_feat)), (b0, (h0,)), (w1, (h1, h0)), (b1, (h1,)),
-              (w2, (h2, h1)), (b2, (h2,)), (w3, (1, h2)), (b3, (1,)))
-    for i, (t, shape) in enumerate(shapes):
-        if t.device != f.device or t.dtype != torch.float32:
-            raise TypeError(f"fused_point_mlp: argument {i} must be float32 on {f.device}, "
-                            f"got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_point_mlp: argument {i} must be {shape}, got {tuple(t.shape)}")
+    # mlp_operands checked the weights; operands that match them (above) hold
+    # what they held then
+    if operands is None:
+        operands = mlp_operands(args[1:], compute_dtype)
+    h0, n_feat = operands.made_from[0][2]  # the shapes of w0, w1 and w2 as recorded
+    h1, h2 = operands.made_from[2][2][0], operands.made_from[4][2][0]
+    if f.device != operands.weights[0].device or f.dtype != torch.float32:
+        raise TypeError(f"fused_point_mlp: argument 0 must be float32 on "
+                        f"{operands.weights[0].device}, got {f.dtype} on {f.device}")
+    if f.ndim != 2 or f.shape[0] != n_feat:
+        raise ValueError(f"fused_point_mlp: argument 0 must be ({n_feat}, N), "
+                         f"got {tuple(f.shape)}")
     if not f.is_contiguous():
         raise ValueError("fused_point_mlp: f must be contiguous")
     bf16 = compute_dtype == torch.bfloat16
-    if bf16:
-        check_bf16_widths(h0, h1, h2)
-    elif max(h0, h1, h2) > 512:
+    if not bf16 and max(h0, h1, h2) > 512:
         raise ValueError(f"fused_point_mlp: hidden widths up to 512, got {(h0, h1, h2)}")
-    if operands is None:
-        operands = mlp_operands(args[1:], compute_dtype)
-    elif any(t.device != f.device for t in operands.weights + operands.biases):
-        raise ValueError(f"fused_point_mlp: operands must lie on {f.device}")
     return _launch_bf16(f, operands) if bf16 else _launch_f32(f, operands)
 
 

@@ -14,11 +14,11 @@ coordinates' when autograd asks for it.  Each wrapper runs its plain version
 (sv3d_tpu_torch/ops/point_query.py) for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises.  Every wrapper takes the level as the
 channel-major flat (B, C, G) that flatten_grid makes; K4, K5 and K7 read it
-channels-last, (B, G, C): their wrapper reads a level that already lies so
-as it is and stages any other (stage_channels_last), K6 bf16 reads a
-channels-last bf16 copy staged the same way (and K5 reads one when given a
-bf16 level), while K6 f32 reads the flat as it is.  K8 writes the level's gradient channels-last and returns it as the
-(B, C, G) transposed view.  level_features saves the level as it was given,
+channels-last, (B, G, C), and so does K6 f32: their wrapper reads a level
+that already lies so as it is and stages any other (stage_channels_last);
+K6 bf16 reads a channels-last bf16 copy staged the same way (and K5 reads
+one when given a bf16 level).  K8 writes the level's gradient channels-last
+and returns it as the (B, C, G) transposed view.  level_features saves the level as it was given,
 so K7's wrapper stages a channel-major flat again in the backward.  K5 and
 K6 are inference-only, as their TPU kernels have no VJP: under autograd
 (grad enabled and an input that requires grad) they raise
@@ -146,7 +146,11 @@ def level_fc0_cuda(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacemen
     """K6: one level's fc0 partial, K4's features (B, N, 7*C) times w0l (7*C,
     H) (rows d*C + c), contracted in the kernel: (B, N, H) f32.  With out
     (B, N, H) given, the partial is added into out in place and out is
-    returned, so the caller sums the levels in one buffer.  Inference-only."""
+    returned, so the caller sums the levels in one buffer.  The level as K4
+    takes it: one that lies channels-last in memory (evaluate_points stages
+    its pyramid so once a call) is read as it is, any other is staged
+    channels-last here (stage_channels_last).  H from 1 to 1024 (the kernel
+    takes 256 columns a block).  Inference-only."""
     _inference_only("level_fc0", flat, w0l, p0, p1, p2)
     if not _on_cuda(flat, "level_fc0"):
         part = level_fc0_plain(flat, w0l, p0, p1, p2, dims, align_corners, displacement)
@@ -158,16 +162,21 @@ def level_fc0_cuda(flat, w0l, p0, p1, p2, dims, align_corners: bool, displacemen
         raise ValueError(f"level_fc0: level of {g} voxels for dims {dims}")
     if not 1 <= h <= 1024:
         raise ValueError(f"level_fc0: the kernel takes 1 to 1024 outputs, got {h}")
-    tensors = dict(flat=(flat, (b, c, g)), w0l=(w0l, (7 * c, h)), p0=(p0, (b, n)),
-                   p1=(p1, (b, n)), p2=(p2, (b, n)))
+    if g * c >= 2**31:
+        raise ValueError(f"level_fc0: G * C = {g * c} exceeds the kernel's 32-bit offsets")
+    if flat.device != p0.device or flat.dtype != torch.float32:
+        raise TypeError(f"level_fc0: flat must be float32 on {p0.device}, got {flat.dtype} on "
+                        f"{flat.device}")
+    tensors = dict(w0l=(w0l, (7 * c, h)), p0=(p0, (b, n)), p1=(p1, (b, n)), p2=(p2, (b, n)))
     if out is not None:
         tensors["out"] = (out, (b, n, h))
     _check("level_fc0", flat.device, **tensors)
+    vol = stage_channels_last(flat)
     accumulate = out is not None
     if out is None:
         out = torch.empty((b, n, h), dtype=torch.float32, device=flat.device)
     rc = _bind("sv3d_level_fc0", 6, 2)(
-        flat.data_ptr(), w0l.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+        vol.data_ptr(), w0l.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
         out.data_ptr(), h, int(accumulate),
         *_tail(b, n, c, dims, align_corners, displacement, flat.device),
     )

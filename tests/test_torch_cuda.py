@@ -527,10 +527,10 @@ def test_channels_last_staging_on_cpu(c):
 
 @pytest.mark.parametrize("bands", [None, 4])
 def test_evaluate_points_stages_the_pyramid_once(bands):
-    """evaluate_points' K4 route (bands=None) stages each level of C > 1
-    channels-last once a call, not once a tile, and gives the gather path's
-    values; the K6 route (bands set) reads the channel-major levels and
-    stages none.  On the CPU the wrappers run their plain versions."""
+    """evaluate_points' f32 kernel routes, K4's (bands=None) and K6's (bands
+    set), stage each level of C > 1 channels-last once a call, not once a
+    tile, and give the gather path's values.  On the CPU the wrappers run
+    their plain versions."""
     cfg = IFNetConfig.for_net_res(128)
     model = IFNet(cfg, generator=torch.Generator().manual_seed(7)).eval()
     rng = np.random.default_rng(7)
@@ -542,8 +542,8 @@ def test_evaluate_points_stages_the_pyramid_once(bands):
     with torch.inference_mode():
         flats = model.encode(torch.tensor(grid)).flats
     # a level of one channel or one voxel lies channels-last already
-    staged = sum(f.shape[1] > 1 and f.shape[2] > 1 for f in flats) if bands is None else 0
-    assert staged == (4 if bands is None else 0)
+    staged = sum(f.shape[1] > 1 and f.shape[2] > 1 for f in flats)
+    assert staged == 4
     assert stage_channels_last.copies == before + staged
     ref = evaluate_points(model, grid, pts, use_kernel=False)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
@@ -671,7 +671,8 @@ def test_sweep_plan_makes_no_copy_per_slab(dtype, cuda_device):
                                  (160, 256)])
 def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device):
     """K6 against its plain version, alone and adding into a buffer: 1e-5 of
-    the largest plain magnitude (FMA order over 7*C terms).  K5: at most one
+    the largest plain magnitude (FMA order over 7*C terms); on a staged
+    channels-last level the same partial as on the channel-major flat.  K5: at most one
     bf16 ulp, |d| <= 2^-7 |ref| + 1e-6 (the kernel's and the plain f32
     features may round either way of a bf16 boundary), on K4's scalar and
     float4 paths (channel counts as there).  C = 160 takes two channel
@@ -687,7 +688,15 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     args = (dims, ac, disp)
     counts = [level_fc0_cuda.launches, level_features_banded_cuda.launches]
     ref = level_fc0_plain(flat, w0l, *p, *args)
-    assert _rel_err(level_fc0_cuda(flat, w0l, *p, *args), ref) <= 1e-5
+    part = level_fc0_cuda(flat, w0l, *p, *args)
+    assert _rel_err(part, ref) <= 1e-5
+    # K6 f32 reads the level channels-last: a staged view is read as it is
+    # and gives the partial that the channel-major flat (staged in the
+    # wrapper) gives
+    cl = stage_channels_last(flat).transpose(1, 2)
+    copies = stage_channels_last.copies
+    assert torch.equal(level_fc0_cuda(cl, w0l, *p, *args), part)
+    assert stage_channels_last.copies == copies
     acc = torch.randn((2, 333, h), device=cuda_device)
     got = level_fc0_cuda(flat, w0l, *p, *args, out=acc.clone())
     assert _rel_err(got, acc + ref) <= 1e-5
@@ -704,7 +713,7 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     assert torch.equal(level_features_banded_cuda(flat16.float(), *p, *args), got16)
     torch.cuda.synchronize()
     assert [level_fc0_cuda.launches, level_features_banded_cuda.launches] == [
-        counts[0] + 2, counts[1] + 3]
+        counts[0] + 3, counts[1] + 3]
     with pytest.raises(NotImplementedError):
         level_fc0_cuda(flat.clone().requires_grad_(), w0l, *p, *args)
     with pytest.raises(NotImplementedError):
@@ -727,6 +736,54 @@ def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
     torch.cuda.synchronize()
     assert fused_point_mlp.launches == before + 1
     torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,misaligned", [(1, False), (63, False), (1001, False),
+                                          (1000, True), (11648, False)])
+@pytest.mark.parametrize("net_res", [128, 32])
+def test_mlp_kernel_f32_ragged_on_card(net_res, n, misaligned, cuda_device):
+    """K3 f32 on a lattice row's features at F 2583 (H0 256) and 2247 (H0
+    512): ragged N (a partial tile; N % 4 != 0, and an f that starts 4 bytes
+    past a 16-byte boundary, take the 4-byte copies; 11,648 is the full
+    row), with and without mlp_operands: one launch a call, bit-identical
+    with and without operands, within chip_smoke.py's K3_TOL (1e-4) of the
+    plain f32 version on logits."""
+    from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
+
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    f, weights = _k3_inputs(net_res, n, cuda_device, misaligned)
+    with torch.inference_mode():
+        ops = mlp_operands(weights, torch.float32)
+        before = fused_point_mlp.launches
+        got = fused_point_mlp(f, *weights, operands=ops)
+        again = fused_point_mlp(f, *weights)
+        torch.cuda.synchronize()
+        assert fused_point_mlp.launches == before + 2
+        assert torch.equal(got, again)
+        assert got.shape == (n,) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=smoke["K3_TOL"],
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_feat,widths", [(77, (40, 100, 200)), (301, (200, 40, 100)),
+                                           (1003, (512, 300, 17)), (5, (1, 1, 1))])
+def test_mlp_kernel_f32_odd_widths_on_card(n_feat, widths, cuda_device):
+    """K3 f32 takes any F and hidden widths up to 512: widths that are no
+    multiple of 4 take the 4-byte weight copies and pad in the kernel; 512
+    pads every layer to 512 columns.  Within 1e-4 of the plain version on
+    logits, at 333 points (a partial tile)."""
+    rng = np.random.default_rng(n_feat)
+    h0, h1, h2 = widths
+    dims = ((h0, n_feat), (h0,), (h1, h0), (h1,), (h2, h1), (h2,), (1, h2), (1,))
+    weights = [torch.tensor((rng.standard_normal(d) / np.sqrt(d[-1])).astype(np.float32),
+                            device=cuda_device) for d in dims]
+    f = torch.tensor(rng.standard_normal((n_feat, 333)).astype(np.float32), device=cuda_device)
+    with torch.inference_mode():
+        got = fused_point_mlp(f, *weights)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -38,6 +38,7 @@ from sv3d_tpu_torch.ops.cuda.point_query import (
     level_fc0_bf16_cuda,
     level_fc0_cuda,
     level_features_banded_cuda,
+    stage_channels_last,
 )
 from sv3d_tpu_torch.ops.grid_sample import Pyramid
 from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain
@@ -282,6 +283,31 @@ def test_evaluate_points_matches_jax(net_res, dims):
     # CPU default: the gather path
     np.testing.assert_array_equal(evaluate_points(tm, grid, pts, tile_points=128),
                                   evaluate_points(tm, grid, pts, 128, use_kernel=False))
+
+
+@pytest.mark.parametrize("net_res,dims", [(32, (10, 9, 8)), (128, (17, 16, 18))])
+def test_evaluate_points_f32_banded_stages_the_pyramid_once(net_res, dims):
+    """The f32 bands="auto" route (K6 f32; its plain version on the CPU)
+    stages each level of C > 1 channels-last once a call, not once a tile,
+    because K6 f32 reads its level channels-last; its sigmoid stays within
+    1e-5 of JAX's exact evaluate_points and of the port's gather path."""
+    grid, jm, variables, tm = _models(net_res, dims, seed=6)
+    pts = np.random.default_rng(6).uniform(-0.5, 0.5, (300, 3)).astype(np.float32)
+    exact = j_evaluate_points(jm, variables, jnp.asarray(grid), pts, tile_points=128,
+                              use_pallas=False)
+    with torch.inference_mode():
+        flats = tm.encode(torch.tensor(grid)).flats
+    # a level of one channel or one voxel lies channels-last already
+    staged = sum(f.shape[1] > 1 and f.shape[2] > 1 for f in flats)
+    assert staged >= 3
+    before = stage_channels_last.copies
+    got = evaluate_points(tm, grid, pts, tile_points=100, use_kernel=True, bands="auto",
+                          compute_dtype=torch.float32)
+    assert stage_channels_last.copies == before + staged
+    assert got.shape == (300,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, exact, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, evaluate_points(tm, grid, pts, use_kernel=False),
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("bands", [4, None])
