@@ -1912,6 +1912,42 @@ def read_metrics(exp_dir: Path) -> list:
             .splitlines()]
 
 
+def checkpoint_serving_phase(ckpt: Path, rgb: Path, intrinsics: Path, out: Path,
+                             device: str = "cuda", extra=()) -> dict:
+    """predict.main, the serving CLI, on a trainer's checkpoint (ckpt, its
+    checkpoints/last) and one RGB image: first the served model's sigmoid
+    grid (load_model, predict, evaluate_on_grid), for its median level (a
+    short fit's weights need not cross 0.5); then main at that level, with
+    the serving kernels' counts set to 0 just before it and read just after.
+    extra: more CLI flags (the architecture's).  Returns the level, the
+    counts and the written mesh's vertex and face counts."""
+    from sv3d_tpu_torch.data.datasets import _load_normalized_rgb
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
+    from sv3d_tpu_torch.inference.predict import build_parser, load_model, main, predict
+    from sv3d_tpu_torch.io.mesh import load_obj
+    from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep_bf16_cuda, lattice_sweep_f32_cuda
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda
+
+    argv = ["--checkpoint", str(ckpt), "--rgb", str(rgb), "--intrinsics", str(intrinsics),
+            "--device", device, "--out", str(out), *extra]
+    config, model = load_model(build_parser().parse_args(argv))
+    vox, _ = predict(config, model,
+                     rgb=_load_normalized_rgb(rgb, False, config.resize_input, config.W))
+    level = 1.0 - float(np.median(evaluate_on_grid(model.ifnet, vox, config.dims)))
+    del model, vox
+    counters = {"scatter_voxels": scatter_voxels_cuda, "lattice_sweep_bf16":
+                lattice_sweep_bf16_cuda, "lattice_sweep_f32": lattice_sweep_f32_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    main(argv + ["--threshold", repr(level)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    mesh = load_obj(out / f"{rgb.parent.name}.obj")
+    return {"level": level, "launches": launches, "verts": len(mesh.vertices),
+            "faces": len(mesh.faces)}
+
+
 def ifnet_fit_phase(cfg, counters) -> dict:
     """The IF-Net-only fit through the trainer's entry point: fit(12) with
     the kernel counters read around it (K7 must stay at 0: the step takes no
@@ -2232,7 +2268,8 @@ def main() -> int:
     # ptxas's registers and spills (store + load bytes) of the f32 FMA-core
     # kernels, from the build's report (build.resources)
     registers = {}
-    for key, part in (("K3f32", "fused_point_mlp_kernel"), ("K6", "level_fc0_kernel")):
+    for key, part in (("K2f32", "lattice_sweep_kernel"), ("K3f32", "fused_point_mlp_kernel"),
+                      ("K6", "level_fc0_kernel")):
         res = build.resources(part)
         check(bool(res), f"no ptxas report of {part}")
         registers[key] = (max(r for r, _, _ in res.values()),
@@ -2421,6 +2458,11 @@ def main() -> int:
             k2_plain_whole_ms[key] = cuda_ms(lambda dtype=dtype: lattice_sweep_plain(
                 levels, ifnet.mlp, dims, dims[0], 0, *sweep_args, dtype), warmup=0, reps=2)
             del plan
+        # K2 f32's yardstick: the unfused f32 sweep (slab_features + K3 f32)
+        # over the whole lattice, a row at a time
+        unfused_f32_ms = cuda_ms(lambda: [ifnet.query_lattice(
+            levels, dims, 1, 1, row, torch.float32, fused_tail=False) for row in range(dims[0])],
+            warmup=1, reps=3)
         n_pts = dims[0] * dims[1] * dims[2]
         sweep_ms = {
             (key, rows): cuda_ms(lambda rows=rows, dtype=dtype: evaluate_on_grid_device(
@@ -2465,6 +2507,11 @@ def main() -> int:
               f"{k2_whole_ms[key]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]}), "
               f"plain {k2_plain_whole_ms[key]:.3f} ms; the plan's build {plan_ms[key]:.3f} ms",
               flush=True)
+    print(f"  K2f32's yardstick, the unfused f32 sweep (query_lattice(fused_tail=False), "
+          f"slab_features + K3 f32) over the whole lattice, {dims[0]} rows of slab_rows 1: "
+          f"{unfused_f32_ms:.3f} ms, beside K2f32's one launch {k2_whole_ms['K2f32']:.3f} ms "
+          f"and its bound {bounds['K2f32'][0]:.3f} ms ({bounds['K2f32'][0] / k2_whole_ms['K2f32']:.1%} "
+          "of the bound)", flush=True)
     for (key, rows), ms in sweep_ms.items():
         print(f"  dense sweep {key} slab_rows={rows}: {ms:.3f} ms, "
               f"{n_pts / (ms / 1e3):.4g} points/s", flush=True)
@@ -2527,6 +2574,19 @@ def main() -> int:
     check(state_r.step == 13, f"resume: step {state_r.step} after one more step from 12")
     print("resume: checkpoints/last restored at step 12, one more step to 13", flush=True)
     del state, state_r
+
+    # -- phase 8b: the fit's checkpoint served through the serving CLI -------
+    ckpt_served = checkpoint_serving_phase(
+        last, data_root / "raw" / "overfit" / "00000" / "rgb.png", data_root / "intrinsics.txt",
+        WORK / "served_checkpoint")
+    print(f"serving the fit's checkpoints/last (predict.main, --rgb, the mesh at the grid's "
+          f"median level {ckpt_served['level']:.4f}): launches {ckpt_served['launches']}, "
+          f"{ckpt_served['verts']} verts {ckpt_served['faces']} faces", flush=True)
+    check(ckpt_served["faces"] > 0, "the served checkpoint's mesh has no faces")
+    check(ckpt_served["launches"]["scatter_voxels"] > 0
+          and ckpt_served["launches"]["lattice_sweep_bf16"] > 0
+          and ckpt_served["launches"]["lattice_sweep_f32"] == 0,
+          f"serving the checkpoint did not run K1 and K2 bf16 (alone): {ckpt_served['launches']}")
 
     # -- phase 9: the loss drops over 10 steps on one fixed batch ------------
     from sv3d_tpu_torch.data.loader import collate
@@ -2764,11 +2824,13 @@ def main() -> int:
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
         # main paths
-        "K1": (launches["scatter_voxels"] + train_launches["K1"], k1_err,
+        "K1": (launches["scatter_voxels"] + ckpt_served["launches"]["scatter_voxels"]
+               + train_launches["K1"], k1_err,
                k1_t[("random", 1)]["ms"], k1_t[("random", 1)]["plain_ms"]),
         # at the serving path's shape: the whole lattice in one launch
         # K2 bf16 on the serving path and in the IF-Net-only fit's validations
-        "K2": (launches["lattice_sweep_bf16"] + fit_ifnet["launches"]["K2"], k2_err["K2"],
+        "K2": (launches["lattice_sweep_bf16"] + ckpt_served["launches"]["lattice_sweep_bf16"]
+               + fit_ifnet["launches"]["K2"], k2_err["K2"],
                k2_whole_ms["K2"], k2_plain_whole_ms["K2"]),
         "K2f32": (launches["lattice_sweep_f32"], k2_err["K2f32"], k2_whole_ms["K2f32"],
                   k2_plain_whole_ms["K2f32"]),
@@ -2811,17 +2873,25 @@ def main() -> int:
         if key == "K3f32":
             kernels[-1]["device_ms"] = pp["K3f32 device_ms"]
             kernels[-1]["library"] = "cuBLAS f32 chain (TF32 off): 4 F.linear with ReLU"
+        if key == "K2f32":  # a two-call route, not a library call: library_ms stays null
+            kernels[-1]["yardstick_ms"] = unfused_f32_ms
+            kernels[-1]["yardstick"] = ("the unfused f32 sweep: slab_features + K3 f32, the "
+                                        "lattice a row at a time")
         if key == "K6":  # a two-call route, not a library call: library_ms stays null
             kernels[-1]["yardstick_ms"] = pp["K6 yardstick"]["K4+matmul"]
             kernels[-1]["yardstick"] = "K4 + f32 torch.matmul over the same levels, in turns"
         if key in registers:
             kernels[-1]["registers"], kernels[-1]["spill_bytes"] = registers[key]
         if key == "K1":
-            kernels[-1]["launches_by_path"] = {"serving": launches["scatter_voxels"],
-                                               "fit": train_launches["K1"]}
+            kernels[-1]["launches_by_path"] = {
+                "serving": launches["scatter_voxels"],
+                "serving_checkpoint": ckpt_served["launches"]["scatter_voxels"],
+                "fit": train_launches["K1"]}
         if key == "K2":
-            kernels[-1]["launches_by_path"] = {"serving": launches["lattice_sweep_bf16"],
-                                               "fit_ifnet": fit_ifnet["launches"]["K2"]}
+            kernels[-1]["launches_by_path"] = {
+                "serving": launches["lattice_sweep_bf16"],
+                "serving_checkpoint": ckpt_served["launches"]["lattice_sweep_bf16"],
+                "fit_ifnet": fit_ifnet["launches"]["K2"]}
         if key in ("K4", "K7", "K8"):
             t = ifnet_k[key]
             kernels[-1]["launches_by_path"] = {"fit": train_launches[key],

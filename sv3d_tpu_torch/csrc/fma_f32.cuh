@@ -1,6 +1,6 @@
-// The f32 FMA contraction core shared by K3 f32 (mlp.cu::fused_point_mlp_kernel)
-// and K6 f32 (point_query.cu::level_fc0_kernel): the f32 counterpart of
-// mma_bf16.cuh.  Every product is an f32 FMA on the CUDA cores (no tensor
+// The f32 FMA contraction core shared by K3 f32 (mlp.cu::fused_point_mlp_kernel),
+// K2 f32 (sweep.cu::lattice_sweep_kernel) and K6 f32
+// (point_query.cu::level_fc0_kernel): the f32 counterpart of mma_bf16.cuh.  Every product is an f32 FMA on the CUDA cores (no tensor
 // cores, no TF32), and each output sums its K terms in order k = 0, 1, ...,
 // K - 1 from 0, as the plain version's contraction does up to the order of
 // its own sums.
@@ -13,7 +13,8 @@
 // chunk of B [kK][HP] f32, both in shared memory.  B is a weight's rows
 // (row-major (K, H), the (in, out) layout) and streams through a
 // two-stage cp.async ring, read once per kM points; A is streamed too (K3's
-// features, K6's gathered features) or resident (K3's hidden activations).
+// features, K2's and K6's gathered features) or resident (the hidden
+// activations of fma_decoder_tail).
 //
 // Register blocking: thread (ty, tx) owns an 8 x 8 outer-product tile,
 // points {4 ty + i, kM/2 + 4 ty + i} and columns {4 tx + j, HP/2 + 4 tx + j}
@@ -34,8 +35,9 @@
 // acc) == acc); 16-byte copies where the row length is a multiple of 4 and
 // the source 16-byte aligned, else 4-byte copies.  store_relu writes bias +
 // ReLU of the tile into a [HP][kM] activation buffer, the A operand of the
-// next layer (K3's fc1 and fc2): padded columns hold relu(0 + 0) = 0, so they
-// add nothing downstream, and nothing past H is ever stored to device memory.
+// next layer (fc1 and fc2 in fma_decoder_tail, the decoder after fc0 that K3
+// f32 and K2 f32 share): padded columns hold relu(0 + 0) = 0, so they add
+// nothing downstream, and nothing past H is ever stored to device memory.
 
 #pragma once
 
@@ -162,7 +164,7 @@ struct FmaTile {
 };
 
 // An A operand that lies whole in shared memory ([K][kM], rows past K zero
-// up to the last chunk): K3's hidden activations.
+// up to the last chunk): the decoder's hidden activations.
 template <int kM, int kK>
 struct ResidentA {
   const float* a;
@@ -197,6 +199,52 @@ __device__ __forceinline__ void contract(Tile& t, ASrc& src, const float* __rest
       cp_async_commit();
     }
     t.mac(src.chunk(c), bring + (c & 1) * kK * HP);
+  }
+}
+
+// The IF-Net decoder after fc0, one copy for K3 f32 and K2 f32: t holds the
+// tile's fc0 sums.  bias + ReLU into act ([HP][kM], shared memory over the
+// caller's fc0 A operand, which no thread reads any more once the first
+// barrier is passed), fc1 (h0 -> h1) and fc2 (h1 -> h2) by contract() on the
+// resident activations with their row-major (in, out) weights streamed
+// through bring, then fc_out: TP threads a point, each a strided share of
+// the h2 terms, summed over the shares in order in shared memory (over the
+// B ring), plus b3.  out[p] for the tile's points p < valid.
+template <class Tile>
+__device__ __forceinline__ void fma_decoder_tail(Tile& t, float* act, float* bring,
+                                                 const float* __restrict__ b0,
+                                                 const float* __restrict__ w1t,
+                                                 const float* __restrict__ b1,
+                                                 const float* __restrict__ w2t,
+                                                 const float* __restrict__ b2,
+                                                 const float* __restrict__ w3,
+                                                 const float* __restrict__ b3,
+                                                 float* __restrict__ out, int valid, int h0,
+                                                 int h1, int h2) {
+  constexpr int kM = Tile::kM, kK = Tile::kK, NT = Tile::NT;
+  static_assert(Tile::HP * kM >= 2 * kK * kM && Tile::kBBytes >= NT * 4, "shared-memory reuse");
+  __syncthreads();  // the fc0 A operand (under act) and the B ring are read
+  t.store_relu(act, b0, h0);
+  ResidentA<kM, kK> hidden{act};
+  contract(t, hidden, w1t, h0, h1, 0, bring);
+  __syncthreads();
+  t.store_relu(act, b1, h1);
+  contract(t, hidden, w2t, h1, h2, 0, bring);
+  __syncthreads();
+  t.store_relu(act, b2, h2);
+  __syncthreads();
+
+  constexpr int TP = NT / kM;
+  const int p = threadIdx.x % kM, part = threadIdx.x / kM;
+  float s = 0.f;
+  for (int c = part; c < h2; c += TP) s = fmaf(act[c * kM + p], __ldg(w3 + c), s);
+  bring[part * kM + p] = s;
+  __syncthreads();
+  if (threadIdx.x < kM && p < valid) {
+    float r = bring[p];
+#pragma unroll
+    for (int q = 1; q < TP; ++q) r += bring[q * kM + p];
+    out[p] = r + __ldg(b3);
   }
 }
 

@@ -130,31 +130,8 @@ fused_point_mlp_kernel(const float* __restrict__ f, int n_feat, int n,
   t.init();
   FeatureA<kM, kK, NT> fa{act, f, n_feat, n, n0, (n & 3) == 0 && aligned16(f)};
   contract(t, fa, w0t, n_feat, h0, 0, bring);
-  __syncthreads();  // the A ring (over act) and the B ring are read
-  t.store_relu(act, b0, h0);
-  ResidentA<kM, kK> hidden{act};
-  contract(t, hidden, w1t, h0, h1, 0, bring);
-  __syncthreads();
-  t.store_relu(act, b1, h1);
-  contract(t, hidden, w2t, h1, h2, 0, bring);
-  __syncthreads();
-  t.store_relu(act, b2, h2);
-  __syncthreads();
-
-  // fc_out: TP threads a point, each a strided share of the h2 terms, summed
-  // over the shares in order in shared memory (over the B ring)
-  constexpr int TP = NT / kM;
-  const int p = threadIdx.x % kM, part = threadIdx.x / kM;
-  float s = 0.f;
-  for (int c = part; c < h2; c += TP) s = fmaf(act[c * kM + p], __ldg(w3 + c), s);
-  bring[part * kM + p] = s;
-  __syncthreads();
-  if (threadIdx.x < kM && n0 + p < n) {
-    float r = bring[p];
-#pragma unroll
-    for (int q = 1; q < TP; ++q) r += bring[q * kM + p];
-    out[n0 + p] = r + __ldg(b3);
-  }
+  // the decoder tail over the A ring (fma_f32.cuh, shared with K2 f32)
+  fma_decoder_tail(t, act, bring, b0, w1t, b1, w2t, b2, w3, b3, out + n0, n - n0, h0, h1, h2);
 }
 
 template <int kM, int HP>
@@ -162,14 +139,12 @@ int launch(const float* f, int n_feat, int n, const float* w0t, const float* b0,
            const float* w1t, const float* b1, const float* w2t, const float* b2,
            const float* w3, const float* b3, float* out, int h0, int h1, int h2,
            cudaStream_t stream) {
-  using T = FmaTile<kM, HP>;
   constexpr int smem = k3_smem<kM, HP>();
-  static_assert(HP * kM >= 2 * T::kK * kM && T::kBBytes >= T::NT * 4, "shared-memory reuse");
   cudaError_t err = cudaFuncSetAttribute(fused_point_mlp_kernel<kM, HP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((int64_t)n + kM - 1) / kM);
-  fused_point_mlp_kernel<kM, HP><<<blocks, T::NT, smem, stream>>>(
+  fused_point_mlp_kernel<kM, HP><<<blocks, FmaTile<kM, HP>::NT, smem, stream>>>(
       f, n_feat, n, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, h0, h1, h2);
   return (int)cudaGetLastError();
 }

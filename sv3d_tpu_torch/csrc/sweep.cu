@@ -18,19 +18,37 @@
 // align_corners conventions are the tables' business.  A slab's launch does
 // no host work beyond the launch itself.
 //
-// f32 design: a block owns kTile consecutive lattice points (flattened over
-// (row, r1, r2), so no tile is wasted at a row's end).  For each displacement
-// d (center, -d0, +d0, -d1, +d1, -d2, +d2) and level l it interpolates the
-// tile's C_l features into shared memory and accumulates them straight into
-// the fc0 pre-activations held in registers, h[o][t] += W0[o, d*sumC+cg+c] *
-// f[c][t]; the 2583-wide feature vector is never whole anywhere.  bias+ReLU,
-// fc1, fc2 and fc_out then run in the block on the hidden tile in shared
-// memory.  Each thread owns 2 fc0 outputs x kTile points of accumulators, so
-// one shared-memory float4 broadcast feeds 8 FMAs.  Bound on the H100: f32
-// FMA issue.  fc0 is 2 * 2583 * 256 flop per point, about 2.1 Tflop for the
-// 1.62M-point full-scale lattice (fc1 + fc2 add 0.4), against 67 Tflop/s of
-// f32 FMA; fc0's weights (2.6 MB) stay in L2 and each block reads them once.
-// It agrees with the plain f32 torch version to f32 summation order.
+// f32 design (the parity route, f32 FMA on the CUDA cores: no tensor cores,
+// no TF32).  Bound on the H100: f32 FMA issue.  fc0 is 2 * 2583 * 256 flop a
+// point, about 2.1 Tflop for the 1.62M-point full-scale lattice (fc1 + fc2
+// add 0.4), against 67 Tflop/s of f32 FMA.  The block tile is fma_f32.cuh's
+// FmaTile, as K3 f32's: kM consecutive lattice points (flattened over (row,
+// r1, r2), so no tile is wasted at a row's end) x all H0 fc0 columns, each
+// thread an 8 x 8 register tile, 16 FMAs a shared-memory load; kM = 96 at
+// H0 256 (384 threads, 128 KB of shared memory, one block an SM: 16,866
+// blocks for the full lattice, 128 waves of 132) and 48 at H0 512.  fc0's
+// K runs in the plan's fixed order (fc0_chunk_order, K2 bf16's): the 7
+// copies of each one-channel level packed into one 16-row chunk, then
+// d-major each (d, level) group of C % 16 == 0 channels, C / 16 chunks; fc0
+// comes as row-major (K, H0) f32 rows in that order, zeros where the order
+// puts none, so a point's sums have one order whatever slab it came in, and
+// a chunk of the core (16 rows at H0 256, 8 at 512) never crosses a group.
+// The A operand is gathered (LatticeA, the pattern of K6 f32's GatherA):
+// the plan stages the pyramid channels-last once a sweep; per group the
+// tile's 8 corners a point (32-bit element offset, f32 weight, from the
+// plan's 2-tap tables) are computed once into shared memory, double
+// buffered; an item is 4 channels of one point, whose 8 corners' float4 are
+// copied with cp.async when the chunk before is multiplied and summed, j =
+// 0..7, into the A chunk after they land; the packed one-channel chunk is
+// gathered with scalar loads.  fc0's weights stream through the core's
+// two-stage cp.async ring, read once per kM points from L2 (2.65 MB at
+// net_res 128).  Then fma_decoder_tail, one copy with K3 f32: bias + ReLU
+// into a [HP][kM] activation buffer over fc0's shared memory, fc1 and fc2
+// by the same core on it, fc_out an f32 dot a point, the ragged tail's
+// stores masked.  Each output sums its K terms in order from 0; it agrees
+// with the plain f32 torch version to f32 summation order.  Levels need C =
+// 1 or C % 16 == 0 with C <= 128 (every IF-Net configuration); the wrapper
+// raises otherwise.
 //
 // bf16 design: the JAX fused tail's precision class -- levels rounded to
 // bf16 (the plan stages them channels-last once a sweep), the feature
@@ -77,217 +95,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fma_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kTile = 32;    // lattice points per block
 constexpr int kMeta = 8;     // per level: C, g0, g1, g2, tap0, tap1, tap2, cg
 constexpr int kHidden = 256; // fc1 / fc2 width
-
-// One hidden layer on the tile: reads x[k][t] (k < K) from smem, writes
-// relu(W x + b) for its NO outputs back into smem[o*NT + tid][t].
-// wt is the transposed weight (K, NO*NT).
-template <int NT, int NO, int K>
-__device__ __forceinline__ void dense_relu(float* smem, const float* __restrict__ wt,
-                                           const float* __restrict__ bias,
-                                           float (&acc)[2][kTile], int tid) {
-#pragma unroll
-  for (int o = 0; o < NO; ++o)
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) acc[o][t] = 0.f;
-  const float4* x4 = reinterpret_cast<const float4*>(smem);
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float w[NO];
-#pragma unroll
-    for (int o = 0; o < NO; ++o) w[o] = __ldg(wt + (int64_t)k * (NO * NT) + o * NT + tid);
-#pragma unroll
-    for (int q = 0; q < kTile / 4; ++q) {
-      const float4 v = x4[k * (kTile / 4) + q];
-#pragma unroll
-      for (int o = 0; o < NO; ++o) {
-        acc[o][4 * q + 0] += w[o] * v.x;
-        acc[o][4 * q + 1] += w[o] * v.y;
-        acc[o][4 * q + 2] += w[o] * v.z;
-        acc[o][4 * q + 3] += w[o] * v.w;
-      }
-    }
-  }
-  __syncthreads();  // every read of x is done before it is overwritten
-#pragma unroll
-  for (int o = 0; o < NO; ++o) {
-    const int k = o * NT + tid;
-    const float bb = __ldg(bias + k);
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) smem[k * kTile + t] = fmaxf(acc[o][t] + bb, 0.f);
-  }
-  __syncthreads();
-}
-
-template <int H0>
-__global__ void __launch_bounds__(H0 / 2)
-lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restrict__ meta,
-                     int n_levels, const int* __restrict__ tap_idx,
-                     const float* __restrict__ tap_w, const float* __restrict__ w0t,
-                     const float* __restrict__ b0, const float* __restrict__ w1t,
-                     const float* __restrict__ b1, const float* __restrict__ w2t,
-                     const float* __restrict__ b2, const float* __restrict__ w3,
-                     const float* __restrict__ b3, float* __restrict__ out, int rows,
-                     int row_offset, int r0, int r1, int r2, int sum_c) {
-  constexpr int NT = H0 / 2;         // threads; each owns fc0 outputs tid, tid+NT
-  constexpr int OH = kHidden / NT;   // hidden outputs per thread
-  extern __shared__ float4 smem4[];  // [max(C_l, H0)][kTile]
-  float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ int s_a[kTile], s_x[kTile], s_y[kTile];
-
-  const int n = rows * r1 * r2;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  if (tid < kTile) {
-    const int p = min(p0 + tid, n - 1);  // the ragged tail repeats a point; its store is masked
-    s_y[tid] = p % r2;
-    const int q = p / r2;
-    s_x[tid] = q % r1;
-    s_a[tid] = row_offset + q / r1;  // the lattice row
-  }
-  float acc[2][kTile];
-#pragma unroll
-  for (int o = 0; o < 2; ++o)
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) acc[o][t] = 0.f;
-  __syncthreads();
-
-  for (int d = 0; d < 7; ++d) {
-    // tap variant (0 center, 1 minus, 2 plus) of each axis for displacement d
-    const int v0 = d == 1 ? 1 : (d == 2 ? 2 : 0);
-    const int v1 = d == 3 ? 1 : (d == 4 ? 2 : 0);
-    const int v2 = d == 5 ? 1 : (d == 6 ? 2 : 0);
-    for (int l = 0; l < n_levels; ++l) {
-      const int* m = meta + l * kMeta;
-      const int C = m[0], g1 = m[2], g2 = m[3];
-      const int64_t G = (int64_t)m[1] * g1 * g2;
-      const float* vol = vols[l] + (int64_t)b * C * G;
-      const int e0 = m[4] + v0 * r0, e1 = m[5] + v1 * r1, e2 = m[6] + v2 * r2;
-
-      for (int i = tid; i < C * kTile; i += NT) {
-        const int c = i / kTile, t = i % kTile;
-        // rows past the lattice (the padded last slab) weigh 0
-        const bool row_ok = s_a[t] < r0;
-        const int ea = 2 * (e0 + (row_ok ? s_a[t] : 0));
-        const int ex = 2 * (e1 + s_x[t]), ey = 2 * (e2 + s_y[t]);
-        const float* vc = vol + c * G;
-        const int k0 = __ldg(tap_idx + ey), k1 = __ldg(tap_idx + ey + 1);
-        const float wk0 = __ldg(tap_w + ey), wk1 = __ldg(tap_w + ey + 1);
-        float s = 0.f;
-#pragma unroll
-        for (int ca = 0; ca < 2; ++ca) {
-          const int ia = __ldg(tap_idx + ea + ca);
-          const float wa = row_ok ? __ldg(tap_w + ea + ca) : 0.f;
-#pragma unroll
-          for (int cb = 0; cb < 2; ++cb) {
-            const int ib = __ldg(tap_idx + ex + cb);
-            const float wab = wa * __ldg(tap_w + ex + cb);
-            const float* row = vc + ((int64_t)ia * g1 + ib) * g2;
-            s += wab * (wk0 * __ldg(row + k0) + wk1 * __ldg(row + k1));
-          }
-        }
-        smem[i] = s;  // i == c * kTile + t
-      }
-      __syncthreads();
-
-      const float* wcol = w0t + (int64_t)(d * sum_c + m[7]) * H0 + tid;
-#pragma unroll 2
-      for (int c = 0; c < C; ++c) {
-        const float wa = __ldg(wcol + (int64_t)c * H0);
-        const float wb = __ldg(wcol + (int64_t)c * H0 + NT);
-#pragma unroll
-        for (int q = 0; q < kTile / 4; ++q) {
-          const float4 v = smem4[c * (kTile / 4) + q];
-          acc[0][4 * q + 0] += wa * v.x;
-          acc[0][4 * q + 1] += wa * v.y;
-          acc[0][4 * q + 2] += wa * v.z;
-          acc[0][4 * q + 3] += wa * v.w;
-          acc[1][4 * q + 0] += wb * v.x;
-          acc[1][4 * q + 1] += wb * v.y;
-          acc[1][4 * q + 2] += wb * v.z;
-          acc[1][4 * q + 3] += wb * v.w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // fc0 bias + ReLU -> smem[k][t]
-#pragma unroll
-  for (int o = 0; o < 2; ++o) {
-    const int k = o * NT + tid;
-    const float bb = __ldg(b0 + k);
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) smem[k * kTile + t] = fmaxf(acc[o][t] + bb, 0.f);
-  }
-  __syncthreads();
-  dense_relu<NT, OH, H0>(smem, w1t, b1, acc, tid);
-  dense_relu<NT, OH, kHidden>(smem, w2t, b2, acc, tid);
-
-  if (tid < kTile && p0 + tid < n) {
-    float s = __ldg(b3);
-    for (int k = 0; k < kHidden; ++k) s += __ldg(w3 + k) * smem[k * kTile + tid];
-    out[(int64_t)b * n + p0 + tid] = s;
-  }
-}
-
-template <int H0>
-cudaError_t launch(const float* const* vols, const int* meta, int n_levels, const int* tap_idx,
-                   const float* tap_w, const float* w0t, const float* b0, const float* w1t,
-                   const float* b1, const float* w2t, const float* b2, const float* w3,
-                   const float* b3, float* out, int batch, int rows, int row_offset, int r0,
-                   int r1, int r2, int sum_c, int max_c, cudaStream_t stream) {
-  const int n = rows * r1 * r2;
-  const size_t smem = (size_t)(max_c > H0 ? max_c : H0) * kTile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lattice_sweep_kernel<H0>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)batch);
-  lattice_sweep_kernel<H0><<<grid, H0 / 2, smem, stream>>>(
-      vols, meta, n_levels, tap_idx, tap_w, w0t, b0, w1t, b1, w2t, b2, w3, b3, out, rows,
-      row_offset, r0, r1, r2, sum_c);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_levels,
-                                  const void* tap_idx, const void* tap_w, const void* w0t,
-                                  const void* b0, const void* w1t, const void* b1,
-                                  const void* w2t, const void* b2, const void* w3,
-                                  const void* b3, void* out, int batch, int rows,
-                                  int row_offset, int r0, int r1, int r2, int sum_c, int h0,
-                                  int max_c, void* stream) {
-  auto* v = (const float* const*)vols;
-  auto* mt = (const int*)meta;
-  auto* ti = (const int*)tap_idx;
-  auto* tw = (const float*)tap_w;
-  auto* o = (float*)out;
-  auto s = (cudaStream_t)stream;
-  if (h0 == 256)
-    return (int)launch<256>(v, mt, n_levels, ti, tw, (const float*)w0t, (const float*)b0,
-                            (const float*)w1t, (const float*)b1, (const float*)w2t,
-                            (const float*)b2, (const float*)w3, (const float*)b3, o, batch,
-                            rows, row_offset, r0, r1, r2, sum_c, max_c, s);
-  if (h0 == 512)
-    return (int)launch<512>(v, mt, n_levels, ti, tw, (const float*)w0t, (const float*)b0,
-                            (const float*)w1t, (const float*)b1, (const float*)w2t,
-                            (const float*)b2, (const float*)w3, (const float*)b3, o, batch,
-                            rows, row_offset, r0, r1, r2, sum_c, max_c, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// K2 bf16 (see the note at the top).
-
-namespace {
 
 // Corner j (bits: axis 0, 1, 2) of lattice point (row, x, y) displaced by
 // copy d on a level: its element offset voxel * C in the channels-last
@@ -319,6 +133,252 @@ struct Tile {
   const int* tap_idx;
   const float* tap_w;
 };
+
+// ---------------------------------------------------------------------------
+// K2 f32 (see the note at the top).
+
+// K2 f32's A operand: fc0's K rows in the plan's order for the tile's kM
+// points, chunk c (rows [kK c, kK c + kK), inside one 16-row chunk of the
+// plan's table and so inside one (d, level) group) in stage c % 2 of a
+// [2][kK][kM] ring.  chunks[k16]: (level, d or -1, first channel, group) of
+// each 16 rows.  A group's corners lie in shared memory, off[(g % 2) * 8 *
+// kM + j * kM + p] (element offset into the channels-last level) and w
+// likewise, computed once a group; the next group's in the finish() of a
+// group's first chunk, so that they are there before the barrier after
+// which contract() issues that group's first copies, and written into the
+// buffer of the group before, which no thread reads any more.  An item is 4
+// channels of one point, a point's kK / 4 items on adjacent lanes (one
+// 16-byte piece of each corner's run each): issue() copies its 8 corners'
+// float4 into the thread's own slots of the staging buffer by cp.async,
+// finish() sums them, j = 0..7, into 4 rows of the A chunk.  A packed
+// one-channel chunk (row d < 7 the level at copy d, rows 7..15 zeros) is
+// gathered in finish() by scalar loads, each item computing its own 8
+// corners.
+template <int kM, int kK, int NT>
+struct LatticeA {
+  static constexpr int kQ = kK / 4;       // a point's items a chunk
+  static constexpr int kItems = kQ * kM;  // items a chunk
+  static constexpr int kPer = (kItems + NT - 1) / NT;
+  float* ring;
+  float4* stage;  // [8][kItems]: corner j of item i at j * kItems + i
+  int* off;       // [2][8][kM]
+  float* w;       // [2][8][kM]
+  const Tile& T;
+  const float* const* vols;  // the channels-last levels
+  const int* meta;
+  const int4* __restrict__ chunks;
+  int k16;  // 16-row chunks of K
+  int b;    // the batch element
+
+  __device__ __forceinline__ const float* level(int l) const {
+    const int* m = meta + l * kMeta;
+    return vols[l] + (int64_t)b * m[0] * m[1] * m[2] * m[3];
+  }
+  // the corners of copy d of level l for the tile's points, into buffer buf
+  __device__ __forceinline__ void corners(int buf, int l, int d) {
+#pragma unroll
+    for (int u = 0; u < (8 * kM + NT - 1) / NT; ++u) {
+      const int i = threadIdx.x + u * NT;
+      if ((8 * kM) % NT != 0 && i >= 8 * kM) break;
+      const int j = i / kM, p = i - j * kM;
+      lattice_corner(meta + l * kMeta, d, T.row[p], T.x[p], T.y[p], j, T.r0, T.r1, T.r2,
+                     T.tap_idx, T.tap_w, off[buf * 8 * kM + i], w[buf * 8 * kM + i]);
+    }
+  }
+  // group 0's corners, before contract() (a barrier must follow)
+  __device__ __forceinline__ void start() {
+    const int4 t = __ldg(chunks);
+    if (t.y >= 0) corners(t.w & 1, t.x, t.y);
+  }
+
+  __device__ __forceinline__ void issue(int c) {
+    const int row = c * kK;
+    const int4 t = __ldg(chunks + (row >> 4));
+    if (t.y < 0) return;
+    const float* vol = level(t.x) + t.z + (row & 15);
+    const int* o = off + (t.w & 1) * 8 * kM;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * NT;
+      if (kItems % NT != 0 && i >= kItems) break;
+      const int p = i / kQ;
+      const float* src = vol + 4 * (i - p * kQ);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cp_async16(stage + j * kItems + i, src + o[j * kM + p]);
+    }
+  }
+  __device__ __forceinline__ void finish(int c) {
+    const int row = c * kK;
+    const int4 t = __ldg(chunks + (row >> 4));
+    float* a = ring + (c & 1) * kK * kM;
+    if (t.y < 0) {
+      const int* m = meta + t.x * kMeta;
+      const float* vol = level(t.x);
+#pragma unroll
+      for (int u = 0; u < (kK * kM + NT - 1) / NT; ++u) {
+        const int i = threadIdx.x + u * NT;
+        if ((kK * kM) % NT != 0 && i >= kK * kM) break;
+        const int r = i / kM, p = i - r * kM;
+        const int d = (row & 15) + r;
+        float s = 0.f;
+        if (d < 7) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            int o;
+            float wj;
+            lattice_corner(m, d, T.row[p], T.x[p], T.y[p], j, T.r0, T.r1, T.r2, T.tap_idx,
+                           T.tap_w, o, wj);
+            s = fmaf(wj, __ldg(vol + o), s);
+          }
+        }
+        a[i] = s;  // i == r * kM + p
+      }
+    } else {
+      const float* wt = w + (t.w & 1) * 8 * kM;
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = threadIdx.x + r * NT;
+        if (kItems % NT != 0 && i >= kItems) break;
+        const int p = i / kQ, q = i - p * kQ;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = stage[j * kItems + i];
+          const float wj = wt[j * kM + p];
+          s.x = fmaf(wj, x.x, s.x);
+          s.y = fmaf(wj, x.y, s.y);
+          s.z = fmaf(wj, x.z, s.z);
+          s.w = fmaf(wj, x.w, s.w);
+        }
+        a[(4 * q) * kM + p] = s.x;
+        a[(4 * q + 1) * kM + p] = s.y;
+        a[(4 * q + 2) * kM + p] = s.z;
+        a[(4 * q + 3) * kM + p] = s.w;
+      }
+    }
+    if ((row & 15) == 0 && t.z == 0) {  // a group's first chunk: the next group's corners
+      const int next = (row >> 4) + (t.y < 0 ? 1 : meta[t.x * kMeta] / 16);
+      if (next < k16) {
+        const int4 u = __ldg(chunks + next);
+        if (u.y >= 0) corners(u.w & 1, u.x, u.y);
+      }
+    }
+  }
+  __device__ __forceinline__ const float* chunk(int c) const { return ring + (c & 1) * kK * kM; }
+};
+
+// K2 f32's tile and shared memory: fc0's staging, A ring and corner tables,
+// then (over them) the decoder's [HP][kM] activations, then the B ring
+template <int kM_, int HP>
+struct SweepF32 {
+  using Tile = FmaTile<kM_, HP>;
+  static constexpr int kM = kM_, kK = Tile::kK, NT = Tile::NT;
+  using A = LatticeA<kM, kK, NT>;
+  static constexpr int kStageBytes = 8 * A::kItems * 16;
+  static constexpr int kRingBytes = 2 * kK * kM * 4;
+  static constexpr int kCornerBytes = 2 * 8 * kM * 4;  // off, and w
+  static constexpr int kFc0Bytes = kStageBytes + kRingBytes + 2 * kCornerBytes;
+  static constexpr int kActBytes = HP * kM * 4;
+  static constexpr int kUnion = kFc0Bytes > kActBytes ? kFc0Bytes : kActBytes;
+  static constexpr int kBytes = kUnion + Tile::kBBytes;
+  // the blocks an SM holds by shared memory (227 KB, 1 KB reserved a
+  // block, the point indices): the register budget __launch_bounds__ asks for
+  static constexpr int kBlocks = 232448 / (kBytes + 1024 + 3 * kM * 4);
+  static_assert(kBlocks >= 1 && kK % 4 == 0 && 16 % kK == 0, "K2 f32 tile");
+};
+
+// K2 f32: the block's tile is kM consecutive points of the slab's lattice
+// points (row, r1, r2) flattened, of batch element blockIdx.y, and all H0
+// fc0 columns (HP >= H0, padded columns zero).
+template <int kM, int HP>
+__global__ void __launch_bounds__(SweepF32<kM, HP>::NT, SweepF32<kM, HP>::kBlocks)
+lattice_sweep_kernel(const float* const* __restrict__ vols, const int* __restrict__ meta,
+                     const int4* __restrict__ chunks, int k16, const int* __restrict__ tap_idx,
+                     const float* __restrict__ tap_w, const float* __restrict__ w0k,
+                     const float* __restrict__ b0, const float* __restrict__ w1t,
+                     const float* __restrict__ b1, const float* __restrict__ w2t,
+                     const float* __restrict__ b2, const float* __restrict__ w3,
+                     const float* __restrict__ b3, float* __restrict__ out, int rows,
+                     int row_offset, int r0, int r1, int r2, int h0) {
+  using S = SweepF32<kM, HP>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* stage = reinterpret_cast<float4*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + S::kStageBytes);
+  int* s_off = reinterpret_cast<int*>(smem + S::kStageBytes + S::kRingBytes);
+  float* s_w = reinterpret_cast<float*>(smem + S::kStageBytes + S::kRingBytes + S::kCornerBytes);
+  float* act = reinterpret_cast<float*>(smem);
+  float* bring = reinterpret_cast<float*>(smem + S::kUnion);
+  __shared__ int s_row[kM], s_x[kM], s_y[kM];
+
+  const int n = rows * r1 * r2;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kM;
+  for (int i = threadIdx.x; i < kM; i += S::NT) {
+    const int p = min(p0 + i, n - 1);  // the ragged tail repeats a point; its store is masked
+    s_y[i] = p % r2;
+    const int q = p / r2;
+    s_x[i] = q % r1;
+    s_row[i] = row_offset + q / r1;
+  }
+  __syncthreads();
+  const Tile T{s_row, s_x, s_y, r0, r1, r2, tap_idx, tap_w};
+  typename S::A src{ring, stage, s_off, s_w, T, vols, meta, chunks, k16, b};
+  src.start();
+  __syncthreads();
+
+  typename S::Tile t;
+  t.init();
+  contract(t, src, w0k, 16 * k16, h0, 0, bring);
+  // the decoder tail over fc0's shared memory (fma_f32.cuh, shared with K3 f32)
+  fma_decoder_tail(t, act, bring, b0, w1t, b1, w2t, b2, w3, b3, out + (int64_t)b * n + p0,
+                   n - p0, h0, kHidden, kHidden);
+}
+
+template <int kM, int HP>
+cudaError_t launch_f32(const void* vols, const void* meta, const void* chunks, int k16,
+                       const void* tap_idx, const void* tap_w, const void* w0k, const void* b0,
+                       const void* w1t, const void* b1, const void* w2t, const void* b2,
+                       const void* w3, const void* b3, void* out, int batch, int rows,
+                       int row_offset, int r0, int r1, int r2, int h0, cudaStream_t stream) {
+  using S = SweepF32<kM, HP>;
+  cudaError_t err = cudaFuncSetAttribute(lattice_sweep_kernel<kM, HP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return err;
+  const int n = rows * r1 * r2;
+  const dim3 grid((unsigned)((n + kM - 1) / kM), (unsigned)batch);
+  lattice_sweep_kernel<kM, HP><<<grid, S::NT, S::kBytes, stream>>>(
+      (const float* const*)vols, (const int*)meta, (const int4*)chunks, k16,
+      (const int*)tap_idx, (const float*)tap_w, (const float*)w0k, (const float*)b0,
+      (const float*)w1t, (const float*)b1, (const float*)w2t, (const float*)b2,
+      (const float*)w3, (const float*)b3, (float*)out, rows, row_offset, r0, r1, r2, h0);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, const void* chunks,
+                                  int k16, const void* tap_idx, const void* tap_w,
+                                  const void* w0k, const void* b0, const void* w1t,
+                                  const void* b1, const void* w2t, const void* b2,
+                                  const void* w3, const void* b3, void* out, int batch, int rows,
+                                  int row_offset, int r0, int r1, int r2, int h0, void* stream) {
+  if (rows * r1 * r2 <= 0 || batch <= 0) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (h0 == 256)
+    return (int)launch_f32<96, 256>(vols, meta, chunks, k16, tap_idx, tap_w, w0k, b0, w1t, b1,
+                                    w2t, b2, w3, b3, out, batch, rows, row_offset, r0, r1, r2,
+                                    h0, s);
+  if (h0 == 512)
+    return (int)launch_f32<48, 512>(vols, meta, chunks, k16, tap_idx, tap_w, w0k, b0, w1t, b1,
+                                    w2t, b2, w3, b3, out, batch, rows, row_offset, r0, r1, r2,
+                                    h0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K2 bf16 (see the note at the top).
+
+namespace {
 
 // the 8 corners of copy d on level m for every point of the tile, once,
 // into off[p * 8 + j] and w[p * 8 + j]

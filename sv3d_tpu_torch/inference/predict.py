@@ -5,8 +5,10 @@ sv3d_tpu/inference/predict.py).
         --checkpoint model.pt --rgb scene/rgb.png \
         --intrinsics scene/intrinsic.txt --out out/
 
---checkpoint is a torch.save'd state_dict of this package's SceneNet (from
-training or sv3d_tpu_torch.convert.from_flax).  Multiple --rgb paths (or a
+--checkpoint is either a trainer's checkpoint (checkpoints/last or
+checkpoints/step_<N> of a SceneNet run: {"model", "optimizer", "step"}, of
+which serving reads the model) or a bare torch.save'd SceneNet state_dict
+(as sv3d_tpu_torch.convert.from_flax makes it).  Multiple --rgb paths (or a
 directory of *.png) are served in turn; --distance serves the GT-depth
 pipeline from distance EXRs instead of the UNet.  Model flags must match the
 checkpoint's architecture.
@@ -28,7 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(description="sv3d_tpu_torch image->mesh serving")
     p.add_argument("--checkpoint", required=True,
-                   help="torch.save'd SceneNet state_dict (.pt)")
+                   help="a SceneNet trainer checkpoint (checkpoints/last) or a "
+                   "torch.save'd SceneNet state_dict (.pt)")
     p.add_argument("--rgb", nargs="+", default=[],
                    help="rgb image path(s), or a directory of *.png")
     p.add_argument("--distance", nargs="+", default=[],
@@ -97,6 +100,10 @@ def load_model(args):
     frustum = FrustumGrid.create(intrinsics, voxel_size=0.05 * config.scale_factor)
     model = SceneNet(config, intrinsics, frustum, device=device)
     state = torch.load(args.checkpoint, map_location=device, weights_only=True)
+    # a trainer's checkpoint (training/checkpoint.py) holds the state_dict
+    # under "model"; its optimizer state is of no use to serving
+    if isinstance(state.get("model"), dict):
+        state = state["model"]
     model.load_state_dict(state)
     return config, model.eval()
 

@@ -13,8 +13,8 @@ math in plain torch (slab_features + the decoder, with bf16 rounding points
 for compute_dtype=torch.bfloat16).
 
 A sweep is prepared once (SweepPlan: the 2-tap tables of the whole lattice,
-the level pointers, the weights in the kernel's layouts, for bf16 the
-pyramid staged channels-last in bf16) and then launched once per slab by
+the level pointers, the weights in the kernel's layouts, the pyramid staged
+channels-last, in bf16 for the bf16 kernel) and then launched once per slab by
 lattice_sweep(plan, rows, row_offset), which does no host-to-device copy and
 no weight transform.  A plan on CPU levels runs the plain version; on CUDA
 levels lattice_sweep launches the kernel of the plan's dtype or raises.
@@ -110,7 +110,7 @@ def sweep_tables(chans, dims_list, r, rows, row_offset, align_corners, displacem
 
 
 def fc0_chunk_order(chans):
-    """bf16 K2's fixed fc0 K order: (groups, cols).  groups: (level, d, k16
+    """K2's fixed fc0 K order (both dtypes): (groups, cols).  groups: (level, d, k16
     chunks, 0) per (d, level) group, d = -1 for a one-channel level whose 7
     copies share one packed chunk (those first), then d-major the levels of
     C % 16 == 0.  cols: for each of the 16 * chunks K positions the fc0
@@ -128,6 +128,27 @@ def fc0_chunk_order(chans):
                 groups.append((lv, d, c // 16, 0))
                 cols += [d * sum_c + cg[lv] + i for i in range(c)]
     return np.asarray(groups, np.int32), np.asarray(cols, np.int64)
+
+
+def fc0_chunk_table(chans) -> np.ndarray:
+    """f32 K2's walk over fc0_chunk_order: (k0_chunks, 4) int32, one row a
+    16-row chunk of K: (level, d or -1 for a packed one-channel level, the
+    chunk's first channel of the level, its group's index)."""
+    groups, _ = fc0_chunk_order(chans)
+    return np.asarray([(lv, d, 16 * q, g) for g, (lv, d, n, _) in enumerate(groups)
+                       for q in range(n)], np.int32).reshape(-1, 4)
+
+
+def fc0_in_chunk_order(w0: torch.Tensor, chans) -> torch.Tensor:
+    """fc0's (H0, 7 sumC) weight as f32 K2 reads it: row-major (16
+    k0_chunks, H0), row k the fc0 column that fc0_chunk_order puts at K
+    position k, zeros where it puts none."""
+    _, cols = fc0_chunk_order(chans)
+    keep = np.flatnonzero(cols >= 0)
+    out = w0.new_zeros((len(cols), w0.shape[0]))
+    out[torch.from_numpy(keep).to(w0.device)] = \
+        w0.t()[torch.from_numpy(cols[keep]).to(w0.device)]
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -150,6 +171,16 @@ def _check_levels(levels, device):
         if flat.ndim != 3 or flat.shape[2] != int(np.prod(dims)):
             raise ValueError(
                 f"lattice_sweep: level must be (B, C, {dims}) flat, got {tuple(flat.shape)}")
+
+
+def _check_chans(levels):
+    for flat, _ in levels:
+        c = flat.shape[1]
+        if not (c == 1 or (c % 16 == 0 and c <= 128)):
+            raise ValueError(f"lattice_sweep: the kernels take levels of C = 1 or C % 16 == 0 "
+                             f"up to 128, got {c}")
+        if flat.shape[2] * c >= 2**31:
+            raise ValueError("lattice_sweep: G * C exceeds the kernels' 32-bit offsets")
 
 
 def _check_mlp(mlp, device, sum_c):
@@ -180,11 +211,14 @@ class SweepPlan:
     copies of all it reads.  On CPU levels: copies of the levels and the
     weights (lattice_sweep runs the plain version on them).  On CUDA levels,
     on the device: the 2-tap tables of all r0 rows and the level pointers;
-    for float32 copies of the channel-major levels, the transposed fc0, fc1,
-    fc2 and fc_out; for bfloat16 the pyramid cast to bf16 and staged
-    channels-last, fc0 in bf16 permuted to fc0_chunk_order and laid out as
-    mma_b_fragments, fc1 and fc2 likewise, fc_out's weight rounded to bf16
-    (kept in f32) and the group table; copies of the f32 biases.  check()
+    for float32 the pyramid staged channels-last, fc0 permuted to
+    fc0_chunk_order as (in, out) rows (fc0_in_chunk_order), the transposed
+    fc1 and fc2, fc_out and the chunk table (fc0_chunk_table); for bfloat16
+    the pyramid cast to bf16 and staged channels-last, fc0 in bf16 permuted
+    to fc0_chunk_order and laid out as mma_b_fragments, fc1 and fc2
+    likewise, fc_out's weight rounded to bf16 (kept in f32) and the group
+    table; copies of the f32 biases.  Levels need C = 1 or C % 16 == 0 up
+    to 128 (ValueError otherwise).  check()
     tells whether given levels and weights are those it was made from,
     unchanged."""
 
@@ -213,10 +247,9 @@ class SweepPlan:
         _check_levels(self.levels, self.device)
         if torch.is_grad_enabled() and any(flat.requires_grad for flat, _ in levels):
             raise NotImplementedError("lattice_sweep is inference-only")
+        _check_chans(self.levels)
         chans = [flat.shape[1] for flat, _ in self.levels]
-        self.sum_c = sum(chans)
-        self.max_c = max(chans)
-        _check_mlp(self.mlp, self.device, self.sum_c)
+        _check_mlp(self.mlp, self.device, sum(chans))
         self.h0 = self.mlp[0][0].shape[0]
         dev = self.device
         with torch.no_grad():
@@ -228,11 +261,19 @@ class SweepPlan:
             self.tap_w = torch.from_numpy(tap_w).to(dev)
             (w0, b0), (w1, b1), (w2, b2), (w3, b3) = self.mlp
             self.biases = [b.clone() for b in (b0, b1, b2, b3)]
+            # the pyramid channels-last in the compute dtype (bf16: cast, a
+            # copy, then staged, the transpose moving half the bytes of an
+            # f32 one); an f32 level of C = 1 stages as a view of the
+            # caller's, so the plan copies it
+            self.vols = []
+            for flat, _ in self.levels:
+                cl = stage_channels_last(flat.to(compute_dtype))
+                self.vols.append(cl.clone() if cl.data_ptr() == flat.data_ptr() else cl)
             if compute_dtype == torch.float32:
-                self.vols = [flat.clone(memory_format=torch.contiguous_format)
-                             for flat, _ in self.levels]
-                self.weights = [w.t().clone(memory_format=torch.contiguous_format)
-                                for w in (w0, w1, w2)] + [w3.clone()]
+                self.chunks = torch.from_numpy(fc0_chunk_table(chans)).to(dev)
+                self.weights = [fc0_in_chunk_order(w0, chans),
+                                w1.t().contiguous(), w2.t().contiguous(),
+                                w3.reshape(-1).clone()]
             else:
                 self._prepare_bf16(chans)
             self.ptrs = torch.tensor([v.data_ptr() for v in self.vols], dtype=torch.int64).to(dev)
@@ -255,14 +296,6 @@ class SweepPlan:
                              "or weights, or they changed in place since; make a new plan")
 
     def _prepare_bf16(self, chans):
-        for (flat, dims), c in zip(self.levels, chans):
-            if not (c == 1 or (c % 16 == 0 and c <= 128)):
-                raise ValueError(f"lattice_sweep: the bf16 kernel takes levels of C = 1 or "
-                                 f"C % 16 == 0 up to 128, got {c}")
-            if flat.shape[2] * c >= 2**31:
-                raise ValueError("lattice_sweep: G * C exceeds the kernel's 32-bit offsets")
-        # cast (a copy), then stage: the transpose moves half the bytes of an f32 one
-        self.vols = [stage_channels_last(flat.to(torch.bfloat16)) for flat, _ in self.levels]
         groups, cols = fc0_chunk_order(chans)
         self.groups = torch.from_numpy(groups).to(self.device)
         self.k0_chunks = len(cols) // 16
@@ -281,9 +314,9 @@ def _out(plan, rows):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # vols, meta, n_levels, tap_idx, tap_w, w0t, b0, w1t, b1, w2t, b2, w3, b3, out,
-    # batch, rows, row_offset, r0, r1, r2, sum_c, h0, max_c, stream
-    "sv3d_lattice_sweep": [_P, _P, _I] + [_P] * 11 + [_I] * 9 + [_P],
+    # vols, meta, chunks, k0_chunks, tap_idx, tap_w, w0k, b0, w1t, b1, w2t, b2, w3, b3,
+    # out, batch, rows, row_offset, r0, r1, r2, h0, stream
+    "sv3d_lattice_sweep": [_P, _P, _P, _I] + [_P] * 11 + [_I] * 7 + [_P],
     # vols, meta, groups, n_groups, tap_idx, tap_w, w0f, k0_chunks, b0, w1f, b1, w2f,
     # b2, w3, b3, out, batch, rows, row_offset, r0, r1, r2, h0, stream
     "sv3d_lattice_sweep_bf16": [_P, _P, _P, _I, _P, _P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P],
@@ -301,14 +334,14 @@ def _bind(name: str):
 def lattice_sweep_f32_cuda(plan: SweepPlan, rows: int, row_offset: int) -> torch.Tensor:
     """K2 f32 on a float32 plan: (B, rows, r1, r2) logits."""
     out = _out(plan, rows)
-    w0t, w1t, w2t, w3 = plan.weights
+    w0k, w1t, w2t, w3 = plan.weights
     b0, b1, b2, b3 = plan.biases
     rc = _bind("sv3d_lattice_sweep")(
-        plan.ptrs.data_ptr(), plan.meta.data_ptr(), len(plan.vols), plan.tap_idx.data_ptr(),
-        plan.tap_w.data_ptr(), w0t.data_ptr(), b0.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-        w2t.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        plan.batch, rows, int(row_offset), *plan.r, plan.sum_c, plan.h0, plan.max_c,
-        torch.cuda.current_stream(plan.device).cuda_stream)
+        plan.ptrs.data_ptr(), plan.meta.data_ptr(), plan.chunks.data_ptr(),
+        plan.chunks.shape[0], plan.tap_idx.data_ptr(), plan.tap_w.data_ptr(), w0k.data_ptr(),
+        b0.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), out.data_ptr(), plan.batch, rows, int(row_offset),
+        *plan.r, plan.h0, torch.cuda.current_stream(plan.device).cuda_stream)
     build.check(rc, "sv3d_lattice_sweep")
     lattice_sweep_f32_cuda.launches += 1
     return out

@@ -7,9 +7,10 @@ the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The
 CPU tests check the part of the sweep kernels that Python owns: the 2-tap
 tables and their index arithmetic, replayed in numpy against the plain
 sweep; the sweep plan's whole-lattice tables cut to a slab as the kernels
-index them; the bf16 kernel's fc0 order and mma fragment layouts; that
-the sweep's values do not depend on slab_rows; and that K2 bf16's mean
-limit fails a sweep that rounds at the wrong points."""
+index them; the bf16 kernel's fc0 order and mma fragment layouts; the
+f32 kernel's fc0 rows and chunk table, and compare_sweep.py's C
+interfaces; that the sweep's values do not depend on slab_rows; and that
+K2 bf16's mean limit fails a sweep that rounds at the wrong points."""
 
 import runpy
 from pathlib import Path
@@ -40,6 +41,8 @@ from sv3d_tpu_torch.ops.cuda.point_query import (
 from sv3d_tpu_torch.ops.cuda.sweep import (
     SweepPlan,
     fc0_chunk_order,
+    fc0_chunk_table,
+    fc0_in_chunk_order,
     lattice_sweep,
     lattice_sweep_bf16_cuda,
     lattice_sweep_f32_cuda,
@@ -230,6 +233,91 @@ def test_bf16_sweep_kernel_layouts(net_res):
                     back[n, c * 16 + kk] = frag[c, :, :, tile * 4 + e]
         assert torch.equal(back, w)
 
+
+
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_f32_sweep_kernel_layouts(net_res, dims):
+    """What the f32 kernel reads, replayed in torch: fc0 in the plan's K
+    order (fc0_in_chunk_order) holds every fc0 column exactly once, with zero
+    rows elsewhere; the chunk table walks that order 16 rows at a time as
+    the kernel does (a packed one-channel chunk: row d the level at copy d,
+    zeros past 7; else channel first + i of the level at copy d), one group
+    index for each (level, d) in turn; features gathered so, contracted with
+    the permuted fc0, then the f32 decoder, give lattice_sweep_plain within
+    1e-5 on four lattice rows (CPU)."""
+    cfg, model, levels = _encoded(net_res, dims)
+    chans = [f.shape[1] for f in levels.flats]
+    sum_c, cg = sum(chans), np.cumsum([0, *chans[:-1]])
+    _, cols = fc0_chunk_order(chans)
+    keep = torch.from_numpy(np.flatnonzero(cols >= 0))
+    w0 = model.fc0.weight.detach()
+    w0k = fc0_in_chunk_order(w0, chans)
+    assert w0k.shape == (len(cols), w0.shape[0]) and len(cols) % 16 == 0
+    assert sorted(cols[cols >= 0].tolist()) == list(range(7 * sum_c))
+    assert torch.equal(w0k[keep], w0.t()[torch.from_numpy(cols[cols >= 0])])
+    assert not w0k[torch.from_numpy(np.flatnonzero(cols < 0))].any()
+
+    table = fc0_chunk_table(chans)
+    assert table.shape == (len(cols) // 16, 4) and table.dtype == np.int32
+    replay, groups = [], []
+    for lv, d, first, g in table.tolist():
+        if d < 0:
+            assert chans[lv] == 1 and first == 0
+            replay += [dd * sum_c + cg[lv] for dd in range(7)] + [-1] * 9
+        else:
+            assert chans[lv] % 16 == 0 and first % 16 == 0 and first < chans[lv]
+            replay += [d * sum_c + cg[lv] + first + i for i in range(16)]
+        if first == 0:
+            groups.append((lv, d))
+            assert g == len(groups) - 1
+        assert groups[g] == (lv, d)
+    assert replay == cols.tolist()
+
+    r, rows, off = dims, 4, dims[0] // 2
+    (_, b0), (w1, b1), (w2, b2), (w3, b3) = model.mlp
+    with torch.inference_mode():
+        f = slab_features(levels, r, rows, off, cfg.align_corners, cfg.displacement)
+        fk = f.new_zeros((f.shape[0], len(cols), f.shape[2]))
+        fk[:, keep] = f[:, torch.from_numpy(cols[cols >= 0])]
+        h = torch.relu(torch.einsum("kh,bkn->bhn", w0k, fk) + b0[:, None])
+        h = torch.relu(torch.einsum("hk,bkn->bhn", w1, h) + b1[:, None])
+        h = torch.relu(torch.einsum("hk,bkn->bhn", w2, h) + b2[:, None])
+        got = (torch.einsum("hk,bkn->bhn", w3, h) + b3[:, None])[:, 0]
+        ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
+                                  cfg.displacement)
+    torch.testing.assert_close(got.reshape(ref.shape), ref, atol=1e-5, rtol=0)
+
+
+COLUMN_SWEEP_ENTRY = (
+    'extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_levels,\n'
+    "    const void* tap_idx, const void* tap_w, const void* w0t,\n"
+    "    const void* b0, const void* w1t, const void* b1,\n"
+    "    const void* w2t, const void* b2, const void* w3,\n"
+    "    const void* b3, void* out, int batch, int rows,\n"
+    "    int row_offset, int r0, int r1, int r2, int sum_c, int h0,\n"
+    "    int max_c, void* stream) {")
+
+
+@pytest.mark.parametrize("design", ["column", "fma"])
+def test_compare_sweep_tells_the_two_c_interfaces_apart(design):
+    """compare_sweep.py calls each checkout's K2 f32 entry with the arguments
+    of its design: the column design (n_levels, sum_c, max_c) or the FMA
+    core's (the plan's chunk table), each argument a pointer or an int as
+    the C signature says; this checkout's source is the fma design, called
+    as its wrapper calls it (CPU)."""
+    import ctypes
+    import re
+
+    from sv3d_tpu_torch.ops.cuda import sweep as wrapper
+
+    cmp = runpy.run_path(str(ROOT / "compare_sweep.py"))
+    src = (ROOT / "sv3d_tpu_torch" / "csrc" / "sweep.cu").read_text()
+    entry = {"column": COLUMN_SWEEP_ENTRY, "fma": src}[design]
+    assert cmp["design_of"](entry) == design
+    params = re.search(r"int\s+sv3d_lattice_sweep\s*\(([^)]*)\)", entry).group(1).split(",")
+    want = [ctypes.c_void_p if "*" in q else ctypes.c_int for q in params]
+    assert cmp["_ARGTYPES"][design] == want
+    assert cmp["_ARGTYPES"]["fma"] == wrapper._ARGTYPES["sv3d_lattice_sweep"]
 
 
 @pytest.mark.parametrize("net_res,dims", CASES)

@@ -129,10 +129,14 @@ def test_port_trains_one_step_without_jax(tmp_path):
 
 def test_no_source_of_the_port_imports_the_jax_package():
     """Every import statement of every .py under sv3d_tpu_torch/, of
-    chip_smoke.py, compare_voxelize.py and compare_mlp.py, at any depth, names none of
+    chip_smoke.py and of the root compare_*.py scripts (compare_voxelize.py,
+    compare_mlp.py, compare_sweep.py), at any depth, names none of
     sv3d_tpu, jax, jaxlib, flax."""
-    sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "compare_voxelize.py", ROOT / "compare_mlp.py"]
+    compare = sorted(ROOT.glob("compare_*.py"))
+    assert {p.name for p in compare} >= {"compare_voxelize.py", "compare_mlp.py",
+                                         "compare_sweep.py"}
+    sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 *compare]
     assert len(sources) > 40
     offenders = []
     for path in sources:

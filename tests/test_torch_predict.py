@@ -119,3 +119,133 @@ def test_main_writes_a_mesh(slice_run, tmp_path):
     mesh = load_obj(out / "scene.obj")
     assert len(mesh.vertices) > 0 and len(mesh.faces) > 0
     assert np.all(mesh.vertices.max(axis=0) <= np.asarray(s.config.dims) - 1)
+
+
+def _served_grid(monkeypatch, argv):
+    """Run predict.main(argv) and return the sigmoid grid it meshed:
+    implicit_to_mesh is wrapped to also sweep the served model on the grid
+    it was handed, as main's own sweep does."""
+    import sv3d_tpu_torch.inference.dense_grid as dense_grid
+
+    seen = []
+    mesh = dense_grid.implicit_to_mesh
+
+    def recording(ifnet, vox, dims, *args, **kwargs):
+        seen.append(evaluate_on_grid(ifnet, vox, dims, transfer_dtype=torch.float32))
+        return mesh(ifnet, vox, dims, *args, **kwargs)
+
+    monkeypatch.setattr(dense_grid, "implicit_to_mesh", recording)
+    main(argv)
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _trainer_checkpoint(model, directory):
+    """checkpoints/last of a run that trained model, as the port's trainers
+    write it (model, optimizer and step)."""
+    from sv3d_tpu_torch.training.checkpoint import CheckpointManager
+    from sv3d_tpu_torch.training.state import TrainState
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    CheckpointManager(directory).save(TrainState(model, opt, step=7), metric=0.5)
+    last = directory / "last"
+    assert set(torch.load(last, weights_only=True)) == {"model", "optimizer", "step"}
+    return last
+
+
+def test_main_serves_a_trainer_checkpoint(slice_run, tmp_path, monkeypatch):
+    """predict --checkpoint <run>/checkpoints/last (a trainer's checkpoint)
+    serves the model it holds: the same logits as the bare state_dict of that
+    model, on --rgb (CPU)."""
+    from PIL import Image
+
+    s = slice_run
+    scene = tmp_path / "scene"
+    scene.mkdir()
+    Image.fromarray(s.rgb_u8).save(scene / "rgb.png")
+    (scene / "intrinsic.txt").write_text(TEXT)
+    bare = tmp_path / "model.pt"
+    torch.save(s.model.state_dict(), bare)
+    last = _trainer_checkpoint(s.model, tmp_path / "checkpoints")
+    grids = [
+        _served_grid(monkeypatch, [
+            "--checkpoint", str(ckpt), "--rgb", str(scene / "rgb.png"),
+            "--scale_factor", str(SCALE), "--device", "cpu", "--out", str(tmp_path / out)])
+        for ckpt, out in ((last, "trained"), (bare, "bare"))
+    ]
+    assert grids[0].shape == s.config.dims
+    np.testing.assert_array_equal(grids[0], grids[1])
+    np.testing.assert_array_equal(grids[0], s.grid)
+    assert (tmp_path / "trained" / "scene.obj").exists()
+
+
+def test_main_serves_a_skip_unet_trainer_checkpoint(tmp_path, monkeypatch):
+    """A --skip_unet run's checkpoints/last serves --distance EXRs (written
+    by the port's io/exr.py): the same logits as its bare state_dict (CPU)."""
+    from sv3d_tpu_torch.config import Config as TConfig
+    from sv3d_tpu_torch.io.exr import write_exr
+
+    config = TConfig(scale_factor=SCALE, skip_unet=True, seed=0)
+    ti = parse_intrinsics(TEXT)
+    torch.manual_seed(0)
+    model = SceneNet(config, ti, FrustumGrid.create(ti, voxel_size=0.05 * SCALE)).eval()
+    assert not any(k.startswith("unet.") for k in model.state_dict())
+    rng = np.random.default_rng(6)
+    write_exr(tmp_path / "distance.exr",
+              {"R": rng.uniform(1.0, 4.0, (240, 320)).astype(np.float32)})
+    (tmp_path / "intrinsic.txt").write_text(TEXT)
+    bare = tmp_path / "model.pt"
+    torch.save(model.state_dict(), bare)
+    last = _trainer_checkpoint(model, tmp_path / "checkpoints")
+    grids = [
+        _served_grid(monkeypatch, [
+            "--checkpoint", str(ckpt), "--distance", str(tmp_path / "distance.exr"),
+            "--skip_unet", "--scale_factor", str(SCALE), "--device", "cpu",
+            "--out", str(tmp_path / out)])
+        for ckpt, out in ((last, "trained"), (bare, "bare"))
+    ]
+    assert grids[0].shape == config.dims and np.isfinite(grids[0]).all()
+    np.testing.assert_array_equal(grids[0], grids[1])
+
+
+def test_main_refuses_an_ifnet_only_checkpoint(tmp_path):
+    """An IF-Net-only run's checkpoint holds an IFNet, not a SceneNet: serving
+    it fails loudly in load_state_dict, as the JAX package's predict does."""
+    from sv3d_tpu_torch.config import Config as TConfig
+    from sv3d_tpu_torch.io.exr import write_exr
+    from sv3d_tpu_torch.models.ifnet import IFNet
+
+    ifnet = IFNet(TConfig(scale_factor=SCALE).ifnet(), generator=torch.Generator().manual_seed(0))
+    last = _trainer_checkpoint(ifnet, tmp_path / "checkpoints")
+    (tmp_path / "intrinsic.txt").write_text(TEXT)
+    write_exr(tmp_path / "distance.exr", {"R": np.full((240, 320), 2.0, np.float32)})
+    with pytest.raises(RuntimeError, match="state_dict"):
+        main(["--checkpoint", str(last), "--distance", str(tmp_path / "distance.exr"),
+              "--skip_unet", "--scale_factor", str(SCALE), "--device", "cpu",
+              "--out", str(tmp_path / "out")])
+
+
+def test_chip_smoke_serves_a_fit_checkpoint(tmp_path):
+    """chip_smoke.py's phase 8b on the CPU at scale_factor 8: the checkpoint
+    that SceneNetTrainer.fit writes (checkpoints/last) is served through
+    predict.main by checkpoint_serving_phase, which writes a mesh with faces;
+    on the CPU no kernel launches (the plain versions run)."""
+    import runpy
+    from pathlib import Path
+
+    from sv3d_tpu_torch.config import Config as TConfig
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1] / "chip_smoke.py"))
+    root = smoke["write_smoke_dataset"](tmp_path / "data", scale_factor=SCALE)
+    cfg = TConfig(seed=0, scale_factor=SCALE, batch_size=2, num_points=64,
+                  subsample_points=128, fused_query=True, splitsdir="overfit",
+                  datasetdir=str(root), sanity_steps=0, experiment="smoke")
+    SceneNetTrainer(cfg, device="cpu", experiment_dir=tmp_path / "train").fit(max_steps=2)
+    got = smoke["checkpoint_serving_phase"](
+        tmp_path / "train" / "checkpoints" / "last", root / "raw" / "overfit" / "00000" / "rgb.png",
+        root / "intrinsics.txt", tmp_path / "served", device="cpu",
+        extra=["--scale_factor", str(SCALE)])
+    assert got["faces"] > 0 and 0.0 < got["level"] < 1.0
+    assert got["launches"] == {"scatter_voxels": 0, "lattice_sweep_bf16": 0,
+                               "lattice_sweep_f32": 0}
