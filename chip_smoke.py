@@ -38,6 +38,14 @@ that each ran its kernels:
             scored by the evaluation CLI; an analytic box pair of IoU 1/3;
   UNet-only DepthRegressorTrainer(...).fit, UNetMini (B=16) and UNet
             (resize_input), whose checkpoint warm-starts SceneNetTrainer.
+  precision 16 (bf16 mixed precision, the UNet and IF-Net convs in bf16)
+            serving: predict.main --precision 16 at full width (K1, K2 bf16
+            on the bf16 pyramid), the scale-8 slice card vs CPU, image->mesh
+            and evaluate_points (K6 bf16) beside precision 32; training: each
+            trainer's fit at precision 16 (end to end B=4: K1, K1b, K4, K7,
+            K8; IF-Net-only B=16: K4, K8; UNet-only), its loss drop, warm step,
+            peak memory and top kernels beside f32, one step card vs CPU; and
+            a short quality.overfit run in both precisions.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -60,7 +68,9 @@ each trainer on the card (kernels) and on the CPU (plain versions) against
 the same step in float64 on the CPU, and times kernels, paths and the train
 steps with CUDA events, beside each kernel's bound on the card and the time
 of one PyTorch library call that computes the same function, where there is
-one.  Imports nothing of JAX.  Raises (exit code 1) without CUDA, when
+one.  The precision-16 phases (19-21) come last and fit 4 steps each; the
+earlier paths keep their depth.  Imports nothing of JAX.  Raises (exit code
+1) without CUDA, when
 sv3d_tpu_torch is not beside it (the script copied alone) and when any phase
 fails.  The last line is {"ok": true, "device": {...}}.
 """
@@ -127,6 +137,24 @@ STEP_RTOL = 1e-4
 # HBM3, 700.00 W, with one K1b check grid and cotangent of this script held)
 PEAK_RAW_GRID_MIB = 5343.5
 STEP_GRAD_RTOL = 1e-2
+# Precision 16 (bf16 convs) on the card against the CPU port's precision 16:
+# one program, the convs summed in another order.  Serving (eval mode): the
+# scale-8 slice's logits within P16_LOGIT_RTOL of the largest |logit|, its
+# sigmoid grid within the JAX package's mixed-precision bound 2e-2 (the CPU
+# port is 3.6e-4 from the JAX package there, tests/test_torch_precision_e2e.py).
+P16_LOGIT_RTOL = 2e-2
+P16_SLICE_TOL = 2e-2
+# One precision-16 train step, card and CPU, held to the CPU's f32 step of
+# the same weights and batch with the error budget of the CPU's own bf16
+# step, per gradient tensor: ||g_card16 - g_cpu32|| <= P16_GRAD_BUDGET *
+# ||g_cpu16 - g_cpu32|| + P16_GRAD_FLOOR * ||g_cpu32||; the loss within
+# P16_LOSS_RTOL of the CPU's bf16 loss.  A bf16 step at scale_factor 8 is
+# chaotic (a 1e-6 change of the input moves the UNet's gradients as far), so
+# two bf16 runs are compared through the f32 witness, as
+# tests/test_torch_precision_e2e.py compares the CPU port with the JAX package.
+P16_GRAD_BUDGET = 3.0
+P16_GRAD_FLOOR = 2e-2
+P16_LOSS_RTOL = 1e-2
 GRID_GRAD_RTOL = 2e-2
 # The biases of the UNetMini convs that feed a train-mode BatchNorm: their
 # gradient is exactly 0 in exact arithmetic (the batch mean absorbs a constant
@@ -2203,6 +2231,231 @@ def ifnet_kernel_timings(model, batch, smi) -> dict:
     return out
 
 
+def serving_p16_phase(ckpt: Path, rgb_png: Path, intrinsics: Path, rgb, smi,
+                      extra=()) -> dict:
+    """Phase 19, serving at precision 16 (bf16 UNet and IF-Net convs): the
+    serving CLI at full width (checkpoint_serving_phase with --precision 16:
+    K1 and K2 bf16 once each, the K2 launch on the bf16 pyramid); the
+    scale-8 slice's logits and sigmoid grid on the card against the CPU
+    port's; warm image->mesh at precision 16 and 32 in turns, median of 5
+    each; evaluate_points on the precision-16 model at N_POINTS points on the
+    default route (K6 bf16), timed beside the precision-32 model's.  extra:
+    more CLI flags (the checkpoint's architecture)."""
+    from sv3d_tpu_torch.config import Config
+    from sv3d_tpu_torch.inference.dense_grid import (
+        evaluate_on_grid,
+        evaluate_points,
+        implicit_to_mesh,
+    )
+    from sv3d_tpu_torch.inference.predict import build_parser, load_model, predict
+    from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_bf16_cuda
+
+    served = checkpoint_serving_phase(ckpt, rgb_png, intrinsics, WORK / "served_p16",
+                                      extra=["--precision", "16", *extra])
+    print(f"precision 16 serving (predict.main --precision 16, full width, the mesh at the "
+          f"grid's median level {served['level']:.4f}): launches {served['launches']}, "
+          f"{served['verts']} verts {served['faces']} faces", flush=True)
+    check(served["faces"] > 0, "the precision-16 served mesh has no faces")
+    check(served["launches"] == {"scatter_voxels": 1, "lattice_sweep_bf16": 1,
+                                 "lattice_sweep_f32": 0},
+          f"precision-16 serving did not run K1 and K2 bf16 once each: {served['launches']}")
+
+    # the scale-8 slice, card against CPU, both at precision 16
+    small = Config(scale_factor=8, seed=0, precision=16)
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = seeded_scene_net(small, device, seed=1)
+        v, _ = predict(small, m, rgb=rgb)
+        with torch.inference_mode():
+            lv = m.ifnet.encode(v)
+            check(lv.flats[1].dtype == torch.bfloat16, "precision 16 gave f32 levels")
+            logits = m.ifnet.query_lattice(lv, small.dims, 1, small.dims[0], 0)
+        out[device] = (logits.cpu().double(), evaluate_on_grid(m.ifnet, v, small.dims,
+                                                              transfer_dtype=torch.float32))
+    logit_err = float((out["cuda"][0] - out["cpu"][0]).abs().max()
+                      / out["cpu"][0].abs().max())
+    sig_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    print(f"precision-16 slice at scale_factor 8, card vs CPU: logits max_abs_err / max |logit| "
+          f"{logit_err:.3e} (tol {P16_LOGIT_RTOL:g}), sigmoid max_abs_err {sig_err:.3e} (tol "
+          f"{P16_SLICE_TOL:g})", flush=True)
+    check(logit_err <= P16_LOGIT_RTOL and sig_err <= P16_SLICE_TOL,
+          f"the card's precision-16 slice disagrees with the CPU's: {logit_err}, {sig_err}")
+
+    # warm image->mesh, the two precisions in turns
+    models = {}
+    for prec in ("32", "16"):
+        args = build_parser().parse_args(
+            ["--checkpoint", str(ckpt), "--rgb", str(rgb_png), "--intrinsics", str(intrinsics),
+             "--device", "cuda", "--precision", prec, *extra])
+        models[prec] = load_model(args)
+
+    def serve(prec):
+        cfg, m = models[prec]
+        v, _ = predict(cfg, m, rgb=rgb)
+        implicit_to_mesh(m.ifnet, v, cfg.dims, 0.5, WORK / f"t{prec}.obj")
+        torch.cuda.synchronize()
+
+    e2e = {"32": [], "16": []}
+    for i in range(6):
+        for prec in (("32", "16") if i % 2 else ("16", "32")):
+            t0 = time.perf_counter()
+            serve(prec)
+            if i:  # the first round is warm-up
+                e2e[prec].append(time.perf_counter() - t0)
+    prof16 = profile_lines(lambda: serve("16"), steps=2)
+
+    # arbitrary points on the precision-16 model: the default route (K6 bf16)
+    cfg16, m16 = models["16"]
+    pts_np = np.random.default_rng(3).uniform(-0.45, 0.45, (N_POINTS, 3)).astype(np.float32)
+    vox, _ = predict(cfg16, m16, rgb=rgb)
+    level_fc0_bf16_cuda.launches = 0
+    p16 = evaluate_points(m16.ifnet, vox, pts_np)
+    torch.cuda.synchronize()
+    k6_launches = level_fc0_bf16_cuda.launches
+    p32 = evaluate_points(models["32"][1].ifnet, vox, pts_np)
+    points_ms = {prec: cuda_ms(lambda m=m: evaluate_points(m.ifnet, vox, pts_np), reps=3)
+                 for prec, (_, m) in models.items()}
+    print(f"precision-16 evaluate_points at {N_POINTS} points (the default route, bf16 K6): "
+          f"K6 bf16 launches {k6_launches}, sigmoid in [{p16.min():.4f}, {p16.max():.4f}], "
+          f"largest difference from the precision-32 model's on the same grid "
+          f"{float(np.abs(p16 - p32).max()):.3e}", flush=True)
+    check(p16.shape == (N_POINTS,) and bool(np.isfinite(p16).all()) and k6_launches > 0,
+          f"precision-16 evaluate_points: {p16.shape}, K6 bf16 launches {k6_launches}")
+    print(f"precision-16 serving timings on {smi}:", flush=True)
+    for prec in ("32", "16"):
+        print(f"  warm image->mesh at precision {prec}: median "
+              f"{statistics.median(e2e[prec]):.4f} s over 5 runs ("
+              f"{', '.join(f'{t:.4f}' for t in e2e[prec])}), in turns with the other", flush=True)
+    for prec, ms in points_ms.items():
+        print(f"  evaluate_points at precision {prec}, {N_POINTS} points, default route: "
+              f"{ms:.3f} ms (median of 3), {N_POINTS / (ms / 1e3):.4g} points/s", flush=True)
+    print("  profiled image->mesh at precision 16:", flush=True)
+    for line in prof16:
+        print(f"    {line}", flush=True)
+    return {"launches": served["launches"], "points_launches": {"K6bf16": k6_launches}}
+
+
+def p16_step_budget(card, cpu16, cpu32) -> dict:
+    """One precision-16 train step on the card against the CPU's, each a
+    parity_step / new_trainer_step result, held to the CPU's f32 step of the
+    same weights and batch (cpu32) with the error budget of the CPU's own
+    bf16 step: {"loss": |card - cpu16| / (P16_LOSS_RTOL |cpu16|), "grads":
+    the worst tensor's ||card - cpu32|| / (P16_GRAD_BUDGET ||cpu16 - cpu32||
+    + P16_GRAD_FLOOR ||cpu32||)}, each (ratio, where); <= 1 passes."""
+    loss = abs(card["loss"] - cpu16["loss"]) / (P16_LOSS_RTOL * abs(cpu16["loss"]))
+    worst = (0.0, "")
+    for n, g32 in cpu32["grads"].items():
+        bound = (P16_GRAD_BUDGET * float((cpu16["grads"][n] - g32).norm())
+                 + P16_GRAD_FLOOR * float(g32.norm()))
+        ratio = float((card["grads"][n] - g32).norm()) / max(bound, 1e-30)
+        worst = max(worst, (ratio, n))
+    return {"loss": (loss, ""), "grads": worst}
+
+
+def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) -> dict:
+    """Phase 20, training at precision 16, each trainer through its entry
+    point at full width: the end-to-end fit (B=4, fused_query), the
+    IF-Net-only fit (B=16 x 4096 points; its validation meshes through K2
+    bf16 on the bf16 pyramid) and the UNet-only fit (UNetMini, B=16), 4
+    steps of fit each with the kernel counts set to 0 just before and read
+    just after; the loss over 10 steps on one fixed batch; the warm
+    step (CUDA events, median of 5 after 2 warm-ups) and its peak memory
+    beside the f32 step's (f32: {name: (ms, MiB)} from phases 11 and 18);
+    the top device kernels of the profiled step.  Then one step at
+    scale_factor 8, card against CPU, held by p16_step_budget (parity: {name:
+    (kind, f32 config)}).  Returns {name: launches}."""
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+
+    from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep_bf16_cuda
+
+    classes = {"scene": SceneNetTrainer, "ifnet": _new_trainer("ifnet")[0],
+               "unet": _new_trainer("unet")[0]}
+    counters = {**_counters(), "K2": lattice_sweep_bf16_cuda}
+    out = {}
+    for name, (kind, cfg) in cfgs.items():
+        exp = WORK / f"p16_{kind}"
+        shutil.rmtree(exp, ignore_errors=True)
+        for fn in counters.values():
+            fn.launches = 0
+        trainer = classes[kind](cfg, device="cuda", experiment_dir=exp)
+        state = trainer.fit(max_steps=4)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        out[name] = launches
+        want = {"scene": ("K1", "K1b", "K4", "K7", "K8"), "ifnet": ("K4", "K8", "K2"),
+                "unet": ()}[kind]
+        check(state.step == 4 and all(launches[k] > 0 for k in want)
+              and (kind != "ifnet" or launches["K7"] == 0),
+              f"the precision-16 {name} fit did not run its kernels: {launches}")
+        gen = torch.Generator().manual_seed(0)
+        batch = batches[kind] if kind in batches else fixed_batch(trainer, cfg.batch_size)
+        st = trainer.build_state()
+        losses = [float(next(iter(trainer.train_step(st, batch, gen).values())))
+                  for _ in range(10)]
+        step = lambda: trainer.train_step(st, batch, gen)
+        ms = cuda_ms(step, reps=5)
+        peak = peak_step_mib(step)
+        _, wall, device_t, events = _profile(step, 3)
+        leader = events[0].key if events else ""
+        print(f"precision-16 {name}: fit(max_steps=4) launches {launches}; 10 steps on one batch "
+              f"of {cfg.batch_size}: loss {', '.join(f'{x:.5f}' for x in losses)}", flush=True)
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"the precision-16 {name} loss did not drop: {losses}")
+        print(f"  on {smi}: warm step median {ms:.3f} ms of 5 (f32 {f32[name][0]:.3f} ms, "
+              f"{f32[name][0] / ms:.2f}x); peak device memory {peak:.1f} MiB (f32 "
+              f"{f32[name][1]:.1f} MiB); profiled {wall:.3f} ms host clock, {device_t:.3f} ms "
+              f"device self time, device idle {100.0 * (1.0 - device_t / wall):.1f}%", flush=True)
+        print(f"  wgrad2d_grouped_direct_kernel still leads the device time: "
+              f"{'wgrad2d_grouped_direct_kernel' in leader}; the leader is {leader[:100]}",
+              flush=True)
+        for line in _top_lines(events, device_t, 3, top=8):
+            print(f"  {line}", flush=True)
+        del st, state, trainer
+
+    for name, (kind, cfg32) in parity.items():
+        cfg16 = cfg32.replace(precision=16)
+        if kind == "scene":
+            cpu32 = parity_step(cfg32, "cpu")
+            runs = {"cpu16": parity_step(cfg16, "cpu", labels=cpu32["labels"]),
+                    "card16": parity_step(cfg16, "cuda", labels=cpu32["labels"])}
+        else:
+            cpu32 = new_trainer_step(kind, cfg32, "cpu")
+            runs = {"cpu16": new_trainer_step(kind, cfg16, "cpu"),
+                    "card16": new_trainer_step(kind, cfg16, "cuda")}
+        res = p16_step_budget(runs["card16"], runs["cpu16"], cpu32)
+        print(f"precision-16 {name} train step at scale_factor 8, card vs CPU, each held to "
+              "the CPU's f32 step with the CPU bf16 step's error budget, as a fraction of "
+              "its bound (<= 1 passes): "
+              + ", ".join(f"{k} {r:.3e} {n}" for k, (r, n) in res.items()), flush=True)
+        check(max(r for r, _ in res.values()) <= 1.0,
+              f"the card's precision-16 {name} step disagrees with the CPU's: {res}")
+    return out
+
+
+def quality_p16_phase(steps: int = 30, extra=()) -> dict:
+    """Phase 21, the quality smoke: quality.overfit end to end (--use_unet) at
+    full scale on one synthetic scene, steps steps at precision 32 and 16
+    from the same seed; both IoUs printed.  The comparison that counts is a
+    run of at least 1000 steps (README).  extra: more quality.overfit flags."""
+    from sv3d_tpu_torch.quality import overfit
+
+    results = {}
+    for prec in ("32", "16"):
+        exp = WORK / f"quality_p{prec}"
+        shutil.rmtree(exp, ignore_errors=True)
+        results[prec] = overfit.main([
+            "--steps", str(steps), "--use_unet", "--precision", prec, "--eval_points", "20000",
+            "--root", str(WORK / "quality_scene"), "--exp", str(exp), *extra])
+        check(json.loads((exp / "quality.json").read_text()) == results[prec],
+              f"quality.overfit at precision {prec} did not write its results")
+    print(f"quality smoke (quality.overfit, end to end, one synthetic scene, {steps} steps): "
+          + "; ".join(f"precision {p}: iou {r['iou']}, chamfer_l2 {r['chamfer_l2']}, normals "
+                      f"{r['normals']}, {r['steps_per_sec']} steps/s"
+                      + (f" (mesh failed: {r['failed']})" if "failed" in r else "")
+                      for p, r in results.items()), flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: CUDA is not available")
@@ -2820,28 +3073,66 @@ def main() -> int:
         print(f"  {line}", flush=True)
     print(f"phase 18 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
+    # -- phase 19: serving at precision 16 ----------------------------------------
+    t_phase = time.perf_counter()
+    serve_p16 = serving_p16_phase(ckpt, data_root / "raw" / "overfit" / "00000" / "rgb.png",
+                                  intr_path, rgb, smi)
+    print(f"phase 19 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 20: training at precision 16, each trainer ---------------------------
+    t_phase = time.perf_counter()
+    fit_p16 = training_p16_phase(
+        {"end to end": ("scene", train_cfg.replace(precision=16)),
+         "IF-Net-only": ("ifnet", ifnet_cfg.replace(precision=16, val_check_interval=4)),
+         "UNet-only UNetMini": ("unet", unet_cfg.replace(precision=16))},
+        {"scene": batch, "ifnet": ifnet_batch},
+        {"end to end": (step_ms[True], peak["port"][0] / 2**20),
+         "IF-Net-only": (new_step_ms["IF-Net-only fused_query=True"],
+                         new_peak["IF-Net-only fused_query=True"]),
+         "UNet-only UNetMini": (new_step_ms["UNet-only UNetMini"],
+                                new_peak["UNet-only UNetMini"])},
+        {"end to end": ("scene", parity_config(data_root)),
+         "IF-Net-only": ("ifnet", Config(seed=0, scale_factor=8, batch_size=2, num_points=256,
+                                         fused_query=True, datasetdir=str(ifnet8_root),
+                                         splitsdir="overfit")),
+         "UNet-only": ("unet", Config(seed=0, batch_size=2, datasetdir=str(data_root),
+                                      splitsdir="overfit"))},
+        smi)
+    print(f"phase 20 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 21: the quality smoke, both precisions ---------------------------------
+    t_phase = time.perf_counter()
+    quality_p16_phase()
+    print(f"phase 21 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
         # main paths
         "K1": (launches["scatter_voxels"] + ckpt_served["launches"]["scatter_voxels"]
-               + train_launches["K1"], k1_err,
+               + train_launches["K1"] + serve_p16["launches"]["scatter_voxels"]
+               + fit_p16["end to end"]["K1"], k1_err,
                k1_t[("random", 1)]["ms"], k1_t[("random", 1)]["plain_ms"]),
         # at the serving path's shape: the whole lattice in one launch
         # K2 bf16 on the serving path and in the IF-Net-only fit's validations
         "K2": (launches["lattice_sweep_bf16"] + ckpt_served["launches"]["lattice_sweep_bf16"]
-               + fit_ifnet["launches"]["K2"], k2_err["K2"],
+               + fit_ifnet["launches"]["K2"] + serve_p16["launches"]["lattice_sweep_bf16"]
+               + fit_p16["IF-Net-only"]["K2"],
+               k2_err["K2"],
                k2_whole_ms["K2"], k2_plain_whole_ms["K2"]),
         "K2f32": (launches["lattice_sweep_f32"], k2_err["K2f32"], k2_whole_ms["K2f32"],
                   k2_plain_whole_ms["K2f32"]),
         # the random depth at the training shape, as the row has always been read
-        "K1b": (train_launches["K1b"], tk["K1b"][0], k1b_t["random"]["ms"],
+        "K1b": (train_launches["K1b"] + fit_p16["end to end"]["K1b"], tk["K1b"][0],
+                k1b_t["random"]["ms"],
                 k1b_t["random"]["plain_ms"]),
         # both fits' launches; times at the end-to-end fit's shape, as the rows
         # have always been read (the IF-Net-only shape under "fit_ifnet")
-        **{k: (train_launches[k] + fit_ifnet["launches"][k], tk[k][0], *kernel_ms[k])
+        **{k: (train_launches[k] + fit_ifnet["launches"][k] + fit_p16["end to end"][k]
+               + fit_p16["IF-Net-only"][k], tk[k][0], *kernel_ms[k])
            for k in ("K4", "K7", "K8")},
-        **{k: (pp["launches"][k], pp["err"][k], *pp["ms"][k])
+        **{k: (pp["launches"][k] + serve_p16["points_launches"].get(k, 0), pp["err"][k],
+               *pp["ms"][k])
            for k in ("K3", "K3f32", "K5", "K6", "K6bf16")},
     }
     kernels = []
@@ -2886,16 +3177,29 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = {
                 "serving": launches["scatter_voxels"],
                 "serving_checkpoint": ckpt_served["launches"]["scatter_voxels"],
-                "fit": train_launches["K1"]}
+                "fit": train_launches["K1"],
+                "serving_p16": serve_p16["launches"]["scatter_voxels"],
+                "fit_p16": fit_p16["end to end"]["K1"]}
+        if key == "K1b":
+            kernels[-1]["launches_by_path"] = {"fit": train_launches["K1b"],
+                                               "fit_p16": fit_p16["end to end"]["K1b"]}
+        if key == "K6bf16":
+            kernels[-1]["launches_by_path"] = {
+                "points": pp["launches"]["K6bf16"],
+                "points_p16": serve_p16["points_launches"]["K6bf16"]}
         if key == "K2":
             kernels[-1]["launches_by_path"] = {
                 "serving": launches["lattice_sweep_bf16"],
                 "serving_checkpoint": ckpt_served["launches"]["lattice_sweep_bf16"],
-                "fit_ifnet": fit_ifnet["launches"]["K2"]}
+                "fit_ifnet": fit_ifnet["launches"]["K2"],
+                "serving_p16": serve_p16["launches"]["lattice_sweep_bf16"],
+                "fit_ifnet_p16": fit_p16["IF-Net-only"]["K2"]}
         if key in ("K4", "K7", "K8"):
             t = ifnet_k[key]
             kernels[-1]["launches_by_path"] = {"fit": train_launches[key],
-                                               "fit_ifnet": fit_ifnet["launches"][key]}
+                                               "fit_ifnet": fit_ifnet["launches"][key],
+                                               "fit_p16": fit_p16["end to end"][key],
+                                               "fit_ifnet_p16": fit_p16["IF-Net-only"][key]}
             kernels[-1]["fit_ifnet"] = {
                 "max_abs_err_rel": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

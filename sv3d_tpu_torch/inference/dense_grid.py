@@ -104,7 +104,8 @@ def evaluate_points(
     package's use_pallas class) or float32 (exact, the parity route).  bands
     picks the kernel: "auto" or a count, K6 (fc0 in the kernel; bf16 or f32);
     None, K5 (bf16) or K4 (f32) and a matmul.  The kernel routes stage the
-    pyramid channels-last once a call, rounded to bf16 for bfloat16.
+    pyramid channels-last once a call, rounded to bf16 for bfloat16 (a
+    precision-16 model's bf16 levels as they are; widened for float32).
     use_kernel=False takes the exact f32 gather path IFNet.query whatever
     compute_dtype says.  Everything runs on the model's device; only the
     result comes back."""

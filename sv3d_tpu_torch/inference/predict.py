@@ -11,7 +11,10 @@ which serving reads the model) or a bare torch.save'd SceneNet state_dict
 (as sv3d_tpu_torch.convert.from_flax makes it).  Multiple --rgb paths (or a
 directory of *.png) are served in turn; --distance serves the GT-depth
 pipeline from distance EXRs instead of the UNet.  Model flags must match the
-checkpoint's architecture.
+checkpoint's architecture; --precision need not: the parameters are f32 at
+both precisions, so a checkpoint trained at 32 or 16 serves at either
+(16 runs the UNet and the IF-Net convs in bf16, and the sweep reads the
+bf16 pyramid as it is).
 """
 
 from __future__ import annotations
@@ -50,7 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resize_input", action="store_true")
     p.add_argument("--scale_factor", type=int, default=1)
     p.add_argument("--inf_res", type=int, default=1)
-    p.add_argument("--precision", type=int, default=32)
+    p.add_argument("--precision", type=int, default=32,
+                   help="32: float32; 16: bf16 mixed precision (the UNet and "
+                   "IF-Net convs in bf16); a checkpoint of either precision "
+                   "serves at either")
     p.add_argument("--min_z", type=float, default=DEFAULT_MIN_Z)
     p.add_argument("--max_z", type=float, default=DEFAULT_MAX_Z)
     p.add_argument("--sigma", nargs="+", type=float, default=[1.5])
@@ -113,8 +119,8 @@ def predict(config, model, rgb=None, distance=None, intrinsics=None):
     depthmap (240, 320) numpy).
 
     rgb: (H, W, 3) normalized float32, or None with a distance map for the
-    GT-depth pipeline.  Runs under inference_mode with TF32 off, so convs and
-    matmuls are full f32 like the JAX package's."""
+    GT-depth pipeline.  Runs under inference_mode with TF32 off, so f32
+    convs and matmuls are full f32 like the JAX package's."""
     from sv3d_tpu_torch.geometry.camera import distance_to_depth
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -13,6 +13,13 @@ statistics past 1e-6; the train-mode forward here computes flax's formula
 in flax's order.  Eval mode is F.batch_norm with the running statistics.
 This module keeps nn.BatchNorm's parameter and buffer names, so state_dicts
 and sv3d_tpu_torch.convert.from_flax are unchanged.
+
+dtype (None, or torch.bfloat16 for --precision 16) is flax's
+BatchNorm(dtype=...): the statistics come from the input widened to f32
+(flax's force_float32_reductions), the running statistics stay f32, the
+normalization, scale and bias run in f32 in both modes, and the output is
+rounded to dtype.  None keeps the input's dtype throughout, so a float64
+module stays float64.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ from torch import nn
 class BatchNorm(nn.Module):
     """Normalizes dim 1 of an (N, C, ...) input over every other dim."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.eps = eps
         self.momentum = momentum  # flax convention: weight of the old statistic
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -36,11 +45,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            return self._normalize(x.float()).to(self.dtype)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        dims = [0, *range(2, x.ndim)]
+        return self._normalize(x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's formula on x as it is: train mode folds the batch
+        statistics into the running ones, eval mode reads those."""
         shape = [1, -1] + [1] * (x.ndim - 2)
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        dims = [0, *range(2, x.ndim)]
         mean = x.mean(dims)
         var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
         with torch.no_grad():

@@ -26,6 +26,15 @@ query_lattice() sweeps the dense lattice through K2 by default, or
 materializes the slab's features and runs the decoder through K3
 (fused_tail=False), in the JAX package's compute_dtype: bfloat16 by default
 (serving), float32 for parity.  No mesh / shard_map routing: one device.
+
+dtype=torch.bfloat16 (--precision 16) is the flax module's dtype: the conv
+stages compute and return bf16 on f32 parameters (models/mixed.py, bf16
+BatchNorm), so levels 1.. are bf16 and level 0 stays the f32 input grid.
+query() interpolates a bf16 level in bf16 and then runs fc0 onward in f32
+(the concat with level 0 promotes); query_fused() casts bf16 levels to f32
+at its boundary for its float32 route (the kernels' f32 operands; the
+cast's backward returns the level's gradient to bf16); the bf16 routes and
+the sweep read a bf16 level as it is.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from torch import nn
 from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
+from sv3d_tpu_torch.models.mixed import conv, widen
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp, mlp_operands
 from sv3d_tpu_torch.ops.cuda.point_query import (
     fc0_block_bf16,
@@ -58,19 +68,21 @@ from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES, matmul_bf16
 
 
 class _ConvBlock(nn.Module):
-    """Conv3d(k3 p1) + ReLU pair(s) + BatchNorm, one pyramid stage."""
+    """Conv3d(k3 p1) + ReLU pair(s) + BatchNorm, one pyramid stage, in dtype
+    (None: the parameters')."""
 
-    def __init__(self, cin: int, features):
+    def __init__(self, cin: int, features, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         chans = [cin] + list(features)
         self.convs = nn.ModuleList(
             nn.Conv3d(a, b, 3, padding=1) for a, b in zip(chans[:-1], chans[1:])
         )
-        self.bn = BatchNorm(chans[-1])
+        self.bn = BatchNorm(chans[-1], dtype=dtype)
 
     def forward(self, x):
-        for conv in self.convs:
-            x = F.relu(conv(x))
+        for layer in self.convs:
+            x = F.relu(conv(layer, x, self.dtype))
         return self.bn(x)
 
 
@@ -82,12 +94,14 @@ class IFNet(nn.Module):
     (dense-lattice logits).  grid: (B, D0, D1, D2, 1) channels-last
     occupancy volume; points: (B, N, 3) in [-0.5, 0.5].  BatchNorm follows
     the module's train/eval mode.  Weights are drawn from generator with
-    flax's initializers, then the module moves to device."""
+    flax's initializers, then the module moves to device.  dtype: None or
+    torch.bfloat16 (the conv stages' compute dtype)."""
 
     def __init__(self, config: IFNetConfig = IFNetConfig(), device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         if config.net_res == 128:
             stages = [[16], [32, 32], [64, 64], [128, 128], [128, 128]]
             hidden = (config.hidden_dim,) * 3
@@ -98,7 +112,7 @@ class IFNet(nn.Module):
             raise ValueError(f"net_res must be 128 or 32, got {config.net_res}")
         cins = [1] + [s[-1] for s in stages[:-1]]
         self.stages = nn.ModuleList(
-            _ConvBlock(cin, s) for cin, s in zip(cins, stages)
+            _ConvBlock(cin, s, dtype) for cin, s in zip(cins, stages)
         )
         sizes = (self.feature_size,) + hidden + (1,)
         for name, f_in, f_out in zip(("fc0", "fc1", "fc2", "fc_out"), sizes[:-1], sizes[1:]):
@@ -142,7 +156,8 @@ class IFNet(nn.Module):
 
     def encode(self, grid: torch.Tensor) -> Pyramid:
         """Run the conv pyramid once; level 0 is the raw input grid.
-        Returns a Pyramid of channel-major (B, C, G) levels."""
+        Returns a Pyramid of channel-major (B, C, G) levels, levels 1.. in
+        the module's dtype (max-pooled in it, as the JAX package pools)."""
         x = grid.permute(0, 4, 1, 2, 3).contiguous()
         levels = [flatten_grid(x)]
         for i, stage in enumerate(self.stages):
@@ -175,7 +190,10 @@ class IFNet(nn.Module):
 
     def query(self, levels: Pyramid, points: torch.Tensor) -> torch.Tensor:
         """Occupancy logits (B, N) at arbitrary points (B, N, 3) in
-        [-0.5, 0.5]: the exact f32 gather path, differentiable by autograd."""
+        [-0.5, 0.5]: the exact f32 gather path, differentiable by autograd.
+        A bf16 level is interpolated in bf16 (weights, products and corner
+        sums), as the JAX package's gather does; the features then widen to
+        the f32 of level 0 for fc0 onward."""
         cfg = self.config
         b, n, _ = points.shape
         p_axes = tuple(2.0 * points[..., i] for i in range(3))
@@ -205,7 +223,9 @@ class IFNet(nn.Module):
         bucketing (bucket_queries_2d, ops/pallas/cost.py::choose_bands), which
         the port does not have, so any band count gives the same result.
 
-        compute_dtype: float32 (the default, the training path's) is exact;
+        compute_dtype: float32 (the default, the training path's) is exact,
+        on f32 levels (bf16 ones are widened here, as the JAX package's
+        query_fused casts a precision-16 pyramid);
         bfloat16 is the JAX fused query's class (inference-only): the levels
         rounded to bf16, features rounded once, fc0 in bf16 with f32 sums --
         by K6 bf16 with bands set (each level's partial rounded to bf16), by
@@ -220,6 +240,11 @@ class IFNet(nn.Module):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"query_fused: compute_dtype must be one of {COMPUTE_DTYPES}")
         bf16 = compute_dtype == torch.bfloat16
+        if not bf16 and any(f.dtype == torch.bfloat16 for f in levels.flats):
+            # the f32 kernels' interface, as the JAX package's query_fused
+            # casts a precision-16 pyramid: autograd returns the level's
+            # gradient to bf16 for the conv backward
+            levels = Pyramid([widen(f) for f in levels.flats], levels.dims)
         p0, p1, p2 = ((2.0 * points[..., i]).contiguous() for i in range(3))
         args = (cfg.align_corners, cfg.displacement)
         if w0_blocks is None:

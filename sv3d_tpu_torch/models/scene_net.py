@@ -2,7 +2,13 @@
 sv3d_tpu/models/scene_net.py): RGB -> depth -> point cloud -> voxel
 occupancy -> IF-Net occupancy logits at query points (forward, training),
 or the dense lattice (serving, through predict_depth / project_depth /
-project and ifnet.query_lattice)."""
+project and ifnet.query_lattice).
+
+config.precision 16 is the JAX package's mixed precision: the UNet and the
+IF-Net conv stages compute in bf16 (config.dtype) on f32 parameters, so a
+checkpoint has one layout at either precision; Projection (back-projection,
+scatter, smoothing) stays f32, and the depth logits widen to f32 before the
+resize and the sigmoid."""
 
 from __future__ import annotations
 
@@ -14,32 +20,34 @@ from sv3d_tpu_torch.geometry.camera import Intrinsics
 from sv3d_tpu_torch.geometry.frustum import FrustumGrid
 from sv3d_tpu_torch.geometry.transforms import depthmap_to_gridspace, norm_grid_space
 from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.models.mixed import widen
 from sv3d_tpu_torch.models.projection import Projection
 from sv3d_tpu_torch.models.unet import UNet, UNetMini, renormalize_depth, resize_crop_depth
 
 
 class SceneNet(nn.Module):
     """unet (absent under config.skip_unet), project and ifnet, with weights
-    drawn from generator and the module placed on device."""
+    drawn from generator and the module placed on device; the unet and
+    ifnet compute in bf16 at config.precision 16."""
 
     def __init__(self, config: Config, intrinsics: Intrinsics, frustum: FrustumGrid,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if config.precision != 32:
-            raise NotImplementedError("sv3d_tpu_torch runs float32 only (precision=32)")
+        dt = None if config.precision == 32 else config.dtype
         self.config = config
         self.intrinsics = intrinsics
         self.frustum = frustum
         if not config.skip_unet:
             unet_cls = UNet if config.resize_input else UNetMini
-            self.unet = unet_cls(channels_out=1, device=device, generator=generator)
+            self.unet = unet_cls(channels_out=1, device=device, generator=generator, dtype=dt)
         self.project = Projection(config.projection(), device=device)
-        self.ifnet = IFNet(config.ifnet(), device=device, generator=generator)
+        self.ifnet = IFNet(config.ifnet(), device=device, generator=generator, dtype=dt)
 
     def predict_depth(self, rgb: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) normalized RGB -> (B, 240, 320) renormalized depth."""
+        """(B, H, W, 3) normalized RGB -> (B, 240, 320) renormalized depth
+        (f32 at precision 16: the bf16 logits widen first)."""
         cfg = self.config
-        logits = self.unet(rgb)
+        logits = widen(self.unet(rgb))
         if cfg.resize_input:
             logits = resize_crop_depth(logits)
         return renormalize_depth(logits[..., 0], cfg.min_z, cfg.max_z)

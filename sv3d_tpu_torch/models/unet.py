@@ -9,6 +9,12 @@ BatchNorm (models/batchnorm.py, eps=1e-5, momentum 0.9); train/eval is the
 module's mode.
 Weights are drawn from an explicit torch.Generator with flax's initializers,
 then the module moves to device.
+
+dtype=torch.bfloat16 (--precision 16) is the flax modules' dtype: the input
+is cast to bf16, every conv and BatchNorm computes and returns bf16
+(models/mixed.py, models/batchnorm.py), and the activations, upsamples and
+skip concats run on bf16 tensors; the parameters stay f32 and the output is
+bf16.  dtype=None computes in the parameters' dtype.
 """
 
 from __future__ import annotations
@@ -19,12 +25,18 @@ from torch import nn
 
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
+from sv3d_tpu_torch.models.mixed import conv
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:
-    # half-pixel bilinear, the same weights as jax.image.resize(..., "bilinear")
-    # for an upsample, edge rows included
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    """Half-pixel bilinear 2x, the same weights as jax.image.resize(...,
+    "bilinear") for an upsample, edge rows included.  A bf16 input is
+    resized as jax.image.resize resizes one: the width first, rounded to
+    bf16, then the height."""
+    h, w = x.shape[-2:]
+    if x.dtype == torch.bfloat16:
+        x = F.interpolate(x, size=(h, 2 * w), mode="bilinear", align_corners=False)
+    return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=False)
 
 
 def _down(cin, cout):
@@ -35,16 +47,18 @@ def _same(cin, cout):
     return nn.Conv2d(cin, cout, 3, padding=1)
 
 
-def _bn(c):
-    return BatchNorm(c)
+def _bn(c, dtype):
+    return BatchNorm(c, dtype=dtype)
 
 
 class UNet(nn.Module):
     """Full 8-level UNet; (B, 256, 256, C_in) -> (B, 256, 256, C_out)."""
 
     def __init__(self, num_filters: int = 32, channels_in: int = 3, channels_out: int = 1,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         nf = num_filters
         enc = [nf, nf * 2, nf * 4, nf * 8, nf * 8, nf * 8, nf * 8, nf * 8]
         self.down = nn.ModuleList(
@@ -58,22 +72,23 @@ class UNet(nn.Module):
         )
         # BN order follows the JAX module's creation order (_BN_0.._BN_12):
         # encoder e2..e7, then decoder d1..d7
-        self.bn = nn.ModuleList(_bn(c) for c in enc[1:7] + dec)
+        self.bn = nn.ModuleList(_bn(c, dtype) for c in enc[1:7] + dec)
         flax_init_(self, generator)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2)  # the first conv casts it to dt, as flax casts the input
         lrelu = lambda v: F.leaky_relu(v, 0.2)
-        e = [self.down[0](x)]
+        e = [conv(self.down[0], x, dt)]
         for i in range(1, 8):
-            h = self.down[i](lrelu(e[-1]))
+            h = conv(self.down[i], lrelu(e[-1]), dt)
             e.append(self.bn[i - 1](h) if i < 7 else h)
         d = e[7]
         for i in range(7):
-            h = self.bn[6 + i](self.same[i](_upsample2x(F.relu(d))))
+            h = self.bn[6 + i](conv(self.same[i], _upsample2x(F.relu(d)), dt))
             d = torch.cat([h, e[6 - i]], dim=1)
-        out = self.same[7](_upsample2x(F.relu(d)))
+        out = conv(self.same[7], _upsample2x(F.relu(d)), dt)
         return out.permute(0, 2, 3, 1)
 
 
@@ -81,8 +96,10 @@ class UNetMini(nn.Module):
     """4-level UNet for unresized inputs; (B, 240, 320, C_in) -> same spatial."""
 
     def __init__(self, num_filters: int = 32, channels_in: int = 3, channels_out: int = 1,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         nf = num_filters
         enc = [nf, nf * 2, nf * 4, nf * 8]
         self.down = nn.ModuleList(
@@ -93,18 +110,19 @@ class UNetMini(nn.Module):
             _same(nf * 2, channels_out),
         ])
         # _BN_0.._BN_4: e2, e3, d5, d6, d7
-        self.bn = nn.ModuleList(_bn(c) for c in (nf * 2, nf * 4, nf * 4, nf * 2, nf))
+        self.bn = nn.ModuleList(_bn(c, dtype) for c in (nf * 2, nf * 4, nf * 4, nf * 2, nf))
         flax_init_(self, generator)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2)  # the first conv casts it to dt, as flax casts the input
         lrelu = lambda v: F.leaky_relu(v, 0.2)
-        e1 = self.down[0](x)                                   # 120x160
-        e2 = self.bn[0](self.down[1](lrelu(e1)))               # 60x80
-        e3 = self.bn[1](self.down[2](lrelu(e2)))               # 30x40
-        e4 = self.down[3](lrelu(e3))                           # 15x20 (no BN)
-        up = lambda i, v: self.same[i](_upsample2x(F.relu(v)))
+        e1 = conv(self.down[0], x, dt)                         # 120x160
+        e2 = self.bn[0](conv(self.down[1], lrelu(e1), dt))     # 60x80
+        e3 = self.bn[1](conv(self.down[2], lrelu(e2), dt))     # 30x40
+        e4 = conv(self.down[3], lrelu(e3), dt)                 # 15x20 (no BN)
+        up = lambda i, v: conv(self.same[i], _upsample2x(F.relu(v)), dt)
         d5 = torch.cat([self.bn[2](up(0, e4)), e3], dim=1)
         d6 = torch.cat([self.bn[3](up(1, d5)), e2], dim=1)
         d7 = torch.cat([self.bn[4](up(2, d6)), e1], dim=1)

@@ -166,8 +166,9 @@ def _fc0_fragment_index(chans: tuple, h0: int, device) -> torch.Tensor:
 
 def _check_levels(levels, device):
     for flat, dims in levels:
-        if flat.device != device or flat.dtype != torch.float32:
-            raise TypeError("lattice_sweep: every level must be float32 on one CUDA device")
+        if flat.device != device or flat.dtype not in COMPUTE_DTYPES:
+            raise TypeError("lattice_sweep: every level must be float32 or bfloat16 (a "
+                            "precision-16 pyramid) on one CUDA device")
         if flat.ndim != 3 or flat.shape[2] != int(np.prod(dims)):
             raise ValueError(
                 f"lattice_sweep: level must be (B, C, {dims}) flat, got {tuple(flat.shape)}")
@@ -206,8 +207,10 @@ def _check_mlp(mlp, device, sum_c):
 class SweepPlan:
     """What the sweep's kernel reads that no slab changes, prepared once.
 
-    levels: the pyramid, (flat (B, C, G), dims) pairs; mlp: [(weight,
-    bias)] of fc0, fc1, fc2, fc_out; r: the lattice (r0, r1, r2).  It holds
+    levels: the pyramid, (flat (B, C, G), dims) pairs, each float32 or
+    bfloat16 (a precision-16 model's levels 1..: the bf16 kernel reads them
+    as they are, the f32 one widened); mlp: [(weight, bias)] of fc0, fc1,
+    fc2, fc_out; r: the lattice (r0, r1, r2).  It holds
     copies of all it reads.  On CPU levels: copies of the levels and the
     weights (lattice_sweep runs the plain version on them).  On CUDA levels,
     on the device: the 2-tap tables of all r0 rows and the level pointers;

@@ -48,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_points", type=int, default=2048)
     p.add_argument("--net_res", type=int, default=128)
     p.add_argument("--inf_res", type=int, default=1)
-    p.add_argument("--precision", type=int, default=32)
+    p.add_argument("--precision", type=int, default=32,
+                   help="32: float32; 16: bf16 mixed precision (the UNet and "
+                   "IF-Net convs in bf16 on f32 parameters)")
     p.add_argument("--profiler", type=str, default=None)
     p.add_argument("--version", type=str, default=None)
     p.add_argument("--resize_input", action="store_true")

@@ -8,9 +8,11 @@ torch.Generator seeded with config.seed (the JAX loop splits one PRNGKey),
 model initialization from another; the data order and per-item draws are the
 seeded numpy ones of the data layer (sv3d_tpu_torch.data).  One device, given
 by the caller: the multi-device mesh of the JAX loop is not ported yet.
-Every trainer runs float32 with TF32 off (cuDNN's and cuBLAS's TF32
-defaults would break parity with the JAX package's f32 convs and matmuls);
-precision 16 raises NotImplementedError.
+TF32 is off in every trainer (cuDNN's and cuBLAS's TF32 defaults would
+break parity with the JAX package's f32 convs and matmuls).  Precision 32
+runs float32; precision 16 is the JAX package's mixed precision, the UNet
+and IF-Net convs in bf16 on f32 parameters (each trainer builds its model
+with config.dtype).
 """
 
 from __future__ import annotations
@@ -58,8 +60,6 @@ class BaseTrainer:
     def __init__(self, config: Config, device="cuda", experiment_dir: Optional[Path] = None):
         if config.dp * config.sp > 1:
             raise NotImplementedError(MULTI_GPU)
-        if config.precision != 32:
-            raise NotImplementedError("sv3d_tpu_torch runs float32 only (precision=32)")
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

@@ -8,7 +8,9 @@ Loss: binary cross-entropy with logits, summed over a sample's points and
 meaned over the batch (train_ce_loss, val_ce_loss).  Under --fused_query the
 step runs the point-query kernels (K4 forward, K7/K8 backward) and the eval
 step K4.  Validation meshes each sample's prediction through the dense sweep
-(K2 bf16 on the card) and the GT distance field at level 1.0.
+(K2 bf16 on the card) and the GT distance field at level 1.0.  --precision
+16 runs the conv stages in bf16 on f32 parameters (the point queries keep
+their f32 interface).
 
 The datasets take config.scale_factor, so the GT distance field is read at
 the grid's dims.  (The JAX trainer builds them without it: at scale_factor >
@@ -68,7 +70,8 @@ class ImplicitRefinementTrainer(BaseTrainer):
     def build_state(self) -> TrainState:
         cfg = self.config
         gen = torch.Generator().manual_seed(cfg.seed)
-        model = IFNet(cfg.ifnet(), device=self.device, generator=gen)
+        dt = None if cfg.precision == 32 else cfg.dtype
+        model = IFNet(cfg.ifnet(), device=self.device, generator=gen, dtype=dt)
         return TrainState(model, build_optimizer(cfg.lr, model))
 
     def _dataset(self, split):

@@ -7,7 +7,8 @@ sv3d_tpu/training/trainer_unet.py).
 Forward: UNetMini on the 240x320 image, or UNet on its 256x256 square
 resize (--resize_input, then resized and cropped back to 240x320), sigmoid
 renormalized into [min_z, max_z]; loss = mean squared error against the GT
-depth (train_loss, val_loss).  Validation writes each predicted depth map as
+depth (train_loss, val_loss).  --precision 16 runs the UNet in bf16 on f32
+parameters and widens its logits to f32 before the resize and the sigmoid.  Validation writes each predicted depth map as
 <name>/depth_map.exr.  The checkpoint's model is the UNet itself, which
 SceneNetTrainer's --pretrain_unet loads (load_pretrained_unet).
 """
@@ -21,6 +22,7 @@ import torch
 from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.data.datasets import DepthDataset
 from sv3d_tpu_torch.io.exr import write_exr
+from sv3d_tpu_torch.models.mixed import widen
 from sv3d_tpu_torch.models.unet import UNet, UNetMini, renormalize_depth, resize_crop_depth
 from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
@@ -32,10 +34,10 @@ TENSORS = ("input", "target")
 
 def depth_forward(model, config: Config, rgb: torch.Tensor) -> torch.Tensor:
     """rgb (B, H, W, 3) -> (B, 240, 320) renormalized depth, in the module's
-    train/eval mode and the dtype of its parameters.  (The JAX package casts
-    the logits to float32 for its bf16 precision; the port runs float32
-    only, and a float64 copy of the model stays exact.)"""
-    logits = model(rgb)
+    train/eval mode.  bf16 logits (precision 16) widen to f32 first, as the
+    JAX package casts them; f32 and float64 ones stay as they are, so a
+    float64 copy of the model stays exact."""
+    logits = widen(model(rgb))
     if config.resize_input:
         logits = resize_crop_depth(logits)
     return renormalize_depth(logits[..., 0], config.min_z, config.max_z)
@@ -68,7 +70,8 @@ class DepthRegressorTrainer(BaseTrainer):
         cfg = self.config
         gen = torch.Generator().manual_seed(cfg.seed)
         net = UNet if cfg.resize_input else UNetMini
-        model = net(channels_out=1, device=self.device, generator=gen)
+        dt = None if cfg.precision == 32 else cfg.dtype
+        model = net(channels_out=1, device=self.device, generator=gen, dtype=dt)
         return TrainState(model, build_optimizer(cfg.lr, model))
 
     def _dataset(self, split):

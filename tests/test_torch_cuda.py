@@ -728,6 +728,56 @@ def test_bf16_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("net_res,dims", CASES)
+def test_precision16_pyramid_on_card(net_res, dims, cuda_device):
+    """A precision-16 IFNet (bf16 convs) on the card: levels 1.. come out
+    bf16; K2 bf16 reads them with no second rounding (the same logits, bit
+    for bit, as on the pyramid widened to f32) and K2 f32 widens them;
+    query_fused's f32 route (K4, then K7/K8 in the backward) widens them at
+    its boundary: the same logits and points' gradient as on the widened
+    pyramid, the level's gradient back in bf16."""
+    from sv3d_tpu_torch.ops.grid_sample import Pyramid
+
+    cfg = IFNetConfig.for_net_res(net_res, fused_query=True)
+    model = IFNet(cfg, device=cuda_device, generator=torch.Generator().manual_seed(net_res),
+                  dtype=torch.bfloat16).eval()
+    grid = torch.tensor(np.random.default_rng(net_res).uniform(0, 1, (1, *dims, 1)),
+                        dtype=torch.float32, device=cuda_device)
+    with torch.inference_mode():
+        levels = model.encode(grid)
+        assert [f.dtype for f in levels.flats] == [torch.float32] + [torch.bfloat16] * (
+            len(levels) - 1)
+        widened = Pyramid([f.float() for f in levels.flats], levels.dims)
+        for dtype, counter in ((torch.bfloat16, lattice_sweep_bf16_cuda),
+                               (torch.float32, lattice_sweep_f32_cuda)):
+            before = counter.launches
+            got = model.query_lattice(levels, dims, 1, dims[0], 0, dtype)
+            assert counter.launches == before + 1
+            assert torch.equal(got, model.query_lattice(widened, dims, 1, dims[0], 0, dtype))
+    pts = torch.tensor(np.random.default_rng(1).uniform(-0.45, 0.45, (1, 500, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    runs = []
+    for widen in (False, True):
+        lv = model.encode(grid)
+        if widen:
+            lv = Pyramid([f.detach().float().requires_grad_() for f in lv.flats], lv.dims)
+        else:
+            for f in lv.flats[1:]:
+                f.retain_grad()
+        p = pts.clone().requires_grad_()
+        before = level_features_cuda.launches
+        out = model.query_fused(lv, p)
+        assert level_features_cuda.launches == before + len(lv)
+        out.square().sum().backward()
+        runs.append((out.detach(), p.grad, lv.flats[1].grad))
+    (out, gp, gl), (out_w, gp_w, gl_w) = runs
+    assert torch.equal(out, out_w)
+    torch.testing.assert_close(gp, gp_w, rtol=0, atol=1e-5 * float(gp_w.abs().max()))
+    assert gl.dtype == torch.bfloat16 and gl_w.dtype == torch.float32
+    assert bool(torch.isfinite(gl.float()).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sweep_plan_makes_no_copy_per_slab(dtype, cuda_device):
     """A sweep's slabs copy nothing from the host and transform no weight:

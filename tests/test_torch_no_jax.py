@@ -59,7 +59,11 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.preprocessing.create_split", "sv3d_tpu_torch.preprocessing.copy_data",
         "sv3d_tpu_torch.preprocessing.scaled_obj", "sv3d_tpu_torch.evaluation",
         "sv3d_tpu_torch.evaluation.metrics", "sv3d_tpu_torch.training.trainer_ifnet",
-        "sv3d_tpu_torch.training.trainer_unet",
+        "sv3d_tpu_torch.training.trainer_unet", "sv3d_tpu_torch.models.mixed",
+        "sv3d_tpu_torch.quality", "sv3d_tpu_torch.quality.synthetic_scenes",
+        "sv3d_tpu_torch.quality.scoring", "sv3d_tpu_torch.quality.overfit",
+        "sv3d_tpu_torch.quality.multiscene", "sv3d_tpu_torch.quality.diagnose",
+        "sv3d_tpu_torch.quality.compare_precision",
     ]
     for m in modules:
         importlib.import_module(m)
@@ -138,6 +142,10 @@ def test_no_source_of_the_port_imports_the_jax_package():
     sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                  *compare]
     assert len(sources) > 40
+    # the quality tooling's ports of the JAX package's scripts are scanned too
+    assert {p.name for p in sources if p.parent.name == "quality"} >= {
+        "synthetic_scenes.py", "scoring.py", "overfit.py", "multiscene.py", "diagnose.py",
+        "compare_precision.py"}
     offenders = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

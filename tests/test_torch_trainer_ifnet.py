@@ -36,7 +36,7 @@ from sv3d_tpu_torch.preprocessing.process_sample import process_sample_pipeline
 from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 from sv3d_tpu_torch.training.trainer_ifnet import TENSORS, ImplicitRefinementTrainer
 from sv3d_tpu_torch.training.trainer_ifnet import cli_main, train_step
-from test_torch_training import LR, _compare_step, chip_smoke
+from test_torch_training import LR, _compare_step, chip_smoke, port_config
 from test_torch_unet import randomized
 
 torch.set_num_threads(1)
@@ -200,9 +200,11 @@ def test_fit_checkpoints_resume_and_cli(tree8, tmp_path, monkeypatch):
                                         device="cpu", experiment_dir=tmp_path / "b")
     assert resumed.fit(max_steps=5).step == 5
 
-    with pytest.raises(NotImplementedError):
-        ImplicitRefinementTrainer(cfg.replace(precision=16), device="cpu",
-                                  experiment_dir=tmp_path / "c")
+    half = ImplicitRefinementTrainer(port_config(cfg, precision=16, sanity_steps=0),
+                                     device="cpu", experiment_dir=tmp_path / "c")
+    state16 = half.fit(max_steps=1)
+    assert state16.model.dtype == torch.bfloat16 and state16.step == 1
+    assert all(p.dtype == torch.float32 for p in state16.model.parameters())
 
     monkeypatch.chdir(tmp_path)  # the CLI's experiment directory is runs/<stamp>_<name>
     cli_main(["--device", "cpu", "--datasetdir", str(tree8), "--splitsdir", "overfit",

@@ -34,7 +34,7 @@ from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 from sv3d_tpu_torch.training.trainer_unet import TENSORS, DepthRegressorTrainer
 from sv3d_tpu_torch.training.trainer_unet import cli_main, train_step
-from test_torch_training import LR, _compare_step, chip_smoke
+from test_torch_training import LR, _compare_step, chip_smoke, port_config
 from test_torch_unet import randomized
 
 torch.set_num_threads(1)
@@ -199,9 +199,10 @@ def test_fit_checkpoint_warm_start_resume_and_cli(tree, tmp_path, monkeypatch):
             assert torch.equal(v, cold_sd[k]), k
     assert not torch.equal(warm.model.unet.down[0].weight, cold.model.unet.down[0].weight)
 
-    with pytest.raises(NotImplementedError):
-        DepthRegressorTrainer(cfg.replace(precision=16), device="cpu",
-                              experiment_dir=tmp_path / "e")
+    half = DepthRegressorTrainer(port_config(cfg, precision=16), device="cpu",
+                                 experiment_dir=tmp_path / "e").build_state()
+    assert half.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in half.model.parameters())
 
     monkeypatch.chdir(tmp_path)  # the CLI's experiment directory is runs/<stamp>_<name>
     cli_main(["--device", "cpu", "--datasetdir", str(tree), "--splitsdir", "one",

@@ -99,6 +99,16 @@ def smoke_data(tmp_path_factory):
     return root
 
 
+def port_config(cfg, **kw):
+    """The port's Config with the fields of cfg (the JAX package's, field for
+    field), replaced by kw: the port's Config.dtype is a torch dtype."""
+    from dataclasses import fields
+
+    from sv3d_tpu_torch.config import Config as PortConfig
+
+    return PortConfig(**{**{f.name: getattr(cfg, f.name) for f in fields(PortConfig)}, **kw})
+
+
 def _inputs(b=2, n=64, seed=0):
     rng = np.random.default_rng(seed)
     return {
@@ -396,5 +406,7 @@ def test_fit_checkpoints_resume_and_cli(smoke_data, tmp_path):
     for argv in (["--dp", "2"], ["--coordinator_address", "localhost:1234"]):
         with pytest.raises(NotImplementedError, match="item 10"):
             parse_config(["--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError):
-        SceneNetTrainer(cfg.replace(precision=16), device="cpu", experiment_dir=tmp_path / "d")
+    half = SceneNetTrainer(port_config(cfg, precision=16), device="cpu",
+                           experiment_dir=tmp_path / "d").build_state()
+    assert half.model.unet.dtype == half.model.ifnet.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in half.model.parameters())
