@@ -2456,6 +2456,223 @@ def quality_p16_phase(steps: int = 30, extra=()) -> dict:
     return results
 
 
+# The world-2 phase: two ranks share the one card over gloo.  The dp=2 fit
+# is held to the single-process fit on the card, which trains on the labels
+# that the ranks gave their own rows' clouds (the projected cloud lies on
+# the scene's surfaces, so the last bits of a depth that cuDNN computes
+# with other algorithms at B=2 and B=4 flip some labels; the single process
+# labels its cloud too, and at most WORLD2_FLIPS_MAX of them may differ).
+# After the first step: the loss within STEP_RTOL, each gradient within
+# GRID_GRAD_RTOL of the tensor's largest magnitude plus the step's floor
+# (BN_FED_BIASES' residue within 1e-4 of their weight's gradient), the
+# BatchNorm statistics within STEP_RTOL of their largest magnitude, and at
+# least WORLD2_SAME_MIN of the parameters within 1e-6 (Adam's first step is
+# about lr * sign(g)).  GRID_GRAD_RTOL and not STEP_GRAD_RTOL for every
+# tensor: the f32 weight gradients of the IF-Net's early convs are
+# ill-conditioned (tests/test_torch_cuda.py's IF-Net-only step), and two
+# f32 steps whose convolutions cuDNN runs at B=2 and at B=4 moved stage 1's
+# second conv's by 1.06e-2 of its largest magnitude on an H100 80GB HBM3
+# at 700 W (two single-process runs on the same labels stayed within
+# 4.8e-4 of every tensor's).  After the second step every
+# parameter within 2 lr a step of the single-process one; that step's loss
+# and its share of equal parameters are printed, not held: its forward runs
+# on weights that Adam moved apart where a gradient was near 0, and two
+# single-process runs keep only about half of their parameters within 1e-6
+# there.  The lattice and the points are bit-equal.
+WORLD2_SAME_MIN = 0.9
+WORLD2_FLIPS_MAX = 0.01
+
+
+def world2_run(spec: dict, sharded: bool, labels=None) -> dict:
+    """The three sharded paths of the world-2 phase, in this process: two
+    fused_query fit steps (dp=2 when sharded), the serving lattice (sp=2)
+    and evaluate_points (both ranks).  Without sharding it is the
+    single-process run they are held to; labels (each step's labels of the
+    whole batch's cloud subsample) replace the trainer's own, which it still
+    computes to count how many differ.  Each path's kernel counts are set to
+    0 just before it and read just after.  Returns the fit's snapshots and
+    labels, the lattice and the points on the host, and the counts.  spec: the fit's
+    and the served model's configurations, the served grid's file, the
+    points, and the device (default cuda; the CPU runs the plain versions
+    and counts nothing), the thread count of the process that spawned the
+    ranks, and the directory for the fit's experiment."""
+    from sv3d_tpu_torch.data.loader import collate
+    from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid_device, evaluate_points
+    from sv3d_tpu_torch.ops.cuda.point_query import level_fc0_bf16_cuda
+    from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep_bf16_cuda
+    from sv3d_tpu_torch.parallel import make_mesh, process_index
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+
+    dev = torch.device(spec.get("device", "cuda"))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rank = process_index()
+    out = {"launches": {}}
+    cfg = spec["fit_cfg"].replace(dp=2) if sharded else spec["fit_cfg"]
+    trainer = SceneNetTrainer(cfg, device=dev,
+                              experiment_dir=Path(spec["work"]) / f"world2_fit{int(sharded)}")
+    state = trainer.distribute(trainer.build_state())
+    ds = trainer.train_dataset()
+    batch = collate([ds[i] for i in range(cfg.batch_size)])
+    rows = trainer.mesh.batch_rows(cfg.batch_size) if sharded else slice(None)
+    local = {k: v[rows] for k, v in batch.items()}
+    own_labels = trainer.label_cloud
+    out["labels"], out["label_flips"] = [], []
+
+    def label_cloud(pc, b):
+        own = own_labels(pc, b)
+        given = own if labels is None else labels[len(out["labels"])].to(own)
+        out["labels"].append(given.cpu())
+        out["label_flips"].append(float((given != own).float().mean()))
+        return given
+
+    trainer.label_cloud = label_cloud
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out["fit"] = []
+    for _ in range(2):
+        metrics = trainer.train_step(state, local, trainer.generator)
+        out["fit"].append({
+            "loss": float(metrics["train_loss"]),
+            "grads": {n: p.grad.detach().to("cpu", copy=True)
+                      for n, p in state.model.named_parameters()},
+            "state": {k: v.detach().to("cpu", copy=True)
+                      for k, v in state.model.state_dict().items()}})
+    sync()
+    out["launches"]["fit_dp2"] = {k: fn.launches for k, fn in counters.items()}
+    del trainer, state
+
+    model = seeded_scene_net(spec["serve_cfg"], dev, seed=0)
+    grid = torch.load(spec["grid"]).to(dev)
+    dims = spec["serve_cfg"].dims
+    mesh = make_mesh(1, 2) if sharded else None
+    lattice_sweep_bf16_cuda.launches = 0
+    with torch.inference_mode():
+        levels = model.ifnet.encode(grid)
+        lattice = evaluate_on_grid_device(model.ifnet, levels, dims, mesh=mesh)
+        out["lattice"] = lattice[:dims[0]].cpu()
+    sync()
+    out["launches"]["serving_sp2"] = {"K2": lattice_sweep_bf16_cuda.launches}
+    level_fc0_bf16_cuda.launches = 0
+    out["points"] = evaluate_points(model.ifnet, grid, spec["points"], mesh=mesh)
+    sync()
+    out["launches"]["points_world2"] = {"K6bf16": level_fc0_bf16_cuda.launches}
+    out["rank"] = rank
+    return out
+
+
+def _world2_rank(rank: int, world: int, init: str, spec: dict, out: str) -> None:
+    """One rank of the world-2 phase (spawned): joins the gloo group through
+    the file rendezvous, runs world2_run sharded, saves its results."""
+    import torch.distributed as dist
+
+    from sv3d_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # this process's host arithmetic rounds as the single-process run's
+    torch.set_num_threads(spec["threads"])
+    initialize_distributed(f"file://{init}", world, rank, backend="gloo")
+    try:
+        torch.save(world2_run(spec, sharded=True), Path(out) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _world2_fit_errors(cfg, single: list, dist_run: list) -> dict:
+    """The dp=2 fit against the single-process fit (bounds above): each
+    kind's largest ratio to its bound and where; the second step's relative
+    loss difference and the shares of parameters within 1e-6 after the
+    first step and after both."""
+    out = {"loss": (0.0, ""), "grads": (0.0, ""), "params": (0.0, ""), "bn": (0.0, "")}
+
+    def worst(kind, ratio, where):
+        if ratio > out[kind][0]:
+            out[kind] = (ratio, where)
+
+    first, last, got = single[0], single[-1], dist_run[-1]
+    worst("loss", abs(dist_run[0]["loss"] - first["loss"]) / abs(first["loss"]) / STEP_RTOL,
+          "step 1")
+    out["loss_2"] = abs(got["loss"] - last["loss"]) / abs(last["loss"])
+    floor = 1e-6 * max(float(g.abs().max()) for g in first["grads"].values())
+    same = same_2 = total = 0
+    for n, g in first["grads"].items():
+        if n in BN_FED_BIASES:  # rounding residue in both runs (see BN_FED_BIASES)
+            bound = 1e-4 * float(first["grads"][n[: -len("bias")] + "weight"].abs().max())
+            got_g = float(dist_run[0]["grads"][n].abs().max())
+            worst("grads", max(got_g, float(g.abs().max())) / bound, n)
+        else:
+            tol = GRID_GRAD_RTOL * float(g.abs().max()) + floor
+            worst("grads", float((dist_run[0]["grads"][n] - g).abs().max()) / tol, n)
+        lr = cfg.lr * (10.0 if n.startswith("project.") else 1.0)
+        diff = (got["state"][n] - last["state"][n]).abs()
+        worst("params", float(diff.max()) / (2 * lr * len(single) + 1e-6), n)
+        same += int(((dist_run[0]["state"][n] - first["state"][n]).abs() <= 1e-6).sum())
+        same_2 += int((diff <= 1e-6).sum())
+        total += diff.numel()
+    for k, v in first["state"].items():
+        if k.endswith(("running_mean", "running_var")):
+            diff = float((dist_run[0]["state"][k] - v).abs().max())
+            worst("bn", diff / (STEP_RTOL * float(v.abs().max())), k)
+    out["same"], out["same_2"] = same / total, same_2 / total
+    return out
+
+
+def world2_checks(w2: dict, counted: bool = True) -> None:
+    """Fail unless every kernel of each world-2 path ran in each rank (when
+    counted: on the card), K2 bf16 once a rank, the dp=2 fit agrees with
+    the single-process fit and the lattice and the points are bit-equal."""
+    if counted:
+        for path, counts in w2["launches"].items():
+            check(all(n > 0 for ns in counts.values() for n in ns),
+                  f"a kernel of the world-2 {path} path never ran in a rank: {counts}")
+        check(w2["launches"]["serving_sp2"]["K2"] == [1, 1],
+              f"K2 bf16 did not run once in each rank: {w2['launches']['serving_sp2']}")
+    for e in w2["fit"]:
+        check(max(e[k][0] for k in ("loss", "grads", "params", "bn")) <= 1.0
+              and e["same"] >= WORLD2_SAME_MIN,
+              f"the dp=2 fit disagrees with the single-process fit: {e}")
+    check(max(w2["label_flips"]) <= WORLD2_FLIPS_MAX,
+          f"the ranks' labels differ from the single process's: {w2['label_flips']}")
+    check(all(w2["lattice_equal"]), f"the sp=2 lattice differs: {w2['lattice']}")
+    check(all(w2["points_equal"]), f"evaluate_points at world 2 differs: {w2['points']}")
+
+
+def world2_phase(fit_cfg, serve_cfg, grid_path: Path, pts: np.ndarray,
+                 device: str = "cuda") -> dict:
+    """The sharded paths on a world of 2 ranks that share the one card
+    (gloo; NCCL refuses two ranks on one GPU), spawned by
+    torch.multiprocessing and joined through a file:// rendezvous: the
+    end-to-end fit at dp=2 (K1, K1b, K4, K7, K8 in each rank), the serving
+    lattice at sp=2 (K2 bf16 once in each) and evaluate_points over both
+    (K6 bf16), each held to the same run in this process.  A rank that
+    fails fails the phase.  Returns each rank's counts and the comparisons."""
+    import tempfile
+
+    spec = {"fit_cfg": fit_cfg, "serve_cfg": serve_cfg, "grid": str(grid_path), "points": pts,
+            "device": device, "threads": torch.get_num_threads(), "work": str(WORK)}
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        torch.multiprocessing.start_processes(
+            _world2_rank, args=(2, str(Path(tmp) / "rendezvous"), spec, tmp), nprocs=2,
+            join=True, start_method="spawn")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    check([r["rank"] for r in ranks] == [0, 1], "the world-2 ranks")
+    # the single-process fit on the labels the ranks gave their rows
+    single = world2_run(spec, sharded=False, labels=[
+        torch.cat([r["labels"][step] for r in ranks]) for step in range(2)])
+    errors = [_world2_fit_errors(fit_cfg, single["fit"], r["fit"]) for r in ranks]
+    lattice = [float((r["lattice"] - single["lattice"]).abs().max()) for r in ranks]
+    points = [float(np.abs(r["points"] - single["points"]).max()) for r in ranks]
+    launches = {path: {k: [r["launches"][path][k] for r in ranks] for k in counts}
+                for path, counts in ranks[0]["launches"].items()}
+    return {"launches": launches, "fit": errors, "lattice": lattice, "points": points,
+            "label_flips": single["label_flips"],
+            "lattice_equal": [torch.equal(r["lattice"], single["lattice"]) for r in ranks],
+            "points_equal": [bool(np.array_equal(r["points"], single["points"])) for r in ranks],
+            "single_launches": single["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: CUDA is not available")
@@ -2629,6 +2846,7 @@ def main() -> int:
     lattice_sweep_f32_cuda.launches = 0
     served_config, served = load_model(args)
     vox, depth_np = predict(served_config, served, rgb=rgb)
+    torch.save(vox.cpu(), WORK / "served_grid.pt")  # the world-2 phase's grid
     verts, tris = implicit_to_mesh(
         served.ifnet, vox, served_config.dims, args.threshold, WORK / "scene.obj",
         res_increase=served_config.inf_res)
@@ -3105,6 +3323,27 @@ def main() -> int:
     quality_p16_phase()
     print(f"phase 21 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
+    # -- phase 22: the sharded paths on 2 ranks that share the card ---------------------
+    t_phase = time.perf_counter()
+    w2 = world2_phase(train_cfg.replace(val_check_interval=1000), config, WORK / "served_grid.pt",
+                      pts_np)
+    print(f"world 2 (two ranks on the one card, gloo): launches by rank {w2['launches']} "
+          f"(single-process {w2['single_launches']}); the dp=2 fit against the single-process "
+          "fit on the ranks' labels (of which a share of "
+          f"{max(w2['label_flips']):.2e} differ from its own), largest difference as a "
+          "fraction of its bound (<= 1 passes) by rank: "
+          + "; ".join(", ".join(f"{k} {e[k][0]:.3e} {e[k][1]}" for k in ("loss", "grads",
+                                                                         "params", "bn"))
+                      + f", parameters within 1e-6 after step 1 {e['same']:.4f}; step 2's loss "
+                      f"{e['loss_2']:.3e} apart, parameters within 1e-6 {e['same_2']:.4f}"
+                      for e in w2["fit"])
+          + f"; the sp=2 lattice bit-equal {w2['lattice_equal']} (max |diff| {w2['lattice']}), "
+          f"evaluate_points bit-equal {w2['points_equal']} (max |diff| {w2['points']})",
+          flush=True)
+    world2_checks(w2)
+    print(f"phase 22 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+    w2_total = {k: sum(n) for counts in w2["launches"].values() for k, n in counts.items()}
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
@@ -3153,6 +3392,7 @@ def main() -> int:
         ("K8", "level_grad_vol", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),
     ):
         n, err, ms, plain = measured[key]
+        n += w2_total.get(key, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": f"sv3d_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
@@ -3204,6 +3444,12 @@ def main() -> int:
                 "max_abs_err_rel": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
+        # the world-2 phase's paths: the two ranks' launches summed here, and
+        # each rank's under "world2_by_rank"
+        for path, counts in w2["launches"].items():
+            if key in counts:
+                kernels[-1]["launches_by_path"][path] = sum(counts[key])
+                kernels[-1].setdefault("world2_by_rank", {})[path] = counts[key]
         if key in ("K1", "K1b"):  # device time, and the box scene beside the random depth
             by = {"K1": {kind: k1_t[(kind, 1)] for kind in ("random", "box")},
                   "K1b": k1b_t}[key]

@@ -27,6 +27,8 @@ inference):
   training      - SceneNetTrainer, the loop, checkpoints, optimizer, CLI
   inference     - dense-grid sweep, arbitrary-point evaluation, meshing and
                   the serving CLI
+  parallel      - the (dp, sp) mesh over torch.distributed: process group,
+                  batch rows and point slices, gradient all-reduce
   convert       - flax {"params", "batch_stats"} tree -> this package's state_dict
 """
 

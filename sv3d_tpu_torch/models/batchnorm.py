@@ -20,6 +20,17 @@ BatchNorm(dtype=...): the statistics come from the input widened to f32
 normalization, scale and bias run in f32 in both modes, and the output is
 rounded to dtype.  None keeps the input's dtype throughout, so a float64
 module stays float64.
+
+The batch statistics come from sums that do not depend on how the batch is
+split: each sample's sum (and sum of squares) in the input's dtype, the
+samples' sums added in float64, then E[x] and E[x^2] rounded to that dtype.
+With a process group set (set_group; a multi-GPU mesh's sp column, whose
+ranks together hold the global batch), those float64 sums and the count
+are all-reduced over the group by torch.distributed.nn's differentiable
+all_reduce, so the gradient flows back through the global statistics, and
+the statistics, the normalized output and the running statistics are those
+of the whole batch in one process, bit for bit where each sample's sums
+are.  Without a group nothing is communicated.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.group = None  # a torch.distributed group whose ranks share the batch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
@@ -59,9 +71,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        dims = [0, *range(2, x.ndim)]
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+        mean, var = self._batch_statistics(x)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -69,3 +79,27 @@ class BatchNorm(nn.Module):
             self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    def _batch_statistics(self, x: torch.Tensor) -> tuple:
+        """(E[x], E[x^2] - E[x]^2) per channel in x's dtype, over the batch
+        (and the group's ranks), from float64 sums of each sample's sums."""
+        spatial = tuple(range(2, x.ndim))
+        per_sample = (x, x * x) if not spatial else (x.sum(spatial), (x * x).sum(spatial))
+        sums = torch.cat(per_sample, dim=1).double().sum(0)  # (2C,): sum x, sum x^2
+        count = x.numel() // x.shape[1]
+        if self.group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            total = all_reduce(torch.cat([sums, sums.new_tensor([count])]), group=self.group)
+            sums, count = total[:-1], total[-1]
+        mean, ex2 = (sums / count).to(x.dtype).chunk(2)
+        return mean, (ex2 - mean * mean).clamp(min=0.0)
+
+
+def set_group(module: nn.Module, group) -> nn.Module:
+    """Every BatchNorm of module takes its train-mode statistics over the
+    ranks of group (None: this process's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module

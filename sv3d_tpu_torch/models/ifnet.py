@@ -25,7 +25,10 @@ default.
 query_lattice() sweeps the dense lattice through K2 by default, or
 materializes the slab's features and runs the decoder through K3
 (fused_tail=False), in the JAX package's compute_dtype: bfloat16 by default
-(serving), float32 for parity.  No mesh / shard_map routing: one device.
+(serving), float32 for parity.  No shard_map: on a multi-GPU mesh each
+rank computes the pyramid of its rows and queries its own slice of the
+points (SceneNet.forward(point_slice=), sv3d_tpu_torch/parallel), and the
+lattice rows split over the ranks in inference/dense_grid.py.
 
 dtype=torch.bfloat16 (--precision 16) is the flax module's dtype: the conv
 stages compute and return bf16 on f32 parameters (models/mixed.py, bf16

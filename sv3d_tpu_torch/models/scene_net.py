@@ -52,7 +52,7 @@ class SceneNet(nn.Module):
             logits = resize_crop_depth(logits)
         return renormalize_depth(logits[..., 0], cfg.min_z, cfg.max_z)
 
-    def forward(self, rgb, depth_target, points, subsample_idx=None):
+    def forward(self, rgb, depth_target, points, subsample_idx=None, point_slice=None):
         """(logits (B, N_q), depthmap (B, 240, 320), point_cloud_out).
 
         rgb: (B, H, W, 3) normalized (unused under skip_unet, which projects
@@ -61,27 +61,37 @@ class SceneNet(nn.Module):
         subsample_idx (a (subsample_points,) index array the caller draws,
         e.g. from a torch.Generator) followed by points, and point_cloud_out is
         that subsample; with subsample_points == 0 only points are queried;
-        above H*W the whole cloud is.  BatchNorm follows the module's mode."""
+        above H*W the whole cloud is.  point_slice (a multi-GPU mesh rank's
+        share, Mesh.point_slice) cuts the query set to that slice of its
+        points, and point_cloud_out to the cloud points inside it; the
+        pyramid is computed whole.  BatchNorm follows the module's mode."""
         cfg = self.config
         depthmap = depth_target if cfg.skip_unet else self.predict_depth(rgb)
         point_cloud = self.project_depth(depthmap)
         voxel_occupancy = self.project(point_cloud)
 
-        n_pixels = depthmap.shape[-2] * depthmap.shape[-1]
-        if 0 < cfg.subsample_points < n_pixels:
+        n_cloud = self.cloud_queries(depthmap)
+        if 0 < n_cloud < point_cloud.shape[1]:
             if subsample_idx is None:
                 raise ValueError("subsample_points > 0 requires subsample_idx")
-            pc_sub = point_cloud[:, subsample_idx.to(point_cloud.device), :]
-            query_points = torch.cat([pc_sub, points], dim=1)
-            point_cloud_out = pc_sub
-        elif cfg.subsample_points == 0:
-            query_points = points
-            point_cloud_out = point_cloud
+            queried = point_cloud[:, subsample_idx.to(point_cloud.device), :]
         else:
-            query_points = torch.cat([point_cloud, points], dim=1)
-            point_cloud_out = point_cloud
+            queried = point_cloud[:, :n_cloud]
+        query_points = torch.cat([queried, points], dim=1) if n_cloud else points
+        if point_slice is not None:
+            query_points = query_points[:, point_slice]
+            queried = queried[:, point_slice.start:max(min(point_slice.stop, n_cloud),
+                                                      point_slice.start)]
         logits = self.ifnet(voxel_occupancy, query_points)
-        return logits, depthmap, point_cloud_out
+        return logits, depthmap, queried if n_cloud else point_cloud
+
+    def cloud_queries(self, depthmap: torch.Tensor) -> int:
+        """How many projected-cloud points lead the query set for a depth
+        map of this shape: subsample_points, 0, or the whole cloud above
+        H*W."""
+        n_pixels = depthmap.shape[-2] * depthmap.shape[-1]
+        s = self.config.subsample_points
+        return s if 0 <= s < n_pixels else n_pixels
 
     def project_depth(self, depthmap: torch.Tensor) -> torch.Tensor:
         """Depth map -> normed-grid-space point cloud.  The frustum gives the

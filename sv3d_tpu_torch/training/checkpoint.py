@@ -7,7 +7,8 @@ best top_k `step_<N>` files ranked by a monitored metric, with the JAX
 package's manifest.json: {"scores": [[metric, path], ...] best first,
 "last_step", "monitor", "mode"}; a new manager in the same directory reloads
 it so top-k tracking survives a resume, and prunes step files that dropped
-out of it.
+out of it.  A manager made with primary=False (a multi-GPU run's ranks
+other than 0) touches no file: its saves do nothing.
 """
 
 from __future__ import annotations
@@ -24,18 +25,21 @@ from sv3d_tpu_torch.training.state import TrainState
 
 class CheckpointManager:
     def __init__(self, directory: str | Path, top_k: int = 2, mode: str = "min",
-                 monitor: str = ""):
+                 monitor: str = "", primary: bool = True):
         """mode "min" ranks lower-is-better metrics (losses), "max"
-        higher-is-better ones; top_k < 0 keeps every ranked checkpoint."""
+        higher-is-better ones; top_k < 0 keeps every ranked checkpoint.
+        primary=False: no file is read or written."""
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be min or max, got {mode!r}")
         self.directory = Path(directory)
         self.top_k = top_k
         self.mode = mode
         self.monitor = monitor
+        self.primary = primary
         self._scores: list = []  # (metric, path), best first
-        self.directory.mkdir(parents=True, exist_ok=True)
-        self._load_manifest()
+        if primary:
+            self.directory.mkdir(parents=True, exist_ok=True)
+            self._load_manifest()
 
     def _load_manifest(self):
         manifest = self.directory / "manifest.json"
@@ -64,6 +68,8 @@ class CheckpointManager:
 
     def save(self, state: TrainState, metric: Optional[float] = None,
              step: Optional[int] = None):
+        if not self.primary:
+            return
         step = int(state.step) if step is None else int(step)
         tree = {
             "model": state.model.state_dict(),

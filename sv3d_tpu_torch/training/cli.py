@@ -3,9 +3,14 @@
 The parser is a copy of sv3d_tpu/training/cli.py's build_parser, flag for
 flag, plus --device.  A copy, not an import, because importing
 sv3d_tpu.training.cli runs sv3d_tpu/training/__init__.py, which imports flax
-and optax.  parse_config builds the Config directly: the JAX package's
-initialize_distributed (jax.distributed) has no place here, and multi-GPU
-runs (dp * sp > 1, the cluster flags) are not ported yet.
+and optax.  parse_config joins the process group first, as the JAX
+package's joins its cluster: under torchrun, or with the three cluster
+flags, it initializes torch.distributed (sv3d_tpu_torch.parallel; nccl for
+--device cuda, gloo for the CPU) and gives each rank its own GPU.  Multi-GPU
+training, one process a device:
+
+    torchrun --nproc_per_node 8 -m sv3d_tpu_torch.training.trainer_scene_net \
+        --dp 4 --sp 2 --fused_query ...
 """
 
 from __future__ import annotations
@@ -15,8 +20,8 @@ import argparse
 import torch
 
 from sv3d_tpu_torch.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
-
-MULTI_GPU = "multi-GPU training is not ported yet (ROADMAP.md queue 1, item 10)"
+from sv3d_tpu_torch.parallel.mesh import check_world
+from sv3d_tpu_torch.parallel.multihost import initialize_distributed, local_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dp", type=int, default=1, help="data-parallel mesh size")
     p.add_argument("--sp", type=int, default=1, help="point-sharding mesh size")
+    # the cluster, when no torchrun environment names it: rank 0's host:port
+    # (or an init URL such as file://...), the number of processes and this
+    # one's rank; all three or none
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -82,13 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_config(argv=None):
-    """Parse trainer flags -> (Config, torch.device).  A CUDA device without
-    CUDA raises (no CPU fallback)."""
+    """Parse trainer flags -> (Config, torch.device), joining the process
+    group first when torchrun or the cluster flags name one.  A CUDA device
+    without CUDA raises (no CPU fallback), and so does a --dp x --sp that
+    is not the number of ranks (ValueError)."""
     args = vars(build_parser().parse_args(argv))
     cluster = [args.pop(k) for k in ("coordinator_address", "num_processes", "process_id")]
-    if any(v is not None for v in cluster) or args["dp"] * args["sp"] > 1:
-        raise NotImplementedError(MULTI_GPU)
     device = torch.device(args.pop("device"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: CUDA is not available")
-    return Config(**args), device
+    initialize_distributed(*cluster, backend="nccl" if device.type == "cuda" else "gloo")
+    check_world(args["dp"], args["sp"])
+    return Config(**args), local_device(device)

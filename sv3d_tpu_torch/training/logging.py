@@ -3,7 +3,8 @@ installed).  A copy of sv3d_tpu/training/logging.py's MetricLogger.
 
 A copy, not an import, because importing sv3d_tpu.training.logging runs
 sv3d_tpu/training/__init__.py, which imports flax and optax, and the port
-never imports jax or flax.  The class itself is unchanged.
+never imports jax or flax.  The class itself is unchanged; a multi-GPU
+run's ranks other than 0 make theirs with enabled=False.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ class MetricLogger:
     def __init__(
         self, log_dir: str | Path, use_tensorboard: bool = True, enabled: bool = True
     ):
-        """enabled=False turns the logger into a no-op (non-main processes in
-        multi-host runs; the PL rank-zero-only convention)."""
+        """enabled=False turns the logger into a no-op (the ranks other than
+        0 of a multi-GPU run; the PL rank-zero-only convention)."""
         self.enabled = enabled
         self.log_dir = Path(log_dir)
         self._jsonl = None

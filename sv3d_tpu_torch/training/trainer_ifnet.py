@@ -16,6 +16,13 @@ The datasets take config.scale_factor, so the GT distance field is read at
 the grid's dims.  (The JAX trainer builds them without it: at scale_factor >
 1 its GT mesh is written at full resolution, beside a prediction at
 config.dims.)
+
+Under a multi-GPU mesh (--dp, --sp) each rank takes its dp row's samples
+and its sp slice of their points (shard_batch).  The loss sums over a
+sample's points, so the sp shares of one sample add: the gradients are
+summed over the ranks and divided by dp, and the logged losses likewise.
+Validation's meshes are swept by every rank of the mesh (the lattice rows
+split over sp) and written by rank 0.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.data.datasets import ImplicitDataset
 from sv3d_tpu_torch.models.ifnet import IFNet
+from sv3d_tpu_torch.parallel import shard_batch
 from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
 from sv3d_tpu_torch.training.state import TrainState
@@ -44,24 +52,35 @@ def ce_loss(logits: torch.Tensor, occupancies: torch.Tensor) -> torch.Tensor:
     return ce.sum(dim=-1).mean()
 
 
-def train_step(state: TrainState, batch: dict) -> dict:
-    """One optimizer step on a batch of device tensors, in place on state."""
+def _global(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's ce_loss from each rank's: summed over the ranks
+    (the sp shares of a sample's points add), divided by dp."""
+    if mesh is None:
+        return loss
+    return mesh.sum_(loss.detach().clone()) / mesh.dp
+
+
+def train_step(state: TrainState, batch: dict, mesh=None) -> dict:
+    """One optimizer step on a batch of device tensors, in place on state.
+    mesh: a multi-GPU Mesh (batch is this rank's rows and points)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
     loss = ce_loss(model(batch["input"], batch["points"]), batch["occupancies"])
     loss.backward()
+    if mesh is not None:
+        mesh.mean_gradients(model.parameters(), divisor=mesh.dp)
     opt.step()
     state.step += 1
-    return {"train_ce_loss": loss.detach()}
+    return {"train_ce_loss": _global(loss.detach(), mesh)}
 
 
-def eval_step(state: TrainState, batch: dict) -> dict:
+def eval_step(state: TrainState, batch: dict, mesh=None) -> dict:
     model = state.model
     model.eval()
     with torch.no_grad():
         logits = model(batch["input"], batch["points"])
-    return {"val_ce_loss": ce_loss(logits, batch["occupancies"])}
+    return {"val_ce_loss": _global(ce_loss(logits, batch["occupancies"]), mesh)}
 
 
 class ImplicitRefinementTrainer(BaseTrainer):
@@ -85,16 +104,22 @@ class ImplicitRefinementTrainer(BaseTrainer):
     def val_dataset(self):
         return self._dataset("val")
 
+    def _device_batch(self, batch):
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return to_device(batch, self.device, TENSORS)
+
     def train_step(self, state, batch, generator):
-        return train_step(state, to_device(batch, self.device, TENSORS))
+        return train_step(state, self._device_batch(batch), self.mesh)
 
     def eval_step(self, state, batch):
-        return eval_step(state, to_device(batch, self.device, TENSORS))
+        return eval_step(state, self._device_batch(batch), self.mesh)
 
     def visualize(self, state, batch, out_dir: Path):
         """<name>_predicted.obj (the dense sweep at inf_res, level 0.5) and,
         when the batch has the GT distance field, <name>_gt.obj (level 1.0),
-        for each sample; a name's directories are made as needed."""
+        for each sample; a name's directories are made as needed.  Under a
+        mesh every rank sweeps its share and rank 0 writes."""
         from sv3d_tpu_torch.inference.dense_grid import implicit_to_mesh
         from sv3d_tpu_torch.utils.visualize import visualize_sdf
 
@@ -104,10 +129,12 @@ class ImplicitRefinementTrainer(BaseTrainer):
         try:
             for i, name in enumerate(batch["name"]):
                 base = out_dir / str(name)
-                base.parent.mkdir(parents=True, exist_ok=True)
+                if self.is_main:
+                    base.parent.mkdir(parents=True, exist_ok=True)
                 implicit_to_mesh(model, grid[i:i + 1], self.config.dims, 0.5,
-                                 f"{base}_predicted.obj", res_increase=self.config.inf_res)
-                if "target" in batch:
+                                 f"{base}_predicted.obj", res_increase=self.config.inf_res,
+                                 mesh=self.mesh)
+                if "target" in batch and self.is_main:
                     visualize_sdf(np.asarray(batch["target"][i])[..., 0], f"{base}_gt.obj",
                                   level=1.0)
         finally:

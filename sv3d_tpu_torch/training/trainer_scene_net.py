@@ -40,25 +40,47 @@ from sv3d_tpu_torch.training.state import TrainState
 TENSORS = ("rgb", "depthmap_target", "points", "occupancies")
 
 
-def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma):
-    """(train loss, metrics dict); the metric names are the JAX package's."""
+def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma, mesh=None,
+                 supervised_from=None):
+    """(train loss, metrics dict); the metric names are the JAX package's.
+
+    mesh (a multi-GPU Mesh, or None): logits and occupancies are this rank's
+    rows and slice of the query points, depth its rows.  The train loss is
+    this rank's share (means over equal shares, so the world mean of the
+    gradients is the global batch's); the metrics are the global batch's on
+    every rank: ce and mse the means of the ranks' means, mesh_ce and
+    point_iou ratios of all-reduced sums and counts.  supervised_from: the
+    first query column of mesh_ce's supervision points (default
+    config.subsample_points; a rank's slice starts elsewhere)."""
     ce = F.binary_cross_entropy_with_logits(logits, occupancies)
     mse = torch.mean((depth - depth_target) ** 2)
     loss = ce + mse
-    if config.subsample_points > 0:
-        s = config.subsample_points
-        mesh_ce = F.binary_cross_entropy_with_logits(logits[:, s:], occupancies[:, s:])
-    else:
-        mesh_ce = ce
+    s = config.subsample_points if supervised_from is None else supervised_from
     # binary point IoU at logit 0: 0 for any constant predictor, unlike CE
     # (the checkpoint monitor; see SceneNetTrainer)
     pred = logits > 0
     occ = occupancies > 0.5
-    point_iou = (pred & occ).sum() / (pred | occ).sum().clamp(min=1)
+    inter, union = (pred & occ).sum(), (pred | occ).sum()
+    if mesh is None or mesh.size == 1:
+        if config.subsample_points > 0:
+            mesh_ce = F.binary_cross_entropy_with_logits(logits[:, s:], occupancies[:, s:])
+        else:
+            mesh_ce = ce
+        point_iou = inter / union.clamp(min=1)
+        ce_all, mse_all = ce.detach(), mse.detach()
+    else:
+        mesh_sum = F.binary_cross_entropy_with_logits(logits[:, s:], occupancies[:, s:],
+                                                      reduction="sum")
+        count = logits.new_tensor(occupancies[:, s:].numel())
+        totals = mesh.sum_(torch.stack([t.detach().double() for t in (
+            ce, mse, mesh_sum, count, inter, union)]))
+        ce_all, mse_all = (totals[:2] / mesh.size).to(ce.dtype)
+        mesh_ce = (totals[2] / totals[3]).to(ce.dtype) if config.subsample_points > 0 else ce_all
+        point_iou = (totals[4] / totals[5].clamp(min=1)).float()
     sigma = sigma.detach()
     metrics = {
-        "ce_loss": ce, "mse_depth_loss": mse, "mesh_ce_loss": mesh_ce,
-        "point_iou": point_iou, "loss": loss,
+        "ce_loss": ce_all, "mse_depth_loss": mse_all, "mesh_ce_loss": mesh_ce,
+        "point_iou": point_iou, "loss": ce_all + mse_all,
         "sigma_x": sigma[2], "sigma_y": sigma[1], "sigma_z": sigma[0],
     }
     return (ce if config.no_depth_sup else loss), metrics
@@ -78,30 +100,45 @@ def _microbatches(batch: dict, accum: int) -> list:
 
 
 def scene_forward(model: SceneNet, config: Config, batch: dict, subsample_idx=None,
-                  label_fn=None):
+                  label_fn=None, mesh=None):
     """Forward + losses on one (micro)batch of device tensors.  label_fn(pc,
     batch) labels the projected subsample that this forward queried (when
-    subsample_points > 0).  Returns (loss, metrics, (logits, depth, pc,
-    occupancies))."""
-    logits, depth, pc = model(batch["rgb"], batch["depthmap_target"], batch["points"],
-                              subsample_idx)
+    subsample_points > 0).  With a multi-GPU mesh, batch holds this rank's
+    rows and the forward queries its sp slice of the query axis [cloud
+    subsample; points], so label_fn sees only the cloud points in that
+    slice.  Returns (loss, metrics, (logits, depth, pc, occupancies))."""
     occ = batch["occupancies"]
+    n_cloud, point_slice, local_s = model.cloud_queries(batch["depthmap_target"]), None, None
+    if mesh is not None and mesh.sp > 1:
+        point_slice = mesh.point_slice(n_cloud + batch["points"].shape[1])
+        occ = occ[:, max(point_slice.start - n_cloud, 0):point_slice.stop - n_cloud]
+        # the slice's first column at or past config.subsample_points
+        local_s = min(max(config.subsample_points - point_slice.start, 0),
+                      point_slice.stop - point_slice.start)
+    logits, depth, pc = model(batch["rgb"], batch["depthmap_target"], batch["points"],
+                              subsample_idx, point_slice)
     if config.subsample_points > 0:
-        occ = torch.cat([label_fn(pc.detach(), batch).to(occ), occ], dim=1)
+        labels = label_fn(pc.detach(), batch) if pc.shape[1] else occ[:, :0]
+        occ = torch.cat([labels.to(occ), occ], dim=1)
     loss, metrics = scene_losses(config, logits, occ, depth, batch["depthmap_target"],
-                                 model.project.sigma)
+                                 model.project.sigma, mesh, local_s)
     return loss, metrics, (logits, depth, pc, occ)
 
 
 def train_step(state: TrainState, batch: dict, config: Config, subsample_idx=None,
-               label_fn=None) -> dict:
+               label_fn=None, mesh=None) -> dict:
     """One optimizer step on a batch of device tensors, in place on state.
 
     With accum_steps > 1 the batch splits into that many microbatches run in
     sequence: their gradients are averaged and applied once, and BatchNorm's
     running statistics follow the microbatches in order (the JAX scan
     carries them the same way).  subsample_idx: one index array per
-    microbatch, or None.  Returns the microbatch-averaged train_* metrics."""
+    microbatch, or None.  mesh: a multi-GPU Mesh (batch is this rank's
+    rows; scene_forward): the gradients are averaged over its ranks once,
+    after the last microbatch.  Each rank splits its own rows, so at dp > 1
+    a microbatch (and its BatchNorm statistics) is every rank's k-th share,
+    not the single process's k-th block of the batch.  Returns the
+    microbatch-averaged train_* metrics."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
@@ -109,10 +146,12 @@ def train_step(state: TrainState, batch: dict, config: Config, subsample_idx=Non
     sums: dict = {}
     for i, mb in enumerate(_microbatches(batch, accum)):
         idx = None if subsample_idx is None else subsample_idx[i]
-        loss, metrics, _ = scene_forward(model, config, mb, idx, label_fn)
+        loss, metrics, _ = scene_forward(model, config, mb, idx, label_fn, mesh)
         (loss / accum).backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
+    if mesh is not None:
+        mesh.mean_gradients(model.parameters())
     opt.step()
     state.step += 1
     return _prefixed("train", {k: v / accum for k, v in sums.items()})
@@ -192,7 +231,8 @@ class SceneNetTrainer(BaseTrainer):
         """Host labels (B, N) of a projected cloud against the batch's GT
         meshes.  Rows flagged `flipped` were projected in the mirrored scene
         and mirror back (p0 -> A - p0) before the query: occupancy is
-        mirror-invariant, occ_mirrored(p) == occ(A - p)."""
+        mirror-invariant, occ_mirrored(p) == occ(A - p).  Under a mesh the
+        batch holds this rank's rows, their meshes and their flags."""
         pc_np = pc.detach().cpu().numpy()
         flipped = batch.get("flipped")
         if flipped is not None and (np.asarray(flipped) > 0.5).any():
@@ -212,21 +252,23 @@ class SceneNetTrainer(BaseTrainer):
                 for _ in range(count)]
 
     def train_step(self, state, batch, generator):
+        # every rank draws the same subsample from its copy of the seeded
+        # generator, so each uses the indices of the single-process run
         idx = self._subsample(batch, generator, max(int(self.config.accum_steps), 1))
         return train_step(state, to_device(batch, self.device, TENSORS), self.config,
-                          idx, self.label_cloud)
+                          idx, self.label_cloud, self.mesh)
 
-    def _eval_forward(self, state, batch):
+    def _eval_forward(self, state, batch, mesh=None):
         # a fixed subsample for every evaluation, as the JAX eval's PRNGKey(0)
         idx = self._subsample(batch, torch.Generator().manual_seed(0), 1)
         state.model.eval()
         with torch.no_grad():
             return scene_forward(state.model, self.config,
                                  to_device(batch, self.device, TENSORS),
-                                 None if idx is None else idx[0], self.label_cloud)
+                                 None if idx is None else idx[0], self.label_cloud, mesh)
 
     def eval_step(self, state, batch):
-        _, metrics, _ = self._eval_forward(state, batch)
+        _, metrics, _ = self._eval_forward(state, batch, self.mesh)
         return _prefixed("val", metrics)
 
     def visualize(self, state, batch, out_dir: Path):
@@ -238,6 +280,8 @@ class SceneNetTrainer(BaseTrainer):
         from sv3d_tpu_torch.geometry import unnorm_grid_space
         from sv3d_tpu_torch.inference.dense_grid import implicit_to_mesh
 
+        # the whole batch on every rank: the sweeps are sharded over the
+        # mesh (implicit_to_mesh), and rank 0 writes
         _, _, (_, depth, pc, _) = self._eval_forward(state, batch)
         model = state.model
         with torch.no_grad():
@@ -245,21 +289,29 @@ class SceneNetTrainer(BaseTrainer):
         pc_grid = unnorm_grid_space(pc, self.config.dims).cpu().numpy()
         for i, name in enumerate(batch["name"]):
             base = "_".join(str(name).split("/")[-3:])
-            visualize_point_list(pc_grid[i], out_dir / f"{base}_projected_pc.obj")
-            visualize_grid(vox[i, ..., 0].cpu().numpy(), out_dir / f"{base}_voxelized.obj")
+            if self.is_main:
+                visualize_point_list(pc_grid[i], out_dir / f"{base}_projected_pc.obj")
+                visualize_grid(vox[i, ..., 0].cpu().numpy(), out_dir / f"{base}_voxelized.obj")
             implicit_to_mesh(model.ifnet, vox[i:i + 1], self.config.dims, 0.5,
-                             out_dir / f"{base}_predicted.obj", res_increase=self.config.inf_res)
-            visualize_depthmap(depth[i].cpu().numpy(), out_dir / f"{base}_depthmap", flip=True)
+                             out_dir / f"{base}_predicted.obj", res_increase=self.config.inf_res,
+                             mesh=self.mesh)
+            if self.is_main:
+                visualize_depthmap(depth[i].cpu().numpy(), out_dir / f"{base}_depthmap",
+                                   flip=True)
 
     def test(self, checkpoint: str, max_batches=None):
         """Load a checkpoint and run the test split with visualization dumps
-        (the current config's inf_res / scale_factor / skip_unet apply)."""
+        (the current config's inf_res / scale_factor / skip_unet apply).
+        Under a mesh every rank takes whole batches (the visualization
+        sweeps are sharded, and its metrics count each row as often as the
+        other), and rank 0 writes."""
         from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 
-        state = load_state_from_checkpoint(self.build_state(), checkpoint)
-        loader = self._loader(self.test_dataset(), shuffle=False, drop_last=False)
+        state = self.distribute(load_state_from_checkpoint(self.build_state(), checkpoint))
+        loader = self._loader(self.test_dataset(), shuffle=False, drop_last=False, sliced=False)
         out_dir = self.exp_dir / "test_vis"
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            out_dir.mkdir(parents=True, exist_ok=True)
         metrics: dict = {}
         n = 0
         for i, batch in enumerate(loader):

@@ -10,7 +10,9 @@ renormalized into [min_z, max_z]; loss = mean squared error against the GT
 depth (train_loss, val_loss).  --precision 16 runs the UNet in bf16 on f32
 parameters and widens its logits to f32 before the resize and the sigmoid.  Validation writes each predicted depth map as
 <name>/depth_map.exr.  The checkpoint's model is the UNet itself, which
-SceneNetTrainer's --pretrain_unet loads (load_pretrained_unet).
+SceneNetTrainer's --pretrain_unet loads (load_pretrained_unet).  Under a
+multi-GPU mesh each dp row of ranks takes its rows (the sp ranks of a row
+repeat its step), and the gradients and losses are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -43,24 +45,32 @@ def depth_forward(model, config: Config, rgb: torch.Tensor) -> torch.Tensor:
     return renormalize_depth(logits[..., 0], config.min_z, config.max_z)
 
 
-def train_step(state: TrainState, batch: dict, config: Config) -> dict:
-    """One optimizer step on a batch of device tensors, in place on state."""
+def _global(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's mean from each rank's (equal shares)."""
+    return loss if mesh is None else mesh.sum_(loss.detach().clone()) / mesh.size
+
+
+def train_step(state: TrainState, batch: dict, config: Config, mesh=None) -> dict:
+    """One optimizer step on a batch of device tensors, in place on state.
+    mesh: a multi-GPU Mesh (batch is this rank's rows)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
     loss = torch.mean((depth_forward(model, config, batch["input"]) - batch["target"]) ** 2)
     loss.backward()
+    if mesh is not None:
+        mesh.mean_gradients(model.parameters())
     opt.step()
     state.step += 1
-    return {"train_loss": loss.detach()}
+    return {"train_loss": _global(loss.detach(), mesh)}
 
 
-def eval_forward(state: TrainState, batch: dict, config: Config) -> tuple:
+def eval_forward(state: TrainState, batch: dict, config: Config, mesh=None) -> tuple:
     """(eval-mode depth, {"val_loss": mean squared error})."""
     state.model.eval()
     with torch.no_grad():
         depth = depth_forward(state.model, config, batch["input"])
-    return depth, {"val_loss": torch.mean((depth - batch["target"]) ** 2)}
+    return depth, {"val_loss": _global(torch.mean((depth - batch["target"]) ** 2), mesh)}
 
 
 class DepthRegressorTrainer(BaseTrainer):
@@ -85,12 +95,16 @@ class DepthRegressorTrainer(BaseTrainer):
         return self._dataset("val")
 
     def train_step(self, state, batch, generator):
-        return train_step(state, to_device(batch, self.device, TENSORS), self.config)
+        return train_step(state, to_device(batch, self.device, TENSORS), self.config,
+                          self.mesh)
 
     def eval_step(self, state, batch):
-        return eval_forward(state, to_device(batch, self.device, TENSORS), self.config)[1]
+        return eval_forward(state, to_device(batch, self.device, TENSORS), self.config,
+                            self.mesh)[1]
 
     def visualize(self, state, batch, out_dir: Path):
+        if not self.is_main:  # no collective here: the other ranks have nothing to do
+            return
         depth, _ = eval_forward(state, to_device(batch, self.device, TENSORS), self.config)
         depth = depth.cpu().numpy()
         for i, name in enumerate(batch["name"]):

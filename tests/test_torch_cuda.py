@@ -10,7 +10,9 @@ sweep; the sweep plan's whole-lattice tables cut to a slab as the kernels
 index them; the bf16 kernel's fc0 order and mma fragment layouts; the
 f32 kernel's fc0 rows and chunk table, and compare_sweep.py's C
 interfaces; that the sweep's values do not depend on slab_rows; and that
-K2 bf16's mean limit fails a sweep that rounds at the wrong points."""
+K2 bf16's mean limit fails a sweep that rounds at the wrong points.  One
+card test holds the multi-GPU BatchNorm (its statistics all-reduced over
+two ranks on the one card) to the whole batch's."""
 
 import runpy
 from pathlib import Path
@@ -1335,3 +1337,30 @@ def test_ifnet_only_train_step_kernels_match_plain_on_card(cuda_device, monkeypa
           "|gradient|):", {k: tuple(f"{x:.2e}" for x in v) for k, v in errs.items()})
     for k, (err, plain_err, _) in errs.items():
         assert err <= max(1e-5, 2.0 * plain_err), (k, err, plain_err)
+
+
+@pytest.mark.cuda
+def test_synced_batchnorm_on_card(cuda_device, tmp_path):
+    """BatchNorm's statistics all-reduced over 2 ranks that share the card
+    (gloo, which all-reduces CUDA tensors; NCCL refuses two ranks on one
+    GPU), in float64: each rank's outputs and input gradients, the summed
+    parameter gradients and the running statistics equal to the unsynced
+    module's on the whole batch, on the card, at 1e-12
+    (tests/torch_parallel_workers.py, no JAX)."""
+    import torch_parallel_workers as workers
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(1.0, 2.0, (4, 16, 9, 8, 7))
+    cot = rng.normal(size=x.shape)
+    whole = workers.batchnorm(x, cot, dp=1, device="cuda")
+    ranks = [r["bn"] for r in workers.spawn(2, tmp_path, [
+        ("bn", "batchnorm", dict(x=x, cotangent=cot, dp=2, device="cuda"))])]
+    tol = dict(rtol=1e-12, atol=1e-12)
+    for i, r in enumerate(ranks):
+        rows = slice(2 * i, 2 * i + 2)
+        torch.testing.assert_close(r["out"], whole["out"][rows], **tol)
+        torch.testing.assert_close(r["x_grad"], whole["x_grad"][rows], **tol)
+        for k in ("running_mean", "running_var"):
+            torch.testing.assert_close(r[k], whole[k], **tol)
+    for k in ("weight_grad", "bias_grad"):
+        torch.testing.assert_close(ranks[0][k] + ranks[1][k], whole[k], **tol)

@@ -63,7 +63,8 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.quality", "sv3d_tpu_torch.quality.synthetic_scenes",
         "sv3d_tpu_torch.quality.scoring", "sv3d_tpu_torch.quality.overfit",
         "sv3d_tpu_torch.quality.multiscene", "sv3d_tpu_torch.quality.diagnose",
-        "sv3d_tpu_torch.quality.compare_precision",
+        "sv3d_tpu_torch.quality.compare_precision", "sv3d_tpu_torch.parallel",
+        "sv3d_tpu_torch.parallel.mesh", "sv3d_tpu_torch.parallel.multihost",
     ]
     for m in modules:
         importlib.import_module(m)

@@ -404,7 +404,7 @@ def test_fit_checkpoints_resume_and_cli(smoke_data, tmp_path):
                                    "--seed", "3"])
     assert device == torch.device("cpu") and config.fused_query and config.batch_size == 2
     for argv in (["--dp", "2"], ["--coordinator_address", "localhost:1234"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(ValueError, match="torchrun"):
             parse_config(["--device", "cpu", *argv])
     half = SceneNetTrainer(port_config(cfg, precision=16), device="cpu",
                            experiment_dir=tmp_path / "d").build_state()
