@@ -46,6 +46,15 @@ that each ran its kernels:
             K8; IF-Net-only B=16: K4, K8; UNet-only), its loss drop, warm step,
             peak memory and top kernels beside f32, one step card vs CPU; and
             a short quality.overfit run in both precisions.
+  bench     phase 23: K2 bf16 on the res_increase-2 lattice (278 x 208 x
+            224, 12,952,576 points) held on three 8-row slabs against its
+            plain version and timed; K1, K1b, K4, K7 and K8 held against
+            their plain versions at the bench's B=8 shapes; then the port's
+            bench in this process, headline.main (dense sweep per slab_rows,
+            the reference scheme, image->mesh at res_increase 2, arbitrary
+            points) and measure_step.main --set all (ops, the five train
+            steps and the fused three with the cloud, the serving A/B), 3
+            timed runs each: K1, K1b, K2 bf16, K4, K5, K6 bf16, K7, K8.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -89,6 +98,22 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+if not (Path(__file__).resolve().parent / "sv3d_tpu_torch").is_dir():
+    # the script copied without the repository: nothing to build or run
+    raise RuntimeError("chip_smoke: sv3d_tpu_torch/ is not beside the script; run it from "
+                       "the root of a checkout")
+
+from sv3d_tpu_torch.bench.timing import (  # noqa: E402 (after the check above)
+    PEAK_BF16_TENSOR_FLOPS,
+    PEAK_BYTES_PER_S,
+    PEAK_F32_FLOPS,
+    dev_us,
+    device_ms,
+    host_ms,
+    profile_calls,
+    window_kernels,
+)
 
 INTRINSICS = "[[277.128, 0., 159.5, 0.], [0., 277.128, 119.5, 0.], [0., 0., 1., 0.], [0., 0., 0., 1.]]"
 K1_TOL = 1e-5  # atomics sum in run-dependent order (csrc/voxelize.cu)
@@ -206,11 +231,6 @@ POINTS_BF16_TOL = 2e-3
 POINTS_BF16_CARD_TOL = 3e-4
 POINTS_BF16_REL_MEAN_TOL = 1.5e-3
 N_POINTS = 262144  # the JAX package's arbitrary-point measurement (bench.py)
-# the H100 SXM's published peaks at its full 700 W limit (NVIDIA's data
-# sheet): f32 outside the tensor cores, and device memory
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_TENSOR_FLOPS = 989e12  # dense, on the tensor cores
 WORK = Path(__file__).resolve().parent / "build" / "sv3d_tpu_torch" / "smoke"
 
 # the one-scene dataset: an axis-aligned box (camera space, metres) in front
@@ -243,21 +263,6 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def host_ms(fn, reps: int = 51) -> float:
-    """Median host-clock milliseconds that one call of fn takes to return
-    (the wrapper's Python and its launches; the device is synchronised
-    between calls, outside the timed region)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    return statistics.median(times) * 1e3
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
@@ -558,53 +563,6 @@ def k1b_bytes(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
             addr.append((batch * sb + a * s0 + bb * s1 + k * s2)[ok])
         sectors += int(torch.unique(torch.cat(addr) // 8).numel())  # 8 floats a sector
     return 32 * sectors + 2 * nbytes(points)
-
-
-def device_ms(fn, parts, steps: int = 50, tries: int = 3) -> dict:
-    """Device ms a call of fn, in all and by each part of a kernel's name
-    (torch.profiler's CUDA activity over `steps` warm calls): {"all": ms,
-    part: ms}.  A window in which a part shows no device time (seen on the
-    H100: a window whose device events did not come back) is profiled
-    again, up to `tries` times; a part still without device time fails."""
-    for _ in range(tries):
-        _, _, _, events = _profile(fn, steps)
-        out = {part: sum(_dev_us(e) for e in events if part in e.key) / 1e3 / steps
-               for part in parts}
-        if all(out.values()):
-            break
-    check(all(out.values()), f"no device time for {[k for k, v in out.items() if not v]} in "
-          f"{tries} profiled windows of {steps} calls")
-    out["all"] = sum(_dev_us(e) for e in events) / 1e3 / steps
-    return out
-
-
-def window_kernels(fn, calls: int = 10, counter=None) -> tuple:
-    """The kernels that torch.profiler records over `calls` calls of fn:
-    ({kernel name: launches}, counter() at the window's end less at its
-    start, or None).  One call before the window runs as the schedule's
-    warm-up step, its events dropped, so that the device's tracing is
-    running when the window starts; each call is synchronised inside its
-    step."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    done, start = [], None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
-                 on_trace_ready=lambda p: done.append(p.key_averages())) as prof:
-        for i in range(1 + calls):
-            if i == 1 and counter is not None:
-                start = counter()
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    check(len(done) == 1, f"window_kernels: {len(done)} profiled windows came back, not 1")
-    # the schedule's step annotations show on the device too
-    kernels = {e.key: e.count for e in done[0]
-               if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0
-               and not e.key.startswith("ProfilerStep")}
-    return kernels, None if counter is None else counter() - start
 
 
 def one_kernel_a_call(fn, part: str, counter, calls: int = 10, tries: int = 6) -> list:
@@ -1460,20 +1418,20 @@ def k1b_timings(args: dict) -> dict:
 
 
 def _counters():
-    from sv3d_tpu_torch.ops.cuda import point_query, voxelize
+    """The training path's kernels' wrappers (launch_counters' names)."""
+    from sv3d_tpu_torch.ops.cuda import launch_counters
 
-    return {"K1": voxelize.scatter_voxels_cuda, "K1b": voxelize.scatter_voxels_bwd_cuda,
-            "K4": point_query.level_features_cuda, "K7": point_query.level_grad_points_cuda,
-            "K8": point_query.level_grad_vol_cuda}
+    return {k: v for k, v in launch_counters().items() if k in ("K1", "K1b", "K4", "K7", "K8")}
 
 
-def train_kernel_checks(model, dev, rng, k1b_points: dict) -> dict:
+def train_kernel_checks(model, dev, rng, k1b_points: dict, n_query: int = 4096) -> dict:
     """K1b, K4, K7 and K8 against their plain versions.  K1b on each of
     k1b_points ({kind: (B, N, 3) points}), given the clamped grid of the
     forward, with the cotangent in the strides that the blur's einsum
     backward hands it (batch and axis 0 swapped) and contiguous.  K4, K7,
     K8: the full-width net_res 128 pyramid (every level, align_corners
-    False) at B=4 with 4096 supervision + 4096 projected points, plus small
+    False) at the batch of k1b_points (B=4 on the training path) with
+    n_query supervision + n_query projected points a sample, plus small
     dims with both align_corners conventions and channel counts that take
     K4's scalar path, its float4 path and its masked tail; K8's gradient
     checked to lie channels-last.
@@ -1513,11 +1471,13 @@ def train_kernel_checks(model, dev, rng, k1b_points: dict) -> dict:
 
         pc = k1b_points["random"][:, :240 * 320]
         levels = model.ifnet.encode(model.project(pc))
-        sub = torch.tensor(rng.choice(pc.shape[1], 4096, replace=False), device=dev)
-        sup = torch.tensor(rng.uniform(-0.5, 0.5, (4, 4096, 3)).astype(np.float32), device=dev)
+        sub = torch.tensor(rng.choice(pc.shape[1], n_query, replace=False), device=dev)
+        b = pc.shape[0]
+        sup = torch.tensor(rng.uniform(-0.5, 0.5, (b, n_query, 3)).astype(np.float32),
+                           device=dev)
         q = torch.cat([pc[:, sub], sup], dim=1)
         p = tuple((2.0 * q[..., i]).contiguous() for i in range(3))
-        gs = [torch.randn((4, q.shape[1], 7 * flat.shape[1]), device=dev) for flat in levels.flats]
+        gs = [torch.randn((b, q.shape[1], 7 * flat.shape[1]), device=dev) for flat in levels.flats]
         errs = {"K4": [0.0, 0.0], "K7": [0.0, 0.0], "K8": [0.0, 0.0]}
         k5 = [0.0, 0.0]
         cases = [(list(levels), gs, p, cfg.align_corners, cfg.displacement)]
@@ -1533,7 +1493,8 @@ def train_kernel_checks(model, dev, rng, k1b_points: dict) -> dict:
                 args = (ldims, ac, disp)
                 gvol = level_grad_vol_cuda(*pp, gl, *args)
                 b, c, g = gvol.shape
-                check(gvol.stride() == (g * c, 1, c),
+                # the kernel's layout; the plain version's (on the CPU) is its own
+                check(dev.type != "cuda" or gvol.stride() == (g * c, 1, c),
                       f"K8's gradient is not channels-last: strides {gvol.stride()}")
                 for name, got, ref in (
                     ("K4", level_features_cuda(flat, *pp, *args),
@@ -1547,7 +1508,8 @@ def train_kernel_checks(model, dev, rng, k1b_points: dict) -> dict:
                 a, frac = k5_error(level_features_banded_cuda(flat, *pp, *args),
                                    level_features_banded_plain(flat, *pp, *args))
                 k5 = [max(k5[0], a), max(k5[1], frac)]
-        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
     for name, (a, r) in errs.items():
         out[name] = (a, r, (levels, p, gs, cfg.align_corners, cfg.displacement))
     out["K5"] = tuple(k5)
@@ -1693,37 +1655,10 @@ def _against_exact(cfg, run, exact, bn_fed=BN_FED_BIASES) -> dict:
     return out
 
 
-def _dev_us(e) -> float:
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-
-def _profile(fn, steps: int):
-    """torch.profiler over steps warm calls of fn (two warm-up calls first).
-    Returns (profile, host-clock ms a call, device kernel ms a call, kernel
-    events by device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    # the kernels themselves (device events), not the CPU ops that launched them
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0]
-    events = sorted(kernels, key=_dev_us, reverse=True)
-    return prof, wall, sum(_dev_us(e) for e in events) / 1e3 / steps, events
-
-
 def _top_lines(events, device: float, steps: int, top: int = 15) -> list:
     lines = []
     for e in events[:top]:
-        ms = _dev_us(e) / 1e3 / steps
+        ms = dev_us(e) / 1e3 / steps
         lines.append(f"  {ms:9.3f} ms {100.0 * ms / device:5.1f}%  x{e.count // steps:<4d} "
                      f"{e.key[:90]}")
     return lines
@@ -1732,7 +1667,7 @@ def _top_lines(events, device: float, steps: int, top: int = 15) -> list:
 def profile_lines(fn, steps: int) -> list:
     """Host-clock ms, device kernel ms, the device's idle share and the top
     kernels by device time of one warm call of fn.  Returns printable lines."""
-    _, wall, device, events = _profile(fn, steps)
+    _, wall, device, events = profile_calls(fn, steps)
     return [f"{wall:.3f} ms host clock, {device:.3f} ms device self time, device idle "
             f"{100.0 * (1.0 - device / wall):.1f}% (torch.profiler, {steps} calls)",
             *_top_lines(events, device, steps, top=10)]
@@ -1744,7 +1679,7 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     activity, the host labelling of the projected cloud alone, and the top
     kernels by device time.  Returns printable lines."""
     state = trainer.build_state()
-    prof, wall, device, events = _profile(lambda: trainer.train_step(state, batch, gen), steps)
+    prof, wall, device, events = profile_calls(lambda: trainer.train_step(state, batch, gen), steps)
     pc = torch.tensor(np.random.default_rng(0).uniform(-0.5, 0.5, (4, 4096, 3)).astype(np.float32))
     label_ms = []
     for _ in range(5):
@@ -1757,7 +1692,7 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     lines += _top_lines(events, device, steps)
     for name, part in (("K8", "level_grad_vol"), ("K1", "scatter_voxels_kernel"),
                        ("K1's clamp", "clamp_unit"), ("K1b", "scatter_voxels_bwd")):
-        ms = sum(_dev_us(e) for e in events if part in e.key) / 1e3 / steps
+        ms = sum(dev_us(e) for e in events if part in e.key) / 1e3 / steps
         lines.append(f"  {name} ({part}): {ms:.4f} ms a step, {100.0 * ms / device:.3f}% of "
                      "device time")
     # which convolutions the backward time belongs to (device time of the
@@ -1833,10 +1768,10 @@ def step_copy_kernels(trainer, batch, gen, names, steps: int = 2) -> dict:
     state = trainer.build_state()
     out = {}
     for name in names:
-        _, _, _, events = _run_variant(variants[name], lambda: _profile(
+        _, _, _, events = _run_variant(variants[name], lambda: profile_calls(
             lambda: trainer.train_step(state, batch, gen), steps))
         cp = [e for e in events if "copy" in e.key.lower()]
-        out[name] = (sum(e.count for e in cp) / steps, sum(_dev_us(e) for e in cp) / 1e3 / steps)
+        out[name] = (sum(e.count for e in cp) / steps, sum(dev_us(e) for e in cp) / 1e3 / steps)
     return out
 
 
@@ -2395,7 +2330,7 @@ def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) 
         step = lambda: trainer.train_step(st, batch, gen)
         ms = cuda_ms(step, reps=5)
         peak = peak_step_mib(step)
-        _, wall, device_t, events = _profile(step, 3)
+        _, wall, device_t, events = profile_calls(step, 3)
         leader = events[0].key if events else ""
         print(f"precision-16 {name}: fit(max_steps=4) launches {launches}; 10 steps on one batch "
               f"of {cfg.batch_size}: loss {', '.join(f'{x:.5f}' for x in losses)}", flush=True)
@@ -2673,13 +2608,180 @@ def world2_phase(fit_cfg, serve_cfg, grid_path: Path, pts: np.ndarray,
             "single_launches": single["launches"]}
 
 
+def positive(values: dict, what: str, none_ok: bool = False) -> None:
+    """Every number in values (nested dicts and lists too) is finite and
+    above 0; None (a figure that only the card gives) fails unless none_ok."""
+    from sv3d_tpu_torch.bench import bad_figures
+
+    bad = bad_figures(values, what, none_ok)
+    check(not bad, f"{what}: values not finite and positive: {bad}")
+
+
+def bench_kernel_checks(device: str, scale_factor: int) -> dict:
+    """The kernels of the bench's training paths against their plain
+    versions at the shapes those paths give them (measure_step's ops and its
+    B=8 steps): K1 (clamped and raw) and K1b on B=8 x 76,800 projected
+    points of a random depth and of a wall; K4, K7 and K8 (and K5 beside
+    them) on the full-width pyramid at B=8 x 8,192 query points, by
+    train_kernel_checks.  Checks each at phase 2's and phase 7's limits;
+    returns {kernel: (max abs err, relative err)}.  Above scale_factor 1
+    the batch is 2 and the point counts shrink by its cube, as in
+    measure_step."""
+    from sv3d_tpu_torch.bench import headline, measure_step
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda, scatter_voxels_raw_cuda
+    from sv3d_tpu_torch.ops.voxelize import scatter_voxels, scatter_voxels_raw
+
+    dev = torch.device(device)
+    b = 8 if scale_factor == 1 else 2
+    model = headline.scene_model(headline.scene_config(scale_factor, batch_size=b), dev, seed=2)
+    dims = model.config.dims
+    rng = np.random.default_rng(23)
+    n_vox = headline.scaled_count(240 * 320, scale_factor)
+    pts = {kind: k1_points(model, kind, b, rng, outside=0)[:, :n_vox].contiguous()
+           for kind in ("random", "plane")}
+    k1, k1_raw = 0.0, {}
+    with torch.no_grad():
+        for kind, p in pts.items():
+            k1 = max(k1, float((scatter_voxels_cuda(p, dims) - scatter_voxels(p, dims)).abs().max()))
+            k1_raw[kind] = (rel_err(scatter_voxels_raw_cuda(p, dims),
+                                    scatter_voxels_raw(p, dims))[1], k1_raw_tol(p, dims))
+    tk = train_kernel_checks(model, dev, rng, pts,
+                             headline.scaled_count(measure_step.N_POINTS, scale_factor))
+    k5 = tk.pop("K5")
+    # K1: (clamped max abs error, raw sums' largest relative error)
+    errs = {"K1": (k1, max(e for e, _ in k1_raw.values())),
+            **{k: (a, r) for k, (a, r, _) in tk.items()}}
+    print(f"phase 23: the bench's training kernels at B={b} ({n_vox} scattered "
+          f"points, {tk['K4'][2][1][0].shape[1]} query points a sample): K1 clamped "
+          f"max_abs_err {k1:.3e} (tol {K1_TOL:g}), raw "
+          + ", ".join(f"{kind} {e:.3e} (tol {t:.3e})" for kind, (e, t) in k1_raw.items())
+          + "; " + "; ".join(f"{k} max_abs_err {a:.3e}, relative {r:.3e} (tol "
+                             f"{TRAIN_KERNEL_RTOL[k]:g})" for k, (a, r) in errs.items() if k != "K1")
+          + f"; K5 {k5[1]:.3f} of one bf16 ulp", flush=True)
+    check(k1 <= K1_TOL, f"K1 at the bench's B=8 disagrees with its plain version: {k1}")
+    check(all(e <= t for e, t in k1_raw.values()), f"K1's raw sums at B=8 disagree: {k1_raw}")
+    for k in ("K1b", "K4", "K7", "K8"):
+        check(errs[k][1] <= TRAIN_KERNEL_RTOL[k],
+              f"{k} at the bench's B=8 disagrees with its plain version: {errs[k]}")
+    check(k5[1] <= 1.0, f"K5 at the bench's B=8 disagrees with its plain version: {k5}")
+    return errs
+
+
+def bench_phase(device: str = "cuda", scale_factor: int = 1, n_timed: int = 3) -> dict:
+    """Phase 23, the port's bench at full width: K2 bf16 on the
+    res_increase-2 lattice (278 x 208 x 224) of the bench's seeded IF-Net
+    and grid, held on three 8-row slabs (the first, the middle, the last)
+    against its plain version at phase 3's limits, timed over the whole
+    lattice in one launch beside its bound; K1, K1b, K4, K7 and K8 at the
+    bench's B=8 shapes against their plain versions (bench_kernel_checks);
+    then headline.main (all five sections) and measure_step.main (--set
+    all) in this process with n_timed timed runs each, their meshes under
+    WORK/bench, every count set to 0 just before each and read just after;
+    then the f32 B=8 step of the gathers that measure_step's configurations
+    leave out, for its peak memory.  Returns the K2 figures, the B=8
+    kernels' errors, both results, each bench path's launches and that
+    step.  device="cpu" and a scale_factor dry-run it (plain versions, no
+    timing of K2)."""
+    from sv3d_tpu_torch.bench import headline, measure_step
+    from sv3d_tpu_torch.config import Config
+    from sv3d_tpu_torch.ops.cuda import launch_counters, launch_counts
+    from sv3d_tpu_torch.ops.cuda.sweep import SweepPlan, lattice_sweep, lattice_sweep_plain
+
+    dims = Config(scale_factor=scale_factor).dims
+    r = tuple(headline.RES_INCREASE * d for d in dims)
+    offsets = (0, r[0] // 2 - 4, r[0] - 8)  # rows 0-7, 135-142 and 270-277 at full scale
+    model, grid = headline.build_ifnet(dims, device)
+    args = (model.config.align_corners, model.config.displacement)
+    slabs = {}
+    with torch.inference_mode():
+        levels = model.encode(grid)
+        plan = SweepPlan(levels, model.mlp, r, *args, torch.bfloat16)
+        for off in offsets:
+            got = lattice_sweep(plan, 8, off)
+            ref = lattice_sweep_plain(levels, model.mlp, r, 8, off, *args, torch.bfloat16)
+            check(bool(torch.isfinite(got).all()), f"K2 at res_increase 2: non-finite rows {off}+")
+            slabs[off] = (float((got - ref).abs().max()), rel_mean_err(got, ref))
+        whole = lattice_sweep(plan, r[0], 0)
+        check(bool(torch.isfinite(whole).all()), "K2 at res_increase 2: non-finite logits")
+        for off in offsets:
+            check(torch.equal(lattice_sweep(plan, 8, off), whole[:, off:off + 8]),
+                  f"K2 at res_increase 2: rows {off}+ differ from the whole-lattice launch")
+        k2 = {"ms": cuda_ms(lambda: lattice_sweep(plan, r[0], 0), warmup=1, reps=5)
+              if device == "cuda" else None,
+              "bound": sweep_bound(model, levels, r, r[0], 0, torch.bfloat16),
+              "max_abs_err": max(a for a, _ in slabs.values()),
+              "rel_mean_err": max(m for _, m in slabs.values()), "slabs": slabs}
+        del plan, whole, got, ref, levels
+    print(f"phase 23: K2 bf16 on the {r} lattice ({math.prod(r)} points): rows "
+          + "; ".join(f"{o}-{o + 7} max_abs_err {a:.3e}, mean_abs_err / mean |logit| {m:.3e}"
+                      for o, (a, m) in slabs.items())
+          + f" (tol {K2_BF16_TOL:g} and {K2_BF16_REL_MEAN_TOL:g}); the slabs equal the "
+          f"whole-lattice launch bit for bit; one launch {k2['ms']} ms, bound "
+          f"{k2['bound'][0]:.3f} ms ({k2['bound'][1]})", flush=True)
+    for off, (a, m) in slabs.items():
+        check(a <= K2_BF16_TOL and m <= K2_BF16_REL_MEAN_TOL,
+              f"K2 bf16 at res_increase 2, rows {off}+, disagrees with its plain version: "
+              f"{a}, {m}")
+    del model, grid
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    train_errs = bench_kernel_checks(device, scale_factor)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    bench_args = ["--n_timed", str(n_timed), "--device", device, "--scale_factor",
+                  str(scale_factor), "--out_dir", str(WORK / "bench")]
+    counters = launch_counters()
+    runs = {}
+    for name, fn in (("headline", lambda: headline.main(bench_args)),
+                     ("measure_step", lambda: measure_step.main(["--set", "all", *bench_args]))):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        result = fn()
+        runs[name] = (result, {k: n for k, n in launch_counts().items() if n})
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    line, total = runs["headline"]
+    check(line["sections_completed"] == list(headline.SECTIONS),
+          f"the bench ran {line['sections_completed']}")
+    positive({k: line[k] for k in (
+        "value", "vs_baseline", "reference_scheme_points_per_sec", "points_per_sec_by_slab_rows",
+        "sec_per_scene_image_to_mesh", "sec_per_scene_device", "sec_per_scene_marching_cubes",
+        "sec_per_scene_vs_baseline", "reference_scheme_sec_per_scene",
+        "sec_per_scene_image_to_mesh_median", "scene_faces", "arbitrary_points_per_sec",
+        "arbitrary_points_per_sec_banded", "arbitrary_points_per_sec_host_loop",
+        "host_return_ms_by_slab_rows", "sweep_device_ms")}, "headline", device != "cuda")
+    check(line["n_points"] == math.prod(r), f"the bench swept {line['n_points']} points")
+    sections = line["launches"]
+    paths = {"bench_sweep": (sections["points_primary"], sections["rows_sweep"]),
+             "bench_scene": (sections["scene"],), "bench_points": (sections["arbitrary"],)}
+    by_path = {p: {k: sum(c.get(k, 0) for c in counts) for k in counters}
+               for p, counts in paths.items()}
+    check({k: sum(p[k] for p in by_path.values()) for k in counters
+           if any(p[k] for p in by_path.values())} == total,
+          f"the bench's launches by section {sections} do not add up to its counts {total}")
+    step, step_total = runs["measure_step"]
+    positive({k: step[k] for k in ("ops", "steps", "serving")}, "measure_step",
+             device != "cuda")
+    # the five configurations, and the three fused ones again with the cloud
+    check(len(step["steps"]) == 8, f"measure_step ran {len(step['steps'])} step configurations")
+    by_path["bench_step"] = step_total
+    by_path = {p: {k: n for k, n in counts.items() if n} for p, counts in by_path.items()}
+    print(f"phase 23: bench launches by path {by_path}", flush=True)
+    # the f32 step at B=8 that the JAX package's measure_step left out for a
+    # 16 GB card (its note: ~17 GB); its peak device memory in the port
+    wide = measure_step.step_case(measure_step.Counted(torch.device(device), n_timed),
+                                  8 if scale_factor == 1 else 2, 32, False, scale_factor,
+                                  headline.scaled_count(measure_step.N_POINTS, scale_factor))
+    print(f"phase 23: train step B={wide['B']}, f32, gathers: {wide['ms']:.3f} ms, peak "
+          f"{wide['peak_mib']} MiB, mfu {wide['mfu']:.4f}", flush=True)
+    return {"K2": k2, "train_kernels": train_errs, "headline": line, "measure_step": step,
+            "launches": by_path, "step_b8_f32": wide}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: CUDA is not available")
-    if not (Path(__file__).resolve().parent / "sv3d_tpu_torch").is_dir():
-        # the script copied without the repository: nothing to build or run
-        raise RuntimeError("chip_smoke: sv3d_tpu_torch/ is not beside the script; run it from "
-                           "the root of a checkout")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3270,7 +3372,7 @@ def main() -> int:
         if name == "IF-Net-only fused_query=True":
             fused_trainer, fused_state = t, st
         del st
-    _, wall, device_t, events = _profile(
+    _, wall, device_t, events = profile_calls(
         lambda: fused_trainer.train_step(fused_state, ifnet_batch, gen), 3)
     ifnet_prof = [f"profiled IF-Net-only fused_query step (B=16, 4096 points a sample): "
                   f"{wall:.3f} ms host clock, {device_t:.3f} ms device self time, device idle "
@@ -3278,7 +3380,7 @@ def main() -> int:
                   *_top_lines(events, device_t, 3)]
     for kname, part in (("K4", "level_features_kernel"), ("K7", "level_grad_points"),
                         ("K8", "level_grad_vol")):
-        ms = sum(_dev_us(e) for e in events if part in e.key) / 1e3 / 3
+        ms = sum(dev_us(e) for e in events if part in e.key) / 1e3 / 3
         ifnet_prof.append(f"  {kname} ({part}): {ms:.4f} ms a step, "
                           f"{100.0 * ms / device_t:.3f}% of device time")
     del fused_state
@@ -3344,6 +3446,11 @@ def main() -> int:
     print(f"phase 22 in {time.perf_counter() - t_phase:.2f} s", flush=True)
     w2_total = {k: sum(n) for counts in w2["launches"].values() for k, n in counts.items()}
 
+    # -- phase 23: the port's bench at full width ----------------------------------------
+    t_phase = time.perf_counter()
+    bench = bench_phase()
+    print(f"phase 23 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
@@ -3392,7 +3499,7 @@ def main() -> int:
         ("K8", "level_grad_vol", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),
     ):
         n, err, ms, plain = measured[key]
-        n += w2_total.get(key, 0)
+        n += w2_total.get(key, 0) + sum(c.get(key, 0) for c in bench["launches"].values())
         kernels.append({
             "name": name, "route": "cuda", "source": f"sv3d_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
@@ -3450,6 +3557,15 @@ def main() -> int:
             if key in counts:
                 kernels[-1]["launches_by_path"][path] = sum(counts[key])
                 kernels[-1].setdefault("world2_by_rank", {})[path] = counts[key]
+        # phase 23's bench paths
+        for path, counts in bench["launches"].items():
+            if key in counts:
+                kernels[-1].setdefault("launches_by_path", {})[path] = counts[key]
+        if key == "K2":  # the bench's lattice, res_increase 2, in one launch
+            t = bench["K2"]
+            kernels[-1]["r2"] = {"ms": t["ms"], "bound_ms": t["bound"][0],
+                                 "bound_by": t["bound"][1], "max_abs_err": t["max_abs_err"],
+                                 "rel_mean_err": t["rel_mean_err"]}
         if key in ("K1", "K1b"):  # device time, and the box scene beside the random depth
             by = {"K1": {kind: k1_t[(kind, 1)] for kind in ("random", "box")},
                   "K1b": k1b_t}[key]

@@ -22,7 +22,7 @@ The input is one lattice row at net_res 128, as chip_smoke.py's k3_checks
 takes it (2583 x 11,648: slab_features of a seeded occupancy grid's pyramid
 at the serving dims).  For each compute dtype, each version is timed in the
 order base, this, this, base: its kernel's device time and the call's
-(chip_smoke.device_ms: torch.profiler over 50 warm calls), and 30 calls
+(bench/timing.py::device_ms: torch.profiler over 50 warm calls), and 30 calls
 back to back between two CUDA events.  The weights' layouts are made before
 the timing; the "round_hidden" bf16 call rounds f in the call, as its
 wrapper did.  The two versions' logits are held to each other (f32 at

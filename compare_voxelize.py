@@ -20,7 +20,7 @@ entries are known:
 
 For each of chip_smoke.py's K1 inputs (a uniform random depth per pixel and
 the rendered box scene, B=1 and B=4, 76,800 + 4,096 points an image), each
-version's call is profiled (chip_smoke.device_ms: torch.profiler over 50
+version's call is profiled (bench/timing.py::device_ms: torch.profiler over 50
 warm calls) in the order base, this, this, base: the kernel alone and the
 whole call's device time.  K1b runs on the cotangent as the train step's
 blur backward strides it.  The two versions' outputs are held to each other
@@ -119,10 +119,10 @@ class Version:
 def call_parts(fn, steps: int = 50) -> dict:
     """Device ms a call of fn by kernel (torch.profiler over `steps` warm
     calls), keyed by the kernel's whole name."""
-    from chip_smoke import _dev_us, _profile
+    from sv3d_tpu_torch.bench.timing import dev_us, profile_calls
 
-    _, _, _, events = _profile(fn, steps)
-    return {e.key: _dev_us(e) / 1e3 / steps for e in events}
+    _, _, _, events = profile_calls(fn, steps)
+    return {e.key: dev_us(e) / 1e3 / steps for e in events}
 
 
 def short(name: str) -> str:

@@ -65,6 +65,8 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.quality.multiscene", "sv3d_tpu_torch.quality.diagnose",
         "sv3d_tpu_torch.quality.compare_precision", "sv3d_tpu_torch.parallel",
         "sv3d_tpu_torch.parallel.mesh", "sv3d_tpu_torch.parallel.multihost",
+        "sv3d_tpu_torch.bench", "sv3d_tpu_torch.bench.timing", "sv3d_tpu_torch.bench.headline",
+        "sv3d_tpu_torch.bench.measure_step",
     ]
     for m in modules:
         importlib.import_module(m)
@@ -147,6 +149,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
     assert {p.name for p in sources if p.parent.name == "quality"} >= {
         "synthetic_scenes.py", "scoring.py", "overfit.py", "multiscene.py", "diagnose.py",
         "compare_precision.py"}
+    # and the ports of bench.py and scripts/measure_step.py
+    assert {p.name for p in sources if p.parent.name == "bench"} >= {
+        "__main__.py", "headline.py", "measure_step.py", "timing.py"}
     offenders = []
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
