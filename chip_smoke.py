@@ -55,6 +55,11 @@ that each ran its kernels:
             points) and measure_step.main --set all (ops, the five train
             steps and the fused three with the cloud, the serving A/B), 3
             timed runs each: K1, K1b, K2 bf16, K4, K5, K6 bf16, K7, K8.
+  multiscene  phase 24: quality.multiscene --stage all at full width, the
+            scene-scaling protocol (--use_unet, B=4, precision 32) on 4
+            train, 1 val and 1 test synthetic scene, 2 steps: the data
+            stage, training (K1, K1b), validation, and the test scene meshed
+            (K1, K2 bf16) and scored; its artifact's figures must be finite.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -1132,6 +1137,7 @@ def points_path(served, vox, pts_np, smi) -> dict:
         stage_channels_last,
     )
     from sv3d_tpu_torch.ops.lattice import slab_features
+    from sv3d_tpu_torch.ops.mlp import matmul_bf16
     from sv3d_tpu_torch.ops.point_query import (
         level_fc0_plain,
         level_features_banded_plain,
@@ -1270,6 +1276,34 @@ def points_path(served, vox, pts_np, smi) -> dict:
         k6_pair = {"K6": [], "K4+matmul": []}
         for key in ("K6", "K4+matmul", "K4+matmul", "K6"):
             k6_pair[key].append(cuda_ms(k6_levels if key == "K6" else k4_matmul_levels))
+
+        # the same for K6 bf16, as query_fused runs it with bands set, and its
+        # two-call route, as the bf16 bands=None route runs it: K5 on the
+        # staged bf16 pyramid, then matmul_bf16 with the level's rounded fc0
+        # block
+        w0rs = ifnet.fc0_operands(None, torch.bfloat16)
+
+        def k6b_levels():
+            h = bias.expand(1, len(pts_np), h0).contiguous()
+            for (fl, d), w in zip(lv16, w0ks):
+                level_fc0_bf16_cuda(fl, w, *p, d, *args, out=h)
+            return h
+
+        def k5_matmul_levels():
+            h = bias
+            for (fl, d), w in zip(lv16, w0rs):
+                h = h + matmul_bf16(level_features_banded_cuda(fl, *p, d, *args), w)
+            return h
+
+        k6b_pair = {"K6bf16": [], "K5+matmul_bf16": []}
+        for key in ("K6bf16", "K5+matmul_bf16", "K5+matmul_bf16", "K6bf16"):
+            k6b_pair[key].append(cuda_ms(k6b_levels if key == "K6bf16" else k5_matmul_levels))
+        # K2 bf16's two-call route: the unfused bf16 sweep (slab_features +
+        # K3 bf16) over the served lattice, a row at a time (after k3_checks'
+        # profiled windows)
+        unfused_bf16_ms = cuda_ms(lambda: [ifnet.query_lattice(
+            levels, dims, 1, 1, row, torch.bfloat16, fused_tail=False)
+            for row in range(dims[0])], warmup=1, reps=3)
         k6_cm = cuda_ms(lambda: [level_fc0_cuda(fl, w, *p, d, *args)
                                  for (fl, d), w in zip(lv, w0ls)])
         timed = {
@@ -1315,6 +1349,12 @@ def points_path(served, vox, pts_np, smi) -> dict:
           f"calls a level): " + ", ".join(f"{t:.4f}" for t in k6_pair["K4+matmul"])
           + f" ms; K6 f32 on the channel-major flats (each staged in the wrapper) {k6_cm:.4f} ms",
           flush=True)
+    print(f"  K2's two-call route, the unfused bf16 sweep (slab_features + K3 bf16) over the "
+          f"whole lattice, {dims[0]} rows of slab_rows 1: {unfused_bf16_ms:.3f} ms", flush=True)
+    print(f"  K6 bf16 over the 6 levels as query_fused runs it (adding into one buffer), in "
+          f"turns: " + ", ".join(f"{t:.4f}" for t in k6b_pair["K6bf16"]) + " ms; K5 + "
+          f"matmul_bf16 over the same levels (the bf16 bands=None route, two calls a level): "
+          + ", ".join(f"{t:.4f}" for t in k6b_pair["K5+matmul_bf16"]) + " ms", flush=True)
     print(f"  K6 bf16 by level (C {[fl.shape[1] for fl, _ in lv]}): "
           + ", ".join(f"{t:.4f}" for t in k6b_levels) + " ms", flush=True)
     # the levels' gathered sectors and the coordinates in; (1, N, 7 * sumC)
@@ -1363,7 +1403,8 @@ def points_path(served, vox, pts_np, smi) -> dict:
                     "K3": k3["err"][torch.bfloat16], "K3f32": k3["err"][torch.float32]},
             "ms": {**timed, **k3["ms"]}, "bounds": {**bounds, **k3["bounds"]},
             "library": {**library, **k3["library_ms"]}, "K3 device_ms": k3["device_ms"],
-            "K3f32 device_ms": k3["device_ms_f32"], "K6 yardstick": k6_pair}
+            "K3f32 device_ms": k3["device_ms_f32"], "K6 yardstick": k6_pair,
+            "K6bf16 yardstick": k6b_pair, "K2 yardstick": unfused_bf16_ms}
 
 
 def k1_timings(inputs: dict, dims) -> dict:
@@ -2617,6 +2658,56 @@ def positive(values: dict, what: str, none_ok: bool = False) -> None:
     check(not bad, f"{what}: values not finite and positive: {bad}")
 
 
+def multiscene_phase(device: str = "cuda", scale_factor: int = 1, steps: int = 2) -> dict:
+    """Phase 24: quality.multiscene --stage all, the scene-scaling protocol
+    (README; sv3d_tpu_torch/quality/scaling.py) at full width on 4 train (one
+    batch of B=4), 1 val and 1 test scene of a tree made under WORK, with
+    K1's, K1b's and K2 bf16's counts set to 0 just before it and read just
+    after.  Checks that the artifact was written, that its figures are
+    finite, and on the card that the three kernels launched.  Few steps:
+    this protocol's field predicts no occupied point from about step 10 to
+    step 30-130 (train point IoU 0.125 at step 1, 0.000-0.002 at step 20 in
+    the three scaling arms on the H100), and a test mesh made then has no
+    vertices (20 steps did so on the card).  Returns the artifact and the
+    counts."""
+    from sv3d_tpu_torch.ops.cuda.sweep import lattice_sweep_bf16_cuda
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_cuda
+    from sv3d_tpu_torch.quality import multiscene
+
+    root, exp, out = WORK / "multiscene_tree", WORK / "multiscene_exp", WORK / "multiscene.json"
+    for path in (root, exp):
+        shutil.rmtree(path, ignore_errors=True)
+    out.unlink(missing_ok=True)
+    counters = {"K1": scatter_voxels_cuda, "K1b": scatter_voxels_bwd_cuda,
+                "K2": lattice_sweep_bf16_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    multiscene.main([
+        "--root", str(root), "--exp", str(exp), "--out", str(out), "--device", device,
+        "--n_train", "4", "--n_val", "1", "--n_test", "1", "--use_unet",
+        "--steps", str(steps), "--val_every", str(max(steps // 2, 1)),
+        "--num_samples", "2000", "--eval_points", "20000", "--data_workers", "4",
+        "--scale_factor", str(scale_factor)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in counters.items()}
+    check(out.is_file(), f"quality.multiscene wrote no artifact at {out}")
+    result = json.loads(out.read_text())
+    figures = [result[k] for k in ("iou", "chamfer_l2", "normals")] + [
+        s[k] for s in result["per_scene"] for k in ("iou", "chamfer_l2", "normals")]
+    check(len(result["per_scene"]) == 1 and result["n_failed"] == 0
+          and all(isinstance(v, (int, float)) and math.isfinite(v) for v in figures),
+          f"quality.multiscene's figures are not all finite: {result}")
+    if device == "cuda":
+        check(all(n > 0 for n in launches.values()),
+              f"the multi-scene path did not launch each of K1, K1b and K2 bf16: {launches}")
+    print(f"phase 24: quality.multiscene --stage all, {steps} steps on {result['device']}: "
+          f"iou {result['iou']}, chamfer_l2 {result['chamfer_l2']}, normals "
+          f"{result['normals']}, train {result['train_seconds']} s; launches {launches}",
+          flush=True)
+    return {"result": result, "launches": launches}
+
+
 def bench_kernel_checks(device: str, scale_factor: int) -> dict:
     """The kernels of the bench's training paths against their plain
     versions at the shapes those paths give them (measure_step's ops and its
@@ -3451,6 +3542,11 @@ def main() -> int:
     bench = bench_phase()
     print(f"phase 23 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
+    # -- phase 24: the multi-scene quality path at full width -----------------------------
+    t_phase = time.perf_counter()
+    multi = multiscene_phase()
+    print(f"phase 24 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
@@ -3499,7 +3595,8 @@ def main() -> int:
         ("K8", "level_grad_vol", "point_query.cu", "sv3d_tpu/ops/pallas/point_query_bwd.py:365"),
     ):
         n, err, ms, plain = measured[key]
-        n += w2_total.get(key, 0) + sum(c.get(key, 0) for c in bench["launches"].values())
+        n += (w2_total.get(key, 0) + sum(c.get(key, 0) for c in bench["launches"].values())
+              + multi["launches"].get(key, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": f"sv3d_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
@@ -3518,6 +3615,15 @@ def main() -> int:
         if key == "K6":  # a two-call route, not a library call: library_ms stays null
             kernels[-1]["yardstick_ms"] = pp["K6 yardstick"]["K4+matmul"]
             kernels[-1]["yardstick"] = "K4 + f32 torch.matmul over the same levels, in turns"
+        if key == "K6bf16":  # a two-call route, not a library call: library_ms stays null
+            kernels[-1]["yardstick_ms"] = pp["K6bf16 yardstick"]["K5+matmul_bf16"]
+            kernels[-1]["route_ms"] = pp["K6bf16 yardstick"]["K6bf16"]
+            kernels[-1]["yardstick"] = ("K5 + matmul_bf16 over the same six levels, in turns "
+                                        "with K6 bf16 as query_fused runs it (route_ms)")
+        if key == "K2":  # a two-call route, not a library call: library_ms stays null
+            kernels[-1]["yardstick_ms"] = pp["K2 yardstick"]
+            kernels[-1]["yardstick"] = ("the unfused bf16 sweep: slab_features + K3 bf16, the "
+                                        "lattice a row at a time")
         if key in registers:
             kernels[-1]["registers"], kernels[-1]["spill_bytes"] = registers[key]
         if key == "K1":
@@ -3557,8 +3663,8 @@ def main() -> int:
             if key in counts:
                 kernels[-1]["launches_by_path"][path] = sum(counts[key])
                 kernels[-1].setdefault("world2_by_rank", {})[path] = counts[key]
-        # phase 23's bench paths
-        for path, counts in bench["launches"].items():
+        # phase 23's bench paths and phase 24's multi-scene path
+        for path, counts in [*bench["launches"].items(), ("multiscene", multi["launches"])]:
             if key in counts:
                 kernels[-1].setdefault("launches_by_path", {})[path] = counts[key]
         if key == "K2":  # the bench's lattice, res_increase 2, in one launch

@@ -12,6 +12,7 @@ from sv3d_tpu_torch.geometry.frustum import (
 )
 from sv3d_tpu_torch.geometry.transforms import (
     depthmap_to_gridspace,
+    make_3d_grid,
     norm_grid_space,
     unnorm_grid_space,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "generate_frustum",
     "generate_frustum_volume",
     "depthmap_to_gridspace",
+    "make_3d_grid",
     "norm_grid_space",
     "unnorm_grid_space",
 ]

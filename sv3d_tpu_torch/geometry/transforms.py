@@ -41,3 +41,15 @@ def unnorm_grid_space(pc: torch.Tensor, dims) -> torch.Tensor:
     """[-0.5, 0.5]^3 -> grid space."""
     d = torch.tensor(dims, dtype=pc.dtype, device=pc.device)
     return pc * d + d / 2.0
+
+
+def make_3d_grid(bb_min, bb_max, shape, res_increase: int = 1, device=None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Dense lattice of query points over a bounding box: (prod(shape) *
+    res_increase^3, 3) points whose coordinate i is linspace(bb_min[i],
+    bb_max[i], shape[i] * res_increase), row-major over (axis0, axis1,
+    axis2) (reference model/ifnet.py:202-212)."""
+    axes = [torch.linspace(float(bb_min[i]), float(bb_max[i]), int(shape[i]) * res_increase,
+                           device=device, dtype=dtype) for i in range(3)]
+    g0, g1, g2 = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([g0.reshape(-1), g1.reshape(-1), g2.reshape(-1)], dim=1)

@@ -1,5 +1,5 @@
 """RGB image loading and the input transforms used by the datasets (a copy
-of the part of sv3d_tpu/io/image.py that the port uses).
+of sv3d_tpu/io/image.py).
 
 Replaces the torchvision transform stack of the reference
 (dataset/scene_net_data.py:13-20,34-45: SquarePad + Resize + ToTensor +
@@ -37,3 +37,8 @@ def square_pad_resize(img: np.ndarray, size: int) -> np.ndarray:
     resized = pil.resize((size, size), Image.BILINEAR)
     return np.asarray(resized, dtype=np.float32) / 255.0
 
+
+def normalize_rgb(img: np.ndarray) -> np.ndarray:
+    """(x - 0.5) / 0.5 channel normalization, CHW output
+    (dataset/scene_net_data.py:41-44)."""
+    return np.moveaxis((img - 0.5) / 0.5, -1, 0).astype(np.float32)

@@ -1,5 +1,5 @@
-"""Binary .df distance-field reader and writer (a copy of the part of
-sv3d_tpu/io/volume.py that the port uses).
+"""Binary .df distance-field reader and writer, and the semantics volume
+reader (a copy of sv3d_tpu/io/volume.py).
 
 Matches reference data_processing/volume_reader.py:20-62: a .df file is
 3 x uint64 dims followed by float32 data in Fortran order.
@@ -44,3 +44,12 @@ def down_sample(df: np.ndarray, factor: int = 2) -> np.ndarray:
         .astype(df.dtype)
     )
 
+
+def read_semantics(path: str | Path):
+    """A .sem volume (3 x uint64 dims, then uint16 labels in Fortran order)
+    -> (per-voxel label, per-voxel instance): label * 1000 + instance."""
+    raw = Path(path).read_bytes()
+    dx, dy, dz = struct.unpack_from("<3Q", raw, 0)
+    sem = np.frombuffer(raw, dtype=np.uint16, count=dx * dy * dz, offset=24)
+    sem = sem.reshape((dx, dy, dz), order="F")
+    return sem / 1000, sem % 1000

@@ -13,8 +13,7 @@ import torch
 from torch import nn
 
 from sv3d_tpu_torch.config import ProjectionConfig
-from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda
-from sv3d_tpu_torch.ops.voxelize import gaussian_kernels_1d, smooth_voxels
+from sv3d_tpu_torch.ops.voxelize import voxelize
 
 
 class Projection(nn.Module):
@@ -28,7 +27,4 @@ class Projection(nn.Module):
     def forward(self, point_cloud: torch.Tensor) -> torch.Tensor:
         """point_cloud: (B, N, 3) in normed grid space [-0.5, 0.5] ->
         (B, D0, D1, D2, 1) smoothed occupancy grid in [0, 1]."""
-        cfg = self.config
-        vox = scatter_voxels_cuda(point_cloud, cfg.dims)
-        smoothed = smooth_voxels(vox, gaussian_kernels_1d(self.sigma, cfg.kernel_size))
-        return smoothed[..., None]
+        return voxelize(point_cloud, self.config.dims, self.sigma, self.config.kernel_size)

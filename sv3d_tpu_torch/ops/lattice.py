@@ -82,6 +82,15 @@ def axis_taps(r: int, g: int, align_corners: bool, displacement: float = 0.0):
     )
 
 
+def resize_volume_cm(vol: torch.Tensor, m0, m1, m2) -> torch.Tensor:
+    """Separable interpolation matrices (r_i, g_i) applied to a channel-major
+    volume (B, C, g0, g1, g2) -> (B, C, r0, r1, r2): three contractions."""
+    m0, m1, m2 = (torch.as_tensor(m, dtype=vol.dtype, device=vol.device) for m in (m0, m1, m2))
+    v = torch.einsum("ai,bcijk->bcajk", m0, vol)
+    v = torch.einsum("xj,bcajk->bcaxk", m1, v)
+    return torch.einsum("yk,bcaxk->bcaxy", m2, v)
+
+
 def displaced_resizes_cm(vol: torch.Tensor, mats0, mats1, mats2) -> list:
     """All 7 displaced resizes of a channel-major (B, C, g0, g1, g2) volume,
     sharing partial products.

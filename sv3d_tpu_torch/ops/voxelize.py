@@ -136,3 +136,15 @@ def smooth_voxels(voxels: torch.Tensor, kernels: list) -> torch.Tensor:
     x = torch.einsum("ij,bkjl->bkil", m1, x)
     x = torch.einsum("ij,bklj->bkli", m2, x)
     return torch.clamp(x, 0.0, 1.0)
+
+
+def voxelize(points: torch.Tensor, dims: tuple, sigma: torch.Tensor,
+             kernel_size: tuple) -> torch.Tensor:
+    """Differentiable voxelization: the trilinear scatter (K1 and its
+    backward K1b on a CUDA tensor, the plain scatter on a CPU one), then the
+    learnable Gaussian smoothing (reference model/projection.py:119-122).
+    Returns the (B, D0, D1, D2, 1) channels-last occupancy grid."""
+    from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_cuda
+
+    vox = scatter_voxels_cuda(points, dims)
+    return smooth_voxels(vox, gaussian_kernels_1d(sigma, kernel_size))[..., None]

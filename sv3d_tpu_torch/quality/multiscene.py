@@ -76,7 +76,7 @@ def build_data(root: Path, counts: dict, scale: int, num_samples: int, seed: int
     # scenes are seeded per index, so growing a tree (or resuming an
     # interrupted data stage) renders and processes only the missing scenes
     names = generate(root, total, bad_scenes=0, seed=seed, splitsdir="synth",
-                     skip_existing=True)
+                     skip_existing=True, num_workers=num_workers)
     processed, quarantined = process_sample_pipeline(
         root / "raw", "synth", down_scale_factor=scale, num_samples=num_samples, seed=seed,
         processed_root=root / "processed" / "synth", num_workers=num_workers,

@@ -171,18 +171,32 @@ def scene_distance_field(boxes) -> np.ndarray:
 _RAW_FILES = ("distance.exr", "rgb.png", "distance_field.df", "campose.npy")
 
 
-def generate(
-    out: Path, n_scenes: int, bad_scenes: int = 0, seed: int = 0,
-    splitsdir: str = "synth", skip_existing: bool = False,
-):
-    """Render scenes 0 .. n_scenes + bad_scenes - 1 (the last bad_scenes of
-    them beyond the frustum) under out; returns their "scene/view" names.
-    skip_existing keeps a scene whose raw files all exist."""
+def _render(scene_dir: Path, seed: int, i: int, bad: bool) -> None:
+    """Render scene i (seeded as SeedSequence([seed, i])) into scene_dir."""
     from PIL import Image
 
     from sv3d_tpu_torch.io.exr import write_exr
     from sv3d_tpu_torch.io.volume import write_df
 
+    rng = np.random.default_rng(np.random.SeedSequence([seed, i]))
+    boxes = make_scene_boxes(rng, bad=bad)
+    scene_dir.mkdir(parents=True, exist_ok=True)
+    distance, rgb = render_scene(boxes)
+    write_exr(scene_dir / "distance.exr", {"R": distance})
+    Image.fromarray(rgb).save(scene_dir / "rgb.png")
+    write_df(scene_dir / "distance_field.df", scene_distance_field(boxes))
+    np.save(scene_dir / "campose.npy", np.eye(4, dtype=np.float64))
+
+
+def generate(
+    out: Path, n_scenes: int, bad_scenes: int = 0, seed: int = 0,
+    splitsdir: str = "synth", skip_existing: bool = False, num_workers: int = 0,
+):
+    """Render scenes 0 .. n_scenes + bad_scenes - 1 (the last bad_scenes of
+    them beyond the frustum) under out; returns their "scene/view" names.
+    skip_existing keeps a scene whose raw files all exist.  num_workers > 1
+    renders over that many spawned processes (each scene is seeded by its
+    index, so the files are the same)."""
     raw_root = out / "raw" / splitsdir
     raw_root.mkdir(parents=True, exist_ok=True)
     # datasets read <out>/intrinsics.txt; process_sample_pipeline reads
@@ -190,25 +204,25 @@ def generate(
     (out / "intrinsics.txt").write_text(INTRINSICS_TEXT)
     (out / "raw" / "intrinsics.txt").write_text(INTRINSICS_TEXT)
 
-    names = []
+    names, todo = [], []
     for i in range(n_scenes + bad_scenes):
-        bad = i >= n_scenes
         scene_dir = raw_root / f"{i:03d}" / "00000"
         names.append(f"{i:03d}/00000")
         # scene i is seeded as SeedSequence([seed, i]) independent of n_scenes,
         # so a scene that exists on disk is byte-identical to what a re-render
         # would produce — growing a tree only pays for the NEW scenes
-        if skip_existing and all((scene_dir / f).exists() for f in _RAW_FILES):
-            continue
-        rng = np.random.default_rng(np.random.SeedSequence([seed, i]))
-        boxes = make_scene_boxes(rng, bad=bad)
-        scene_dir.mkdir(parents=True, exist_ok=True)
+        if not (skip_existing and all((scene_dir / f).exists() for f in _RAW_FILES)):
+            todo.append((scene_dir, seed, i, i >= n_scenes))
+    if num_workers > 1 and len(todo) > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
 
-        distance, rgb = render_scene(boxes)
-        write_exr(scene_dir / "distance.exr", {"R": distance})
-        Image.fromarray(rgb).save(scene_dir / "rgb.png")
-        write_df(scene_dir / "distance_field.df", scene_distance_field(boxes))
-        np.save(scene_dir / "campose.npy", np.eye(4, dtype=np.float64))
+        with ProcessPoolExecutor(max_workers=num_workers,
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            list(ex.map(_render, *zip(*todo)))
+    else:
+        for args in todo:
+            _render(*args)
     return names
 
 

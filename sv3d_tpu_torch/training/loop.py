@@ -197,24 +197,6 @@ class BaseTrainer:
             vis_dir.mkdir(parents=True, exist_ok=True)
             self.visualize(state, fallback_batch, vis_dir)
 
-    def _profiler(self):
-        """torch.profiler over the first TRACE_STEPS steps (--profiler
-        advanced); the trace lands in <exp>/profile/trace.json."""
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
-        prof.__enter__()
-        return prof
-
-    def _stop_profiler(self, prof):
-        prof.__exit__(None, None, None)
-        if not self.is_main:
-            return
-        out = self.exp_dir / "profile"
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace.json"))
-
     def fit(self, max_steps: Optional[int] = None):
         cfg = self.config
         state = self.build_state()
@@ -225,8 +207,14 @@ class BaseTrainer:
 
         train_loader = self._loader(self.train_dataset(), shuffle=True, drop_last=True)
         val_loader_fn = lambda: self._loader(self.val_dataset(), shuffle=False, drop_last=False)
+        if len(train_loader) == 0:
+            # the JAX package's loop runs max_epoch empty epochs and returns
+            # the untrained state
+            raise ValueError(f"the train split holds {len(train_loader.dataset)} samples, "
+                             f"fewer than a batch of {cfg.batch_size} (the last short batch "
+                             "is dropped): no step would run")
 
-        steps_per_epoch = max(len(train_loader), 1)
+        steps_per_epoch = len(train_loader)
         # PL-1.1 val_check_interval: a float in (0, 1] is a fraction of the
         # training epoch, an integer > 1 means every N training batches
         if cfg.val_check_interval > 1:
@@ -239,10 +227,16 @@ class BaseTrainer:
         if cfg.sanity_steps > 0:
             self.validate(state, val_loader_fn(), max_batches=cfg.sanity_steps)
 
-        from sv3d_tpu_torch.utils.profiling import StepTimer
+        from sv3d_tpu_torch.utils.profiling import StepTimer, trace
 
         timer = StepTimer() if cfg.profiler else None
-        prof = self._profiler() if cfg.profiler == "advanced" else None
+        # torch.profiler over the first TRACE_STEPS steps; the trace lands in
+        # <exp>/profile/trace.json
+        prof = None
+        if cfg.profiler == "advanced":
+            prof = trace(self.exp_dir / "profile", cuda=self.device.type == "cuda",
+                         write=self.is_main)
+            prof.__enter__()
 
         last_val = {}
         # windowed throughput, validation excluded
@@ -258,7 +252,7 @@ class BaseTrainer:
                         metrics = self.train_step(state, batch, self.generator)
                     self.global_step += 1
                     if prof is not None and self.global_step >= TRACE_STEPS:
-                        self._stop_profiler(prof)
+                        prof.__exit__(None, None, None)
                         prof = None
                     if self.global_step % 10 == 0 or self.global_step == 1:
                         metrics = {k: float(v) for k, v in metrics.items()}
@@ -284,6 +278,6 @@ class BaseTrainer:
             return state
         finally:
             if prof is not None:
-                self._stop_profiler(prof)
+                prof.__exit__(None, None, None)
             if timer and self.is_main:
                 timer.dump(self.exp_dir / "profile_simple.json")

@@ -1,6 +1,6 @@
-"""Step timer for --profiler simple (a copy of StepTimer from
-sv3d_tpu/utils/profiling.py; the reference delegates to Lightning's
---profiler flag, SURVEY.md §5)."""
+"""Profiling utilities (port of sv3d_tpu/utils/profiling.py; the reference
+delegates to Lightning's --profiler flag, SURVEY.md §5): a step timer for
+--profiler simple and torch.profiler traces for --profiler advanced."""
 
 from __future__ import annotations
 
@@ -40,3 +40,20 @@ class StepTimer:
     def dump(self, path: str | Path):
         Path(path).write_text(json.dumps(self.summary(), indent=2))
 
+
+@contextmanager
+def trace(log_dir: str | Path, cuda: bool = False, write: bool = True):
+    """torch.profiler trace context (the 'advanced' profiler): the host's
+    activity, and the card's with cuda; on exit, with write, the trace goes
+    to <log_dir>/trace.json (chrome://tracing or Perfetto load it).  Yields
+    the profiler."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    if write:
+        Path(log_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))

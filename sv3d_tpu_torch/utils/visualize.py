@@ -1,6 +1,5 @@
-"""Visualization artifact dumps (a copy of the part of
-sv3d_tpu/utils/visualize.py that the port uses; reference util/visualize.py
-rebuild).
+"""Visualization artifact dumps (a copy of sv3d_tpu/utils/visualize.py;
+reference util/visualize.py rebuild).
 
 All host-side: isosurface meshes via the native marching cubes, occupied-voxel
 box meshes, point lists, and depth map png/exr dumps.
@@ -12,7 +11,7 @@ from pathlib import Path
 
 import numpy as np
 
-from sv3d_tpu_torch.io.mesh import save_obj
+from sv3d_tpu_torch.io.mesh import load_obj, save_obj
 from sv3d_tpu_torch.native import marching_cubes
 
 # unit cube (8 verts, 12 tris) for voxel box rendering
@@ -87,3 +86,12 @@ def visualize_depthmap(depthmap: np.ndarray, output_path: str | Path, flip: bool
     Image.fromarray(rescaled).save(str(output_path) + ".png")
     write_exr(str(output_path) + ".exr", d)
 
+
+def scale_mesh_to_unit(path: str | Path, dims=(139, 104, 112)) -> Path:
+    """Scale a voxel-space mesh by 1/dims into <path without .obj>_scaled.obj
+    (reference util/visualize.py:51-59); returns that path."""
+    mesh = load_obj(path)
+    mesh.apply_scale(1.0 / np.asarray(dims, dtype=np.float64))
+    out = Path(str(path)[:-4] + "_scaled.obj")
+    mesh.export(out)
+    return out

@@ -66,7 +66,9 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.quality.compare_precision", "sv3d_tpu_torch.parallel",
         "sv3d_tpu_torch.parallel.mesh", "sv3d_tpu_torch.parallel.multihost",
         "sv3d_tpu_torch.bench", "sv3d_tpu_torch.bench.timing", "sv3d_tpu_torch.bench.headline",
-        "sv3d_tpu_torch.bench.measure_step",
+        "sv3d_tpu_torch.bench.measure_step", "sv3d_tpu_torch.quality.scaling",
+        "sv3d_tpu_torch.io", "sv3d_tpu_torch.ops", "sv3d_tpu_torch.data",
+        "sv3d_tpu_torch.inference", "sv3d_tpu_torch.training", "sv3d_tpu_torch.utils",
     ]
     for m in modules:
         importlib.import_module(m)

@@ -160,6 +160,16 @@ def test_a_tree_without_its_stamp_is_refused(tmp_path):
         multiscene.main(["--root", str(root), "--stage", "train", "--device", "cpu"])
 
 
+def test_a_train_split_smaller_than_a_batch_is_refused(tmp_path):
+    """3 train scenes at B=4 make no batch (the loader drops a short last
+    batch): the fit raises, where the JAX package's loop runs its epochs
+    empty and returns the untrained state."""
+    argv = _common(tmp_path, "--batch_size", "4")
+    multiscene.main([*argv, "--stage", "data"])
+    with pytest.raises(ValueError, match="fewer than a batch of 4"):
+        multiscene.main([*argv, "--stage", "train"])
+
+
 def test_overfit_runs_in_both_precisions(tmp_path):
     """compare_precision: a few steps of quality.overfit at scale_factor 8,
     end to end, at precision 32 and 16 on one synthetic scene (made once,

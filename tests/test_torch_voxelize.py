@@ -6,6 +6,7 @@ another order; atol 2e-6 is the JAX package's own bound between its XLA
 scatter and its Pallas kernel (tests/test_pallas_voxelize.py).  Smoothing is
 three f32 contractions on both sides: atol 1e-6."""
 
+import importlib
 import runpy
 from pathlib import Path
 
@@ -24,7 +25,9 @@ from sv3d_tpu.ops.pallas.voxelize import scatter_voxels_pallas
 from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.convert import from_flax
 from sv3d_tpu_torch.models.projection import Projection
-from sv3d_tpu_torch.ops import voxelize as tv
+# the module: sv3d_tpu_torch.ops exports the function voxelize under its
+# name, as sv3d_tpu.ops does
+tv = importlib.import_module("sv3d_tpu_torch.ops.voxelize")
 from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_cuda
 
 torch.set_num_threads(1)
