@@ -1,0 +1,9 @@
+"""idle_share.mesh: the share of the traced window in % in which no
+operation ran on the device (1 - the union of the device's activity
+intervals over the window).  Layer: device.  Moves mesh_s."""
+
+
+def read(ctx):
+    if not ctx.trace or ctx.trace["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.window_s)
