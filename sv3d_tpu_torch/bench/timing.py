@@ -5,8 +5,9 @@ Host clock: timed_runs (each run ends in torch.cuda.synchronize(), the time
 a caller waits for the result) and host_ms (the time a call takes to
 return, the device synchronised outside the timed region).  Device clock:
 profile_calls and device_ms (torch.profiler's CUDA activity by kernel
-name), window_kernels (the kernels one profiled window holds, beside a
-launch counter).  device_info names the card as nvidia-smi does.
+name, user annotations left out by device_work), window_kernels (the
+kernels one profiled window holds, beside a launch counter).  device_info
+names the card as nvidia-smi does.
 """
 
 from __future__ import annotations
@@ -83,6 +84,19 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+def device_work(averages) -> list:
+    """The events of a profile's key_averages() that are the device's own
+    work (kernels, copies, sets): CUDA activity with device time, less the
+    user annotations that the profiler mirrors on the device's timeline
+    (record_function ranges: the program's spans, the schedule's
+    ProfilerStep#), which would count the time of the work under them
+    again."""
+    return [e for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")]
+
+
 def profile_calls(fn, steps: int):
     """torch.profiler over steps warm calls of fn (two warm-up calls first).
     Returns (profile, host-clock ms a call, device kernel ms a call, kernel
@@ -100,9 +114,7 @@ def profile_calls(fn, steps: int):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     # the kernels themselves (device events), not the CPU ops that launched them
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    events = sorted(kernels, key=dev_us, reverse=True)
+    events = sorted(device_work(prof.key_averages()), key=dev_us, reverse=True)
     return prof, wall, sum(dev_us(e) for e in events) / 1e3 / steps, events
 
 
@@ -148,8 +160,5 @@ def window_kernels(fn, calls: int = 10, counter=None) -> tuple:
             prof.step()
     if len(done) != 1:
         raise RuntimeError(f"window_kernels: {len(done)} profiled windows came back, not 1")
-    # the schedule's step annotations show on the device too
-    kernels = {e.key: e.count for e in done[0]
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-               and not e.key.startswith("ProfilerStep")}
+    kernels = {e.key: e.count for e in device_work(done[0])}
     return kernels, None if counter is None else counter() - start

@@ -36,6 +36,7 @@ from pathlib import Path
 import numpy as np
 
 from sv3d_tpu_torch.data.splits import read_split
+from sv3d_tpu_torch.utils.profiling import count, span
 
 # subsampling draws one set per sigma, concatenated in this order (reference
 # scene_net_data.py:66: `for sigma in ['0.10', '0.01']`)
@@ -84,7 +85,7 @@ class _SplitDataset:
             # single-core host's EXR/npz decode throttled the TPU step loop
             cache_items = min(max(n_unique, 64), 512)
         self._lock = threading.Lock()
-        self._load_raw = functools.lru_cache(maxsize=cache_items)(self._load_raw_impl)
+        self._load_raw = functools.lru_cache(maxsize=cache_items)(self._decode)
 
     def __len__(self):
         return len(self.items)
@@ -101,7 +102,14 @@ class _SplitDataset:
         # lru_cache is not atomic under threads; a lock keeps the decode from
         # running num_workers times for the same (hot, repeated) item
         with self._lock:
+            count("data.fetches")
             return self._load_raw(item)
+
+    def _decode(self, item):
+        """The decode cache's miss path."""
+        count("data.cache_misses")
+        with span("data.decode"):
+            return self._load_raw_impl(item)
 
     def raw_dir(self, item) -> Path:
         return self.datasetdir / "raw" / self.splitsdir / item

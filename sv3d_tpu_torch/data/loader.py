@@ -22,8 +22,11 @@ from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
+
+from sv3d_tpu_torch.utils.profiling import span
 
 
 def collate(samples: list) -> dict:
@@ -114,12 +117,18 @@ class DataLoader:
         get = getattr(self.dataset, "get", None)
         return get(idx, epoch) if get is not None else self.dataset[idx]
 
+    def _collate(self, items: list) -> dict:
+        """One yielded batch (span data.batch): its items, each a call that
+        fetches it or reads its prefetched future, and collate."""
+        with span("data.batch"):
+            return collate([item() for item in items])
+
     def __iter__(self):
         epoch = self._epoch
         self._epoch += 1
         if self.num_workers <= 0:
             for rows in self._batches(epoch):
-                yield collate([self._fetch(i, epoch) for i in rows])
+                yield self._collate([partial(self._fetch, i, epoch) for i in rows])
             return
         # threaded fetch with bounded look-ahead: keep `prefetch` extra
         # batches' worth of item futures in flight beyond the one being
@@ -129,6 +138,6 @@ class DataLoader:
             for rows in self._batches(epoch):
                 in_flight.append([pool.submit(self._fetch, i, epoch) for i in rows])
                 if len(in_flight) > self.prefetch:
-                    yield collate([f.result() for f in in_flight.popleft()])
+                    yield self._collate([f.result for f in in_flight.popleft()])
             while in_flight:
-                yield collate([f.result() for f in in_flight.popleft()])
+                yield self._collate([f.result for f in in_flight.popleft()])

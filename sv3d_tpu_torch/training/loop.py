@@ -24,6 +24,7 @@ trainer builds its model with config.dtype).
 
 from __future__ import annotations
 
+import json
 import random
 import time
 from pathlib import Path
@@ -43,19 +44,24 @@ from sv3d_tpu_torch.parallel import (
 )
 from sv3d_tpu_torch.training.checkpoint import CheckpointManager, load_state_from_checkpoint
 from sv3d_tpu_torch.training.logging import MetricLogger
+from sv3d_tpu_torch.utils import profiling
 
 #: --profiler advanced traces the first this many train steps
 TRACE_STEPS = 20
+#: --profiler folds the spans into its summary every this many train steps,
+#: so that a long run holds a bounded number of them
+SUMMARY_STEPS = 1000
 
 
 def to_device(batch: dict, device, keys) -> dict:
     """The batch with its entries named in keys as float32 tensors on
     device; the others (names, mesh paths, flags) stay on the host."""
-    out = dict(batch)
-    for k in keys:
-        if k in batch:
-            out[k] = torch.as_tensor(np.asarray(batch[k], np.float32), device=device)
-    return out
+    with profiling.span("train.to_device"):
+        out = dict(batch)
+        for k in keys:
+            if k in batch:
+                out[k] = torch.as_tensor(np.asarray(batch[k], np.float32), device=device)
+        return out
 
 
 class BaseTrainer:
@@ -227,15 +233,18 @@ class BaseTrainer:
         if cfg.sanity_steps > 0:
             self.validate(state, val_loader_fn(), max_batches=cfg.sanity_steps)
 
-        from sv3d_tpu_torch.utils.profiling import StepTimer, trace
-
-        timer = StepTimer() if cfg.profiler else None
-        # torch.profiler over the first TRACE_STEPS steps; the trace lands in
-        # <exp>/profile/trace.json
+        # --profiler (simple or advanced): tracing on for the run, its
+        # per-span summary in <exp>/profile_simple.json; advanced also runs
+        # torch.profiler over the first TRACE_STEPS steps, the trace with the
+        # program's spans in <exp>/profile/trace.json
+        traced = profiling.enabled() if cfg.profiler else None
+        summ = None
         prof = None
+        if traced is not None:
+            traced.__enter__()
         if cfg.profiler == "advanced":
-            prof = trace(self.exp_dir / "profile", cuda=self.device.type == "cuda",
-                         write=self.is_main)
+            prof = profiling.trace(self.exp_dir / "profile", cuda=self.device.type == "cuda",
+                                   write=self.is_main)
             prof.__enter__()
 
         last_val = {}
@@ -245,15 +254,14 @@ class BaseTrainer:
         try:
             for epoch in range(cfg.max_epoch):
                 for batch in train_loader:
-                    if timer:
-                        with timer.section("train_step"):
-                            metrics = self.train_step(state, batch, self.generator)
-                    else:
-                        metrics = self.train_step(state, batch, self.generator)
+                    metrics = self.train_step(state, batch, self.generator)
                     self.global_step += 1
                     if prof is not None and self.global_step >= TRACE_STEPS:
                         prof.__exit__(None, None, None)
                         prof = None
+                    if traced is not None and self.global_step % SUMMARY_STEPS == 0:
+                        summ = profiling.summary(profiling.records(), summ)
+                        profiling.reset()
                     if self.global_step % 10 == 0 or self.global_step == 1:
                         metrics = {k: float(v) for k, v in metrics.items()}
                         metrics["steps_per_sec"] = (self.global_step - log_step0) / max(
@@ -279,5 +287,8 @@ class BaseTrainer:
         finally:
             if prof is not None:
                 prof.__exit__(None, None, None)
-            if timer and self.is_main:
-                timer.dump(self.exp_dir / "profile_simple.json")
+            if traced is not None:
+                traced.__exit__(None, None, None)
+                if self.is_main:
+                    summ = profiling.summary(profiling.records(), summ)
+                    (self.exp_dir / "profile_simple.json").write_text(json.dumps(summ, indent=2))

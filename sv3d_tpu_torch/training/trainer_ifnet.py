@@ -40,6 +40,7 @@ from sv3d_tpu_torch.parallel import shard_batch
 from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
 from sv3d_tpu_torch.training.state import TrainState
+from sv3d_tpu_torch.utils.profiling import span
 
 #: the batch entries that go to the device (the GT distance field stays on
 #: the host for the meshing)
@@ -66,11 +67,14 @@ def train_step(state: TrainState, batch: dict, mesh=None) -> dict:
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
-    loss = ce_loss(model(batch["input"], batch["points"]), batch["occupancies"])
-    loss.backward()
-    if mesh is not None:
-        mesh.mean_gradients(model.parameters(), divisor=mesh.dp)
-    opt.step()
+    with span("train.forward", device=True):
+        loss = ce_loss(model(batch["input"], batch["points"]), batch["occupancies"])
+    with span("train.backward", device=True):
+        loss.backward()
+    with span("train.optimizer", device=True):
+        if mesh is not None:
+            mesh.mean_gradients(model.parameters(), divisor=mesh.dp)
+        opt.step()
     state.step += 1
     return {"train_ce_loss": _global(loss.detach(), mesh)}
 
@@ -110,7 +114,8 @@ class ImplicitRefinementTrainer(BaseTrainer):
         return to_device(batch, self.device, TENSORS)
 
     def train_step(self, state, batch, generator):
-        return train_step(state, self._device_batch(batch), self.mesh)
+        with span("train.step"):
+            return train_step(state, self._device_batch(batch), self.mesh)
 
     def eval_step(self, state, batch):
         return eval_step(state, self._device_batch(batch), self.mesh)

@@ -35,6 +35,7 @@ from sv3d_tpu_torch.preprocessing.occupancies import determine_occupancy
 from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
 from sv3d_tpu_torch.training.state import TrainState
+from sv3d_tpu_torch.utils.profiling import span
 
 #: the batch entries that go to the device
 TENSORS = ("rgb", "depthmap_target", "points", "occupancies")
@@ -146,13 +147,16 @@ def train_step(state: TrainState, batch: dict, config: Config, subsample_idx=Non
     sums: dict = {}
     for i, mb in enumerate(_microbatches(batch, accum)):
         idx = None if subsample_idx is None else subsample_idx[i]
-        loss, metrics, _ = scene_forward(model, config, mb, idx, label_fn, mesh)
-        (loss / accum).backward()
+        with span("train.forward", device=True):
+            loss, metrics, _ = scene_forward(model, config, mb, idx, label_fn, mesh)
+        with span("train.backward", device=True):
+            (loss / accum).backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
-    if mesh is not None:
-        mesh.mean_gradients(model.parameters())
-    opt.step()
+    with span("train.optimizer", device=True):
+        if mesh is not None:
+            mesh.mean_gradients(model.parameters())
+        opt.step()
     state.step += 1
     return _prefixed("train", {k: v / accum for k, v in sums.items()})
 
@@ -233,14 +237,15 @@ class SceneNetTrainer(BaseTrainer):
         and mirror back (p0 -> A - p0) before the query: occupancy is
         mirror-invariant, occ_mirrored(p) == occ(A - p).  Under a mesh the
         batch holds this rank's rows, their meshes and their flags."""
-        pc_np = pc.detach().cpu().numpy()
-        flipped = batch.get("flipped")
-        if flipped is not None and (np.asarray(flipped) > 0.5).any():
-            mask = np.asarray(flipped) > 0.5
-            pc_np = pc_np.copy()
-            pc_np[mask, :, 0] = self._flip_x_about() - pc_np[mask, :, 0]
-        _, occ = determine_occupancy(batch["mesh"], pc_np, dims=self.config.dims)
-        return torch.from_numpy(occ).to(pc.device)
+        with span("train.label_cloud"):
+            pc_np = pc.detach().cpu().numpy()
+            flipped = batch.get("flipped")
+            if flipped is not None and (np.asarray(flipped) > 0.5).any():
+                mask = np.asarray(flipped) > 0.5
+                pc_np = pc_np.copy()
+                pc_np[mask, :, 0] = self._flip_x_about() - pc_np[mask, :, 0]
+            _, occ = determine_occupancy(batch["mesh"], pc_np, dims=self.config.dims)
+            return torch.from_numpy(occ).to(pc.device)
 
     def _subsample(self, batch, generator, count: int):
         """count index arrays of config.subsample_points projected pixels, or
@@ -254,9 +259,10 @@ class SceneNetTrainer(BaseTrainer):
     def train_step(self, state, batch, generator):
         # every rank draws the same subsample from its copy of the seeded
         # generator, so each uses the indices of the single-process run
-        idx = self._subsample(batch, generator, max(int(self.config.accum_steps), 1))
-        return train_step(state, to_device(batch, self.device, TENSORS), self.config,
-                          idx, self.label_cloud, self.mesh)
+        with span("train.step"):
+            idx = self._subsample(batch, generator, max(int(self.config.accum_steps), 1))
+            return train_step(state, to_device(batch, self.device, TENSORS), self.config,
+                              idx, self.label_cloud, self.mesh)
 
     def _eval_forward(self, state, batch, mesh=None):
         # a fixed subsample for every evaluation, as the JAX eval's PRNGKey(0)

@@ -29,6 +29,7 @@ from sv3d_tpu_torch.models.unet import UNet, UNetMini, renormalize_depth, resize
 from sv3d_tpu_torch.training.loop import BaseTrainer, to_device
 from sv3d_tpu_torch.training.optim import build_optimizer
 from sv3d_tpu_torch.training.state import TrainState
+from sv3d_tpu_torch.utils.profiling import span
 
 #: the batch entries that go to the device
 TENSORS = ("input", "target")
@@ -56,11 +57,14 @@ def train_step(state: TrainState, batch: dict, config: Config, mesh=None) -> dic
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
-    loss = torch.mean((depth_forward(model, config, batch["input"]) - batch["target"]) ** 2)
-    loss.backward()
-    if mesh is not None:
-        mesh.mean_gradients(model.parameters())
-    opt.step()
+    with span("train.forward", device=True):
+        loss = torch.mean((depth_forward(model, config, batch["input"]) - batch["target"]) ** 2)
+    with span("train.backward", device=True):
+        loss.backward()
+    with span("train.optimizer", device=True):
+        if mesh is not None:
+            mesh.mean_gradients(model.parameters())
+        opt.step()
     state.step += 1
     return {"train_loss": _global(loss.detach(), mesh)}
 
@@ -95,8 +99,9 @@ class DepthRegressorTrainer(BaseTrainer):
         return self._dataset("val")
 
     def train_step(self, state, batch, generator):
-        return train_step(state, to_device(batch, self.device, TENSORS), self.config,
-                          self.mesh)
+        with span("train.step"):
+            return train_step(state, to_device(batch, self.device, TENSORS), self.config,
+                              self.mesh)
 
     def eval_step(self, state, batch):
         return eval_forward(state, to_device(batch, self.device, TENSORS), self.config,

@@ -1,1 +1,2 @@
-"""Host utilities of the port: meshing dumps and the step timer."""
+"""Host utilities of the port: meshing dumps and the tracer (spans, counters
+and torch.profiler traces)."""
