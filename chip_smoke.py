@@ -60,6 +60,15 @@ that each ran its kernels:
             train, 1 val and 1 test synthetic scene, 2 steps: the data
             stage, training (K1, K1b), validation, and the test scene meshed
             (K1, K2 bf16) and scored; its artifact's figures must be finite.
+  wgrad     phase 25: the f32 conv weight-gradient kernel
+            (csrc/conv3d_wgrad.cu) at the IF-Net 128 pyramid's nine shapes
+            and the IF-Net 32 pyramid's six (B=4 on the 139x104x112 grid,
+            channels-last as the step hands them) and four ragged ones,
+            held to its plain version in float64 and to itself (equal
+            bits), and timed beside its bound and cuDNN's weight gradient
+            with and without cudnn.benchmark.  The f32 train steps'
+            profiles (phases 11 and 18) must hold it and not cuDNN's direct
+            weight-gradient kernel.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -1459,10 +1468,12 @@ def k1b_timings(args: dict) -> dict:
 
 
 def _counters():
-    """The training path's kernels' wrappers (launch_counters' names)."""
+    """The training path's kernels' wrappers (launch_counters' names; wgrad
+    is the f32 pyramid convs' weight gradient)."""
     from sv3d_tpu_torch.ops.cuda import launch_counters
 
-    return {k: v for k, v in launch_counters().items() if k in ("K1", "K1b", "K4", "K7", "K8")}
+    return {k: v for k, v in launch_counters().items()
+            if k in ("K1", "K1b", "K4", "K7", "K8", "wgrad")}
 
 
 def train_kernel_checks(model, dev, rng, k1b_points: dict, n_query: int = 4096) -> dict:
@@ -1714,6 +1725,16 @@ def profile_lines(fn, steps: int) -> list:
             *_top_lines(events, device, steps, top=10)]
 
 
+def check_wgrad_kernels(events, what: str) -> None:
+    """An f32 train step's profiled kernels hold the conv weight-gradient
+    kernel and not cuDNN's direct weight-gradient kernel, which it
+    replaces."""
+    keys = [e.key for e in events]
+    check(any("conv3d_wgrad_kernel" in k for k in keys)
+          and not any("wgrad2d_grouped_direct_kernel" in k for k in keys),
+          f"{what}: the conv weight-gradient kernel did not replace cuDNN's: {keys[:12]}")
+
+
 def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
     """Where a warm full-width fused_query train step spends its time: the
     host-clock step, the summed device self time of torch.profiler's CUDA
@@ -1732,10 +1753,12 @@ def profile_train_step(trainer, batch, gen, steps: int = 3) -> list:
              f"4x4096 points {statistics.median(label_ms):.3f} ms (median of 5)"]
     lines += _top_lines(events, device, steps)
     for name, part in (("K8", "level_grad_vol"), ("K1", "scatter_voxels_kernel"),
-                       ("K1's clamp", "clamp_unit"), ("K1b", "scatter_voxels_bwd")):
+                       ("K1's clamp", "clamp_unit"), ("K1b", "scatter_voxels_bwd"),
+                       ("wgrad", "conv3d_wgrad")):
         ms = sum(dev_us(e) for e in events if part in e.key) / 1e3 / steps
         lines.append(f"  {name} ({part}): {ms:.4f} ms a step, {100.0 * ms / device:.3f}% of "
                      "device time")
+    check_wgrad_kernels(events, "the end-to-end f32 step")
     # which convolutions the backward time belongs to (device time of the
     # kernels each aten op launched, by input shapes)
     convs = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -2207,6 +2230,133 @@ def ifnet_kernel_timings(model, batch, smi) -> dict:
     return out
 
 
+# The conv weight-gradient kernel (csrc/conv3d_wgrad.cu) against its plain
+# version run in float64 on the same f32 inputs: each output channel's
+# difference within WGRAD_RTOL of that channel's norm.  The kernel sums
+# millions of f32 products (split partials added in a fixed order); cuDNN's
+# f32 weight gradient itself reads 1.1e-5 at stage 0's shape (the kernel
+# 1.4e-6), so the f32 plain version is printed beside it, not held to.
+WGRAD_RTOL = 1e-5
+# ragged shapes, (B, Cin, D, H, W) and Cout: W not a multiple of 4 (4-byte
+# copies), channel counts that do not fill a tile, Cin 1 and 3 (the narrow
+# instance), a grid of one row
+WGRAD_RAGGED = (((3, 20, 5, 7, 9), 40), ((2, 1, 6, 5, 11), 24), ((2, 3, 4, 3, 8), 16),
+                ((1, 16, 1, 1, 5), 32))
+
+
+def pyramid_conv_shapes(net_res: int, dims: tuple, b: int) -> list:
+    """[(name, (B, Cin, D, H, W), Cout)] of the IF-Net pyramid's convs, as
+    IFNet.encode runs them on a (b, *dims) grid (floor max-pooling between
+    stages)."""
+    from sv3d_tpu_torch.config import IFNetConfig
+    from sv3d_tpu_torch.models.ifnet import IFNet
+
+    model = IFNet(IFNetConfig.for_net_res(net_res), device="meta")
+    out, dims = [], tuple(dims)
+    for s, stage in enumerate(model.stages):
+        for c, layer in enumerate(stage.convs):
+            out.append((f"s{s}.{c}", (b, layer.in_channels, *dims), layer.out_channels))
+        dims = tuple(max(1, d // 2) for d in dims)
+    return out
+
+
+def wgrad_bound(shape: tuple, cout: int) -> tuple:
+    """bound() of one weight gradient: x and dy read once, dW written once,
+    2 Cout Cin 27 B D H W f32 operations."""
+    b, cin, *g = shape
+    vox = b * math.prod(g)
+    return bound(4 * (vox * (cin + cout) + cout * cin * 27), 2.0 * cout * cin * 27 * vox)
+
+
+def wgrad_phase(smi, net_res: int = 128, dims=(139, 104, 112), b: int = 4,
+                ragged: tuple = WGRAD_RAGGED) -> dict:
+    """The conv weight-gradient kernel at the net_res pyramid's shapes (B=4
+    at the training cell's grid) and at ragged: held to its plain version
+    in float64 (each output channel within WGRAD_RTOL of its norm; the f32
+    plain version's difference from both printed) and to itself (two calls,
+    equal bits), one launch counted a call, on channels-last inputs as the
+    step hands them; at the pyramid's shapes CUDA-event ms of calls back to back,
+    in turns (kernel, plain = cuDNN's weight gradient as the port ran it
+    before, cuDNN under cudnn.benchmark, kernel) and of one call alone,
+    beside the bound.  Returns {name: row}."""
+    from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import (
+        conv3d_wgrad_cuda,
+        conv3d_wgrad_plain,
+        plan,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = pyramid_conv_shapes(net_res, dims, b)
+    rows = {}
+    for name, shape, cout in shapes + [(f"ragged{i}", s, c) for i, (s, c) in
+                                       enumerate(ragged)]:
+        # channels-last, as cuDNN hands the step its conv outputs and gradients
+        x = torch.randn(shape, device="cuda", generator=gen).contiguous(
+            memory_format=torch.channels_last_3d)
+        dy = torch.randn((shape[0], cout, *shape[2:]), device="cuda", generator=gen).contiguous(
+            memory_format=torch.channels_last_3d)
+        before = conv3d_wgrad_cuda.launches
+        got = conv3d_wgrad_cuda(x, dy)
+        again = conv3d_wgrad_cuda(x, dy)
+        ref = conv3d_wgrad_plain(x, dy)
+        torch.cuda.synchronize()
+        per_co = lambda a, r: float(((a - r).flatten(1).norm(dim=1)
+                                     / r.flatten(1).norm(dim=1).clamp_min(1e-30)).max())
+        ref64 = conv3d_wgrad_plain(x.double(), dy.double())
+        row = {"shape": shape, "cout": cout, "plan": plan(shape, cout, torch.cuda.
+                                                          get_device_properties(0).
+                                                          multi_processor_count),
+               "err": per_co(got.double(), ref64), "err_f32": per_co(got, ref),
+               "plain_err": per_co(ref.double(), ref64), "same_bits": bool(torch.equal(got, again)),
+               "launches": conv3d_wgrad_cuda.launches - before}
+        del ref64
+        if not name.startswith("ragged"):
+            kernel = lambda: conv3d_wgrad_cuda(x, dy)
+            plain = lambda: conv3d_wgrad_plain(x, dy)
+            # calls back to back between two CUDA events: the device's time
+            # when the host keeps ahead (a lone call's time holds the launch path)
+            k1 = cuda_ms(lambda: [kernel() for _ in range(20)], reps=3) / 20
+            row["plain_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], warmup=1, reps=3) / 3
+            torch.backends.cudnn.benchmark = True
+            try:
+                row["library_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], reps=3) / 3
+            finally:
+                torch.backends.cudnn.benchmark = False
+            row["ms"] = cuda_ms(lambda: [kernel() for _ in range(20)], reps=3) / 20
+            row["ms_turns"] = (k1, row["ms"])
+            row["call_ms"] = cuda_ms(kernel)
+            row["bound"] = wgrad_bound(shape, cout)
+        rows[name] = row
+        del x, dy, got, again, ref
+    print(f"conv weight gradient (csrc/conv3d_wgrad.cu) on {smi}, f32 (TF32 off), the IF-Net "
+          f"{net_res} pyramid, B={b} at {tuple(dims)}:", flush=True)
+    for name, r in rows.items():
+        line = (f"  {name} {r['shape']} -> {r['cout']}: plan (th, nsplit, parts) {r['plan']}; "
+                f"max rel err by output channel against float64 {r['err']:.2e} (tol "
+                f"{WGRAD_RTOL:g}; the f32 plain version's {r['plain_err']:.2e}, the kernel's "
+                f"from it {r['err_f32']:.2e}); same bits {r['same_bits']}; launches "
+                f"{r['launches']}")
+        if "ms" in r:
+            line += (f"; kernel {r['ms']:.4f} ms (turns {r['ms_turns'][0]:.4f}; one call "
+                     f"alone {r['call_ms']:.4f}), bound "
+                     f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                     f"{100.0 * r['bound'][0] / r['ms']:.1f}%), plain (cuDNN) "
+                     f"{r['plain_ms']:.4f} ms, cudnn.benchmark {r['library_ms']:.4f} ms")
+        print(line, flush=True)
+    timed = [r for r in rows.values() if "ms" in r]
+    total = lambda key: sum(r[key] for r in timed)
+    print(f"  the {len(timed)}: kernel {total('ms'):.4f} ms, bound "
+          f"{sum(r['bound'][0] for r in timed):.4f} ms, plain {total('plain_ms'):.4f} ms, "
+          f"cudnn.benchmark {total('library_ms'):.4f} ms", flush=True)
+    for name, r in rows.items():
+        check(r["err"] <= WGRAD_RTOL, f"the wgrad kernel disagrees with its plain version at "
+                                      f"{name}: {r['err']}")
+        check(r["same_bits"] and r["launches"] == 2,
+              f"the wgrad kernel at {name}: same bits {r['same_bits']}, {r['launches']} launches "
+              "for 2 calls")
+    return rows
+
+
 def serving_p16_phase(ckpt: Path, rgb_png: Path, intrinsics: Path, rgb, smi,
                       extra=()) -> dict:
     """Phase 19, serving at precision 16 (bf16 UNet and IF-Net convs): the
@@ -2361,8 +2511,9 @@ def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) 
         want = {"scene": ("K1", "K1b", "K4", "K7", "K8"), "ifnet": ("K4", "K8", "K2"),
                 "unet": ()}[kind]
         check(state.step == 4 and all(launches[k] > 0 for k in want)
-              and (kind != "ifnet" or launches["K7"] == 0),
-              f"the precision-16 {name} fit did not run its kernels: {launches}")
+              and (kind != "ifnet" or launches["K7"] == 0) and launches["wgrad"] == 0,
+              f"the precision-16 {name} fit did not run its kernels (and not the f32 wgrad): "
+              f"{launches}")
         gen = torch.Generator().manual_seed(0)
         batch = batches[kind] if kind in batches else fixed_batch(trainer, cfg.batch_size)
         st = trainer.build_state()
@@ -2381,9 +2532,7 @@ def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) 
               f"{f32[name][0] / ms:.2f}x); peak device memory {peak:.1f} MiB (f32 "
               f"{f32[name][1]:.1f} MiB); profiled {wall:.3f} ms host clock, {device_t:.3f} ms "
               f"device self time, device idle {100.0 * (1.0 - device_t / wall):.1f}%", flush=True)
-        print(f"  wgrad2d_grouped_direct_kernel still leads the device time: "
-              f"{'wgrad2d_grouped_direct_kernel' in leader}; the leader is {leader[:100]}",
-              flush=True)
+        print(f"  the leader of the bf16 step (its convs are cuDNN's): {leader[:100]}", flush=True)
         for line in _top_lines(events, device_t, 3, top=8):
             print(f"  {line}", flush=True)
         del st, state, trainer
@@ -3392,7 +3541,7 @@ def main() -> int:
     ifnet_cfg = Config(seed=0, net_res=128, scale_factor=1, batch_size=16, num_points=2048,
                        fused_query=True, visualize=True, sanity_steps=0, val_check_interval=6,
                        datasetdir=str(ifnet_root), splitsdir="overfit", experiment="smoke_ifnet")
-    ifnet_counters = {k: v for k, v in _counters().items() if k in ("K4", "K7", "K8")}
+    ifnet_counters = {k: v for k, v in _counters().items() if k in ("K4", "K7", "K8", "wgrad")}
     ifnet_counters["K2"] = lattice_sweep_bf16_cuda
     fit_ifnet = ifnet_fit_phase(ifnet_cfg, ifnet_counters)
     print(f"phase 13 in {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -3470,10 +3619,11 @@ def main() -> int:
                   f"{100.0 * (1.0 - device_t / wall):.1f}% (torch.profiler, 3 steps)",
                   *_top_lines(events, device_t, 3)]
     for kname, part in (("K4", "level_features_kernel"), ("K7", "level_grad_points"),
-                        ("K8", "level_grad_vol")):
+                        ("K8", "level_grad_vol"), ("wgrad", "conv3d_wgrad")):
         ms = sum(dev_us(e) for e in events if part in e.key) / 1e3 / 3
         ifnet_prof.append(f"  {kname} ({part}): {ms:.4f} ms a step, "
                           f"{100.0 * ms / device_t:.3f}% of device time")
+    check_wgrad_kernels(events, "the IF-Net-only f32 step")
     del fused_state
     ifnet_k = ifnet_kernel_timings(fit_ifnet["trainer"].build_state().model, ifnet_batch, smi)
     print(f"IF-Net-only and UNet-only timings on {smi}:", flush=True)
@@ -3546,6 +3696,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     multi = multiscene_phase()
     print(f"phase 24 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 25: the conv weight gradient at the two pyramids' shapes -------------------
+    t_phase = time.perf_counter()
+    wgrad_rows = wgrad_phase(smi)
+    wgrad_rows.update({f"net32.{k}": r for k, r in
+                       wgrad_phase(smi, net_res=32, ragged=()).items()})
+    print(f"phase 25 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
     measured = {
         # the random depth at the serving shape, as the row has always been
@@ -3682,6 +3839,18 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"]}
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the conv weight gradient (replaces no TPU kernel): launches by path,
+    # and its rows at the two pyramids' shapes
+    print(json.dumps({"wgrad": {
+        "source": "sv3d_tpu_torch/csrc/conv3d_wgrad.cu",
+        "replaces": "none in the JAX package: XLA's conv weight gradient",
+        "launches_by_path": {"fit": train_launches["wgrad"],
+                             "fit_ifnet": fit_ifnet["launches"]["wgrad"],
+                             "fit_p16": fit_p16["end to end"]["wgrad"],
+                             "fit_ifnet_p16": fit_p16["IF-Net-only"]["wgrad"]},
+        "shapes": {name: {k: r[k] for k in ("shape", "cout", "err", "plain_err", "ms",
+                                             "bound", "plain_ms", "library_ms") if k in r}
+                   for name, r in wgrad_rows.items()}}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

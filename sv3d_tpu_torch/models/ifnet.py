@@ -51,6 +51,7 @@ from sv3d_tpu_torch.config import IFNetConfig
 from sv3d_tpu_torch.models.batchnorm import BatchNorm
 from sv3d_tpu_torch.models.init import flax_init_
 from sv3d_tpu_torch.models.mixed import conv, widen
+from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_wgrad
 from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp, mlp_operands
 from sv3d_tpu_torch.ops.cuda.point_query import (
     fc0_block_bf16,
@@ -68,11 +69,44 @@ from sv3d_tpu_torch.ops.grid_sample import (
 )
 from sv3d_tpu_torch.ops.lattice import slab_features
 from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES, matmul_bf16
+from sv3d_tpu_torch.utils.profiling import count
+
+
+class _PyramidConv(torch.autograd.Function):
+    """F.conv3d(x, weight, bias, padding=1) whose weight gradient is
+    conv3d_wgrad's (the plain version on the CPU, the kernel on the card);
+    the input's and the bias's gradients stay aten's (cuDNN on the card).
+    The tracer counts ifnet.wgrad for each weight gradient taken and
+    ifnet.wgrad_kernel for each one the kernel computes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv3d(x, weight, bias, padding=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = dw = db = None
+        if need_x or need_b:
+            dx, _, db = torch.ops.aten.convolution_backward(
+                dy, x, weight, [weight.shape[0]], [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
+                [need_x, False, need_b])
+        if need_w:
+            dw = conv3d_wgrad(x, dy)
+            count("ifnet.wgrad")
+            if dy.is_cuda:
+                count("ifnet.wgrad_kernel")
+        return dx, dw, db
 
 
 class _ConvBlock(nn.Module):
     """Conv3d(k3 p1) + ReLU pair(s) + BatchNorm, one pyramid stage, in dtype
-    (None: the parameters')."""
+    (None: the parameters').  In f32 training (dtype None, grad enabled, a
+    weight that requires grad) each conv runs as _PyramidConv, whose weight
+    gradient is the hand-written kernel's on the card; otherwise (inference,
+    bf16, a frozen weight) as the plain layer."""
 
     def __init__(self, cin: int, features, dtype: torch.dtype | None = None):
         super().__init__()
@@ -85,7 +119,11 @@ class _ConvBlock(nn.Module):
 
     def forward(self, x):
         for layer in self.convs:
-            x = F.relu(conv(layer, x, self.dtype))
+            if self.dtype is None and torch.is_grad_enabled() and layer.weight.requires_grad:
+                y = _PyramidConv.apply(x, layer.weight, layer.bias)
+            else:
+                y = conv(layer, x, self.dtype)
+            x = F.relu(y)
         return self.bn(x)
 
 
