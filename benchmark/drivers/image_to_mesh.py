@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from benchmark.frozen import bounds, scenes
-from benchmark.drivers.common import check_widths, port_config
 from benchmark.frozen.weights import seeded_state_dict
 from benchmark.reference import compare, scene
 from benchmark.reference.lowp import EXACT, SERVE_CONTROL
@@ -50,11 +49,11 @@ class Driver:
         rng = np.random.default_rng(np.random.SeedSequence([run.seed % 2**63, 1]))
         self.order = rng.permutation(len(self.pool))
         self.pick = random.Random(run.seed)
-        self.config = port_config(cfg, inf_res=self.t["inf_res"])
+        self.config = run.arch.port_config(cfg, inf_res=self.t["inf_res"])
         intr = parse_intrinsics(scenes.INTRINSICS_TEXT)
         frustum = FrustumGrid.create(intr, voxel_size=cfg["voxel_size"])
         self.model = SceneNet(self.config, intr, frustum, device=run.device)
-        check_widths(self.model, cfg)
+        run.arch.check_widths(self.model, cfg)
         self.sd = seeded_state_dict(self.model.state_dict(), cfg["sigma"], run.seed, run.device)
         t0 = run.clock()
         self._calibrate()
@@ -224,6 +223,11 @@ class Driver:
         lat = sorted(self.latencies)
         p90 = lat[max(0, -(-9 * len(lat) // 10) - 1)]  # nearest rank
         return {"mesh_s": (window_s / len(lat), "s"), "mesh_p90_s": (p90, "s")}
+
+    @staticmethod
+    def compared(arch) -> tuple:
+        """The names of the numbers that numbers() gives."""
+        return compare.MESH_NUMBERS
 
     def free(self):
         del self.model

@@ -21,8 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.drivers.common import check_widths, port_config
-from benchmark.frozen import bounds, scenes
+from benchmark.frozen import scenes
 from benchmark.frozen.weights import seeded_state_dict
 from benchmark.reference import compare, scene
 from benchmark.reference import train as ref_train
@@ -61,7 +60,7 @@ class Driver:
         root = run.tmp / "data"
         self.rooms = scenes.write_train_tree(run.seed, t["scenes"], root, "bench", scale, shift,
                                              cfg["dims"], t["samples"])
-        config = port_config(
+        config = run.arch.port_config(
             cfg, datasetdir=str(root), splitsdir="bench", num_points=t["num_points"],
             batch_size=t["batch_size"], subsample_points=t["subsample_points"],
             fused_query=t["fused_query"], flip_aug=t["flip_aug"], num_workers=t["num_workers"],
@@ -69,8 +68,9 @@ class Driver:
         self.trainer = SceneNetTrainer(config, device=run.device, experiment_dir=run.tmp / "exp")
         self.state = self.trainer.build_state()
         model = self.state.model
-        check_widths(model, cfg)
-        self.sd0 = seeded_state_dict(model.state_dict(), cfg["sigma"], run.seed, run.device)
+        run.arch.check_widths(model, cfg)
+        self.sd0 = seeded_state_dict(model.state_dict(), cfg.get("sigma"), run.seed,
+                                     run.device)
         model.load_state_dict(self.sd0)
         loader = DataLoader(self.trainer.train_dataset(), batch_size=config.batch_size,
                             shuffle=True, drop_last=True, num_workers=config.num_workers,
@@ -113,14 +113,13 @@ class Driver:
 
     def _work(self, model) -> dict:
         """The last warm-up step under FlopCounterMode (a traced run only):
-        the step's operations beside K1's and K1b's, which it cannot see."""
+        the step's operations beside the architecture's that it cannot see."""
         from torch.utils.flop_counter import FlopCounterMode
 
         with FlopCounterMode(display=False) as fc:
             self.trainer.train_step(self.state, next(self.feed), self.trainer.generator)
-        points = self.t["batch_size"] * scenes.W * scenes.H
         return {"step_flops": float(fc.get_total_flops())
-                + (bounds.K1_FLOPS_PER_POINT + bounds.K1B_FLOPS_PER_POINT) * points}
+                + self.run.arch.uncounted_flops(self.run.cfg, self.t)}
 
     def _copy(self) -> dict:
         """The program's training state, copied on the device: parameters and
@@ -171,6 +170,11 @@ class Driver:
         return {"train_samples_per_s": (self.steps * self.t["batch_size"] / window_s,
                                         "samples/s")}
 
+    @staticmethod
+    def compared(arch) -> tuple:
+        """The names of the numbers that numbers() gives for an architecture."""
+        return compare.train_names(arch.SCALED_LEAF)
+
     def free(self):
         """After the window: the copy of the state after its last step.  Where
         the copies near the close missed the last step (a stall of more than
@@ -193,14 +197,18 @@ class Driver:
         and the window's each from the program's copy before it: the
         program's (control None), the training control's (TF32), or a
         fault's planted in the reference put in the program's place
-        ("half_batch": the mean over half of each batch's rows; "sigma_lr":
-        the projection's sigma at the base learning rate)."""
+        ("half_batch": the mean over half of each batch's rows; "sigma_lr",
+        for an architecture with a scaled leaf: that leaf at the base
+        learning rate)."""
         t, dev, cfg = self.t, self.run.device, self.run.cfg
+        scaled = self.run.arch.SCALED_LEAF
         faults = {"train": {"prec": TRAIN_CONTROL},
-                  "half_batch": {"rows": slice(0, t["batch_size"] // 2)},
-                  "sigma_lr": {"project_lr_scale": 1.0}}
+                  "half_batch": {"rows": slice(0, t["batch_size"] // 2)}}
+        if scaled is not None:
+            faults["sigma_lr"] = {"project_lr_scale": 1.0}
         if control is not None and control not in faults:
-            raise ValueError(f"no control {control!r} for training")
+            raise ValueError(f"no control {control!r} for training the architecture "
+                             f"{cfg['arch']!r}")
 
         def batch(step):
             return ref_train.batch_at(self.rooms, self.prog_seed, t["batch_size"],
@@ -228,10 +236,11 @@ class Driver:
                        "leaf_gaps": {w: compare.leaf_gaps(prog[w], ref[w], keep)
                                      for w in ("grad_norms", "change_norms")},
                        "window": [{"step": r["step"], "losses": [p["loss"], q["loss"]],
-                                   "sigma_change": [p["change_norms"][compare.SIGMA],
-                                                    q["change_norms"][compare.SIGMA]],
                                    "worst_change_leaf": compare.leaf_gap(
                                        p["change_norms"], q["change_norms"],
-                                       compare.kept_leaves(q["grad_norms"]))}
+                                       compare.kept_leaves(q["grad_norms"])),
+                                   **({"sigma_change": [p["change_norms"][scaled],
+                                                        q["change_norms"][scaled]]}
+                                      if scaled is not None else {})}
                                   for r, (p, q) in zip(self.replays, window)]}
-        return compare.train_numbers(prog, ref, window)
+        return compare.train_numbers(prog, ref, window, scaled)

@@ -25,6 +25,10 @@ def crossings(field_u8: torch.Tensor) -> int:
     return edge_count(field_u8 > LEVEL_U8)
 
 
+#: the names of mesh_numbers' gaps
+MESH_NUMBERS = ("depth_gap", "vox_gap", "field_off", "vertex_gap")
+
+
 def mesh_numbers(depth, vox, field_u8, n_verts: int, ref_depth, ref_vox, ref_occ) -> dict:
     """One served request's gaps: depth (metres) and voxel occupancy, the
     largest; the share of lattice points whose uint8 value lies more than
@@ -65,22 +69,30 @@ def leaf_gap(prog: dict, ref: dict, keep: list, over=max) -> float:
     return over(list(leaf_gaps(prog, ref, keep).values()))
 
 
-#: the projection's Gaussian width, the one leaf at a higher learning rate
-SIGMA = "project.sigma"
+#: what train_numbers compares for every architecture, and what it adds for
+#: one with a scaled leaf (named for sigma, the one leaf scaled so far)
+TRAIN_NUMBERS = ("loss_gap", "grad_gap", "change_gap", "window_loss_gap", "window_change_gap")
+SCALED_NUMBER = "sigma_change_gap"
 
 
-def train_numbers(prog: dict, ref: dict, window: list) -> dict:
+def train_names(scaled_leaf) -> tuple:
+    """The names of train_numbers' gaps for an architecture's scaled leaf."""
+    return TRAIN_NUMBERS + ((SCALED_NUMBER,) if scaled_leaf is not None else ())
+
+
+def train_numbers(prog: dict, ref: dict, window: list, scaled_leaf=None) -> dict:
     """Gaps of a training run's compared steps.  The warm-up's from the
     seeded weights: step 1's loss (relative), and by the median leaf step
     1's gradient norms and the parameters' change after the compared steps
     (the later steps' losses, and the worst leaf's gaps, move with rounding
     alone: see PERF.md).  The window's, each one step from the same state
     (window: [(program's, reference's)], each {"loss", "change_norms"}),
-    the worst step's: the loss (relative), the median leaf's change, and
-    sigma's change against its own norm."""
+    the worst step's: the loss (relative), the median leaf's change, and,
+    where the architecture has a scaled leaf, that leaf's change against
+    its own norm."""
     keep = kept_leaves(ref["grad_norms"])
     l_p, l_r = prog["losses"][0], ref["losses"][0]
-    return {
+    out = {
         "loss_gap": abs(l_p - l_r) / abs(l_r),
         "grad_gap": leaf_gap(prog["grad_norms"], ref["grad_norms"], keep, statistics.median),
         "change_gap": leaf_gap(prog["change_norms"], ref["change_norms"], keep, statistics.median),
@@ -88,7 +100,9 @@ def train_numbers(prog: dict, ref: dict, window: list) -> dict:
         "window_change_gap": max(
             leaf_gap(p["change_norms"], r["change_norms"], kept_leaves(r["grad_norms"]),
                      statistics.median) for p, r in window),
-        "sigma_change_gap": max(
-            abs(p["change_norms"][SIGMA] - r["change_norms"][SIGMA]) / r["change_norms"][SIGMA]
-            for p, r in window),
     }
+    if scaled_leaf is not None:
+        out[SCALED_NUMBER] = max(
+            abs(p["change_norms"][scaled_leaf] - r["change_norms"][scaled_leaf])
+            / r["change_norms"][scaled_leaf] for p, r in window)
+    return out

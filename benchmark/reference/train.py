@@ -1,8 +1,9 @@
 """Plain PyTorch reference of the end-to-end training step: its batches
 worked out from the benchmark's rooms by the loader's documented rule, the
-SceneNet forward in train mode (reference/scene.py), BCE over the query
-points plus the depth MSE, autograd, and Adam with the projection's sigma
-at a higher learning rate."""
+UNetMini depth and back-projection in train mode (reference/scene.py),
+the architecture's occupancy forward (benchmark/arch/<arch>.py), BCE over
+the query points plus the depth MSE, autograd, and Adam with the
+architecture's scaled leaf, if any, at a higher learning rate."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark import arch
 from benchmark.reference import scene
 from benchmark.reference.lowp import EXACT, Precision
 
@@ -65,22 +67,22 @@ def loss(sd: dict, cfg: dict, batch: dict, cam: tuple, prec: Precision = EXACT):
     depth error, for one batch of device tensors."""
     f, cx, cy, scale, shift = cam
     d = scene.depth(sd, cfg, batch["rgb"], True, prec)
-    pts = scene.back_project(d, cfg, f, cx, cy, scale, shift)
-    levels = scene.encode(sd, cfg, scene.voxelize(pts, sd, cfg, prec), True, prec)
-    logits = scene.query(sd, cfg, levels, batch["points"], prec)
+    cloud = scene.back_project(d, cfg, f, cx, cy, scale, shift)
+    logits = arch.load(cfg["arch"]).occupancy_logits(sd, cfg, cloud, batch["points"], prec)
     ce = F.binary_cross_entropy_with_logits(logits, batch["occupancies"])
     return ce + torch.mean((d - batch["depth"]) ** 2)
 
 
 def _optimizer(params: dict, cfg: dict, project_lr_scale=None, state=None):
-    """Adam over params by name, the projection's at project_lr_scale (the
-    configuration's by default) times the learning rate; state: Adam's
-    moments and step count by parameter name to start from."""
-    scale = cfg["project_lr_scale"] if project_lr_scale is None else project_lr_scale
-    groups = [{"params": [p for k, p in params.items() if not k.startswith("project.")],
-               "lr": cfg["lr"]},
-              {"params": [p for k, p in params.items() if k.startswith("project.")],
-               "lr": cfg["lr"] * scale}]
+    """Adam over params by name, the architecture's scaled leaf, if any, at
+    project_lr_scale (the configuration's by default) times the learning
+    rate; state: Adam's moments and step count by parameter name to start
+    from."""
+    scaled = arch.load(cfg["arch"]).SCALED_LEAF
+    groups = [{"params": [p for k, p in params.items() if k != scaled], "lr": cfg["lr"]}]
+    if scaled is not None:
+        scale = cfg["project_lr_scale"] if project_lr_scale is None else project_lr_scale
+        groups.append({"params": [params[scaled]], "lr": cfg["lr"] * scale})
     opt = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, foreach=False)
     for k, p in params.items():
         if state and k in state:
@@ -112,7 +114,7 @@ def run(sd0: dict, cfg: dict, host_batches: list, cam: tuple, device,
     "grad_norms": {leaf: norm of step 1's gradient}, "change_norms": {leaf:
     norm of the parameters' change after the last step}}.  rows: a slice of
     each batch's rows to train on instead of all of them (a fault);
-    project_lr_scale: the projection's learning-rate scale instead of the
+    project_lr_scale: the scaled leaf's learning-rate scale instead of the
     configuration's (a fault)."""
     sd, params = _leaves(sd0, device)
     opt = _optimizer(params, cfg, project_lr_scale)

@@ -11,8 +11,9 @@ of standard output is one JSON object: correct, attempted, failed, metrics
 each beside its limit (also the last lines of standard error).
 
 Everything a cell is made of is found by name: BENCHMARK.json beside this
-folder names the cell's configuration (benchmark/configs/<config>.json),
-its traffic (benchmark/traffic/<traffic>.json, whose "kind" picks a driver
+folder names the cell's configuration (benchmark/configs/<config>.json,
+whose "arch" picks the architecture's file benchmark/arch/<arch>.py), its
+traffic (benchmark/traffic/<traffic>.json, whose "kind" picks a driver
 of benchmark/drivers/), its limits (benchmark/limits/<cell>.json) and its
 per-layer metrics (benchmark/metrics/<metric>.py, each a read(ctx) that
 returns a number or None).
@@ -20,7 +21,7 @@ returns a number or None).
 --control serve|train|half_batch|sigma_lr puts the reference in a lower
 precision, or with a planted fault, in the program's place after the
 window, and compares it instead (the readings that the limits were set
-from).
+from); sigma_lr only for an architecture with a scaled leaf.
 """
 
 from __future__ import annotations
@@ -121,7 +122,10 @@ class Run:
     """What a driver and the metric readers share for one run."""
 
     def __init__(self, spec, seed, trace, device, tmp):
+        from benchmark import arch
+
         self.cfg, self.traffic = spec["cfg"], spec["traffic"]
+        self.arch = arch.load(self.cfg["arch"])
         self.seed, self.trace, self.device, self.tmp = int(seed), bool(trace), device, tmp
         self.span = Spans(self.trace)
         self.clock = time.perf_counter

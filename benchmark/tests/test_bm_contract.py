@@ -1,5 +1,6 @@
 """BENCHMARK.json keeps to the benchmark's contract, and the harness finds
-every configuration, traffic mix, limit and metric of it by name."""
+every configuration, architecture, traffic mix, limit and metric of it by
+name; each configuration keeps to its own architecture's rule."""
 
 import json
 import math
@@ -84,23 +85,72 @@ def test_every_cell_reports_enough(cell):
     assert {m["moves"] for m in spec["per_layer"]} <= e2e
 
 
-@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
-def test_config_files(config):
-    assert set(config) == {"name", "source", "file", "reduced", "why"}
-    assert 1 <= len(config["why"]) <= 200
-    assert config["file"].startswith("benchmark/")
-    data = json.loads((ROOT / config["file"]).read_text())
-    assert data["source"] == config["source"]
-    assert data["reduced"] == config["reduced"] == []
-    # the widths the configuration states: decoder input = 7 x sum of channels
-    chans = [1] + [s[-1] for s in data["stages"]]
-    assert data["decoder"][0] == 7 * sum(chans)
-    assert sum(1 for c in BENCH["configs"] if c["file"] == config["file"]) == 1
+@pytest.mark.parametrize("path", sorted((ROOT / "benchmark" / "configs").glob("*.json")),
+                         ids=lambda p: p.stem)
+def test_config_files(path):
+    """Every configuration file keeps to its own architecture's rule, also the
+    files of the cells kept without an entry (conftest.KEPT); an entry of
+    BENCHMARK.json names the file once and agrees with it."""
+    from benchmark import arch
+
+    data = json.loads(path.read_text())
+    assert len(data["reduced"]) <= 16
+    # a cut names keys of the file, beside the deployment that it stands for
+    if data["reduced"]:
+        assert set(data["reduced"]) <= set(data) and data.get("deployment"), data["reduced"]
+    assert not [k for k in data["reduced"] if k.endswith(("_dim", "_rank"))]
+    # the widths the configuration states, by its architecture's own rule
+    arch.load(data["arch"]).check_config(data)
+    entries = [c for c in BENCH["configs"] if (ROOT / c["file"]) == path]
+    assert len(entries) <= 1
+    for config in entries:
+        assert set(config) == {"name", "source", "file", "reduced", "why"}
+        assert 1 <= len(config["why"]) <= 200
+        assert data["source"] == config["source"]
+        assert data["reduced"] == config["reduced"]
+
+
+@pytest.mark.parametrize("break_it", [
+    lambda d: d["decoder"].__setitem__(0, d["decoder"][0] + 1),
+    lambda d: d["stages"][-1].__setitem__(-1, 64),
+    lambda d: d.update(reduced=["decoder"], deployment="one chip of eight"),
+], ids=["decoder_input", "stage_width", "width_reduced"])
+def test_the_ifnet_rule_rejects_wrong_widths(break_it):
+    from benchmark import arch
+
+    rule = arch.load("scene_ifnet").check_config
+    data = json.loads((ROOT / "benchmark" / "configs" / "sv3d128.json").read_text())
+    rule(data)
+    break_it(data)
+    with pytest.raises(ValueError):
+        rule(data)
+
+
+@pytest.mark.parametrize("name", ["no_such_arch", "../drivers/train", "", None])
+def test_an_unknown_architecture_is_named(name):
+    from benchmark import arch
+
+    with pytest.raises(ValueError, match=re.escape(repr(name))):
+        arch.load(name)
+
+
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
+def test_limits_name_what_the_cell_compares(cell):
+    """A cell's limits are exactly the numbers that its driver gives for its
+    architecture: none that would always read NaN, none left unchecked."""
+    from benchmark import arch
+    from benchmark import run as bench
+
+    spec = bench.load_spec(cell["name"])
+    driver = bench.driver_class(spec["traffic"]["kind"])
+    assert set(spec["limits"]) == set(driver.compared(arch.load(spec["cfg"]["arch"])))
 
 
 def test_every_config_is_used():
     used = {w["config"] for w in BENCH["workloads"]}
     assert used == {c["name"] for c in BENCH["configs"]}
+    # each file lies where test_config_files finds it
+    assert all(c["file"].startswith("benchmark/configs/") for c in BENCH["configs"])
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
@@ -109,9 +159,12 @@ def test_harness_finds_cell_pieces(cell):
     found by name; each reader returns None where a run holds nothing."""
     from benchmark import run as bench
 
+    from benchmark import arch
+
     spec = bench.load_spec(cell["name"])
     assert (ROOT / "benchmark" / "traffic" / f"{cell['traffic']}.json").exists()
     bench.driver_class(spec["traffic"]["kind"])
+    arch.load(spec["cfg"]["arch"])
     assert spec["limits"] and all(math.isfinite(v["limit"]) for v in spec["limits"].values())
 
     class Empty:

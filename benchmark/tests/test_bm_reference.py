@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.drivers.common import port_config
+from benchmark.arch.scene_ifnet import port_config
 from benchmark.frozen import scenes
 from benchmark.frozen.weights import seeded_state_dict
 from benchmark.reference import scene, train
@@ -95,3 +95,31 @@ def test_training_step_agrees_in_float64(tiny, tmp_path):
         g_p, g_r = grads[k].grad, p.grad
         scale_ = max(float(g_r.norm()), 1e-6)
         assert float((g_p - g_r).norm()) / scale_ < 1e-8, k
+
+
+@pytest.mark.parametrize("prec", ["EXACT", "TRAIN_CONTROL"])
+def test_training_loss_is_the_scene_composition(tiny, tmp_path, prec):
+    """reference/train.py's loss for sv3d128 is, bit for bit, SceneNet
+    composed from reference/scene.py: depth and back-projection, then the
+    architecture's part, voxelization, the pyramid in train mode and the
+    point query; in the control's precision as well."""
+    import torch.nn.functional as F
+
+    from benchmark.reference import lowp
+
+    p = getattr(lowp, prec)
+    spec = tiny("sv3d128.train_b4")
+    cfg = spec["cfg"]
+    sd = {k: v.float() if v.is_floating_point() else v for k, v in _model(spec, 14)[2].items()}
+    f, cx, cy = scenes.FOCAL, scenes.CX, scenes.CY
+    scale, shift = scene.frustum_transform(cfg, f, cx, cy)
+    rooms = scenes.write_train_tree(14, 2, tmp_path, "s", scale, shift, cfg["dims"], 300)
+    batch = {k: torch.as_tensor(v) for k, v in train.batch_at(rooms, 14, 2, 32, f, 0).items()}
+    got = train.loss(sd, cfg, batch, (f, cx, cy, scale, shift), p)
+    d = scene.depth(sd, cfg, batch["rgb"], True, p)
+    cloud = scene.back_project(d, cfg, f, cx, cy, scale, shift)
+    levels = scene.encode(sd, cfg, scene.voxelize(cloud, sd, cfg, p), True, p)
+    logits = scene.query(sd, cfg, levels, batch["points"], p)
+    want = F.binary_cross_entropy_with_logits(logits, batch["occupancies"]) \
+        + torch.mean((d - batch["depth"]) ** 2)
+    assert torch.equal(got, want)

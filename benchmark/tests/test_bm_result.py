@@ -14,24 +14,24 @@ def _line(spec, trace):
     result, numbers, limits, diag = bench.run_cell(spec, 2**31 + 5, 0.1, trace,
                                                    torch.device("cpu"))
     line, checks = bench.result_line(result, numbers, limits)
-    return json.loads(line), checks, spec
+    return json.loads(line), checks, spec, numbers
 
 
 def test_untraced_line(tiny):
-    out, checks, spec = _line(tiny("sv3d128.train_b4", scenes=6, samples=200, batch_size=2,
+    out, checks, spec, numbers = _line(tiny("sv3d128.train_b4", scenes=6, samples=200, batch_size=2,
                                    num_points=32, warmup=4), False)
     assert list(out) == KEYS + ["checks"]
     assert set(out["metrics"]) == {m["name"] for m in spec["end_to_end"]}
     for m in out["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0
     assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
-    assert set(out["checks"]) == set(spec["limits"])
+    assert set(out["checks"]) == set(spec["limits"]) == set(numbers)
     assert len(checks) == len(spec["limits"])
     assert isinstance(out["correct"], bool)
 
 
 def test_traced_line(tiny):
-    out, _, spec = _line(tiny("sv3d128.train_b4", scenes=6, samples=200, batch_size=2,
+    out, _, spec, _ = _line(tiny("sv3d128.train_b4", scenes=6, samples=200, batch_size=2,
                               num_points=32, warmup=4), True)
     assert list(out) == KEYS + ["breakdown", "checks"]
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}

@@ -95,7 +95,7 @@ def test_reference_batches_are_the_loaders(tiny, tmp_path):
     from sv3d_tpu_torch.data.loader import DataLoader
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
-    from benchmark.drivers.common import port_config
+    from benchmark.arch.scene_ifnet import port_config
 
     spec = tiny("sv3d128.train_b4", scenes=6, samples=200, batch_size=2, num_points=16)
     cfg, t = spec["cfg"], spec["traffic"]
