@@ -63,7 +63,8 @@ that each ran its kernels:
   wgrad     phase 25: the f32 conv weight-gradient kernel
             (csrc/conv3d_wgrad.cu) at the IF-Net 128 pyramid's nine shapes
             and the IF-Net 32 pyramid's six (B=4 on the 139x104x112 grid,
-            channels-last as the step hands them) and four ragged ones,
+            channels-last as the step hands them), ConvONet's room_grid64
+            U-Net's 14 (B=32 on 64^3 to 8^3) and four ragged ones,
             held to its plain version in float64 and to itself (equal
             bits), and timed beside its bound and cuDNN's weight gradient
             with and without cudnn.benchmark.  The f32 train steps'
@@ -2268,14 +2269,32 @@ def wgrad_bound(shape: tuple, cout: int) -> tuple:
     return bound(4 * (vox * (cin + cout) + cout * cin * 27), 2.0 * cout * cin * 27 * vox)
 
 
-def wgrad_phase(smi, net_res: int = 128, dims=(139, 104, 112), b: int = 4,
-                ragged: tuple = WGRAD_RAGGED) -> dict:
-    """The conv weight-gradient kernel at the net_res pyramid's shapes (B=4
-    at the training cell's grid) and at ragged: held to its plain version
+def unet3d_conv_shapes(b: int) -> list:
+    """[(name, (B, Cin, D, H, W), Cout)] of the 3x3x3 convs of ConvONet's
+    room_grid64 U-Net (models/convonet.py::UNet3D at ConvONetConfig's
+    defaults), as its forward runs them on a batch of b feature grids: two a
+    level down, the side halved a level; two a level up."""
+    from sv3d_tpu_torch.config import ConvONetConfig
+    from sv3d_tpu_torch.models.convonet import ConvONet
+
+    model = ConvONet(ConvONetConfig())
+    g, out = model.config.grid, []
+    for part, levels in (("enc", model.unet3d.encoders), ("dec", model.unet3d.decoders)):
+        for i, level in enumerate(levels):
+            side = g >> (i if part == "enc" else len(levels) - 1 - i)
+            for c, layer in enumerate(level):
+                w = layer.conv.weight
+                out.append((f"{part}{i}.{c}", (b, w.shape[1], side, side, side), w.shape[0]))
+    return out
+
+
+def wgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
+    """The conv weight-gradient kernel at shapes ([(name, (B, Cin, D, H,
+    W), Cout)], what names them) and at ragged: held to its plain version
     in float64 (each output channel within WGRAD_RTOL of its norm; the f32
     plain version's difference from both printed) and to itself (two calls,
     equal bits), one launch counted a call, on channels-last inputs as the
-    step hands them; at the pyramid's shapes CUDA-event ms of calls back to back,
+    step hands them; at shapes CUDA-event ms of calls back to back,
     in turns (kernel, plain = cuDNN's weight gradient as the port ran it
     before, cuDNN under cudnn.benchmark, kernel) and of one call alone,
     beside the bound.  Returns {name: row}."""
@@ -2286,7 +2305,6 @@ def wgrad_phase(smi, net_res: int = 128, dims=(139, 104, 112), b: int = 4,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = pyramid_conv_shapes(net_res, dims, b)
     rows = {}
     for name, shape, cout in shapes + [(f"ragged{i}", s, c) for i, (s, c) in
                                        enumerate(ragged)]:
@@ -2328,8 +2346,8 @@ def wgrad_phase(smi, net_res: int = 128, dims=(139, 104, 112), b: int = 4,
             row["bound"] = wgrad_bound(shape, cout)
         rows[name] = row
         del x, dy, got, again, ref
-    print(f"conv weight gradient (csrc/conv3d_wgrad.cu) on {smi}, f32 (TF32 off), the IF-Net "
-          f"{net_res} pyramid, B={b} at {tuple(dims)}:", flush=True)
+    print(f"conv weight gradient (csrc/conv3d_wgrad.cu) on {smi}, f32 (TF32 off), {what}:",
+          flush=True)
     for name, r in rows.items():
         line = (f"  {name} {r['shape']} -> {r['cout']}: plan (th, nsplit, parts) {r['plan']}; "
                 f"max rel err by output channel against float64 {r['err']:.2e} (tol "
@@ -3697,11 +3715,15 @@ def main() -> int:
     multi = multiscene_phase()
     print(f"phase 24 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
-    # -- phase 25: the conv weight gradient at the two pyramids' shapes -------------------
+    # -- phase 25: the conv weight gradient at the two pyramids' and the U-Net's shapes ---
     t_phase = time.perf_counter()
-    wgrad_rows = wgrad_phase(smi)
-    wgrad_rows.update({f"net32.{k}": r for k, r in
-                       wgrad_phase(smi, net_res=32, ragged=()).items()})
+    dims = (139, 104, 112)
+    wgrad_rows = wgrad_phase(smi, pyramid_conv_shapes(128, dims, 4),
+                             f"the IF-Net 128 pyramid, B=4 at {dims}", ragged=WGRAD_RAGGED)
+    wgrad_rows.update({f"net32.{k}": r for k, r in wgrad_phase(
+        smi, pyramid_conv_shapes(32, dims, 4), f"the IF-Net 32 pyramid, B=4 at {dims}").items()})
+    wgrad_rows.update({f"convonet.{k}": r for k, r in wgrad_phase(
+        smi, unet3d_conv_shapes(32), "ConvONet's room_grid64 U-Net, B=32").items()})
     print(f"phase 25 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
     measured = {
@@ -3840,7 +3862,7 @@ def main() -> int:
                 "library_ms": t["library_ms"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     # the conv weight gradient (replaces no TPU kernel): launches by path,
-    # and its rows at the two pyramids' shapes
+    # and its rows at the two pyramids' and the U-Net's shapes
     print(json.dumps({"wgrad": {
         "source": "sv3d_tpu_torch/csrc/conv3d_wgrad.cu",
         "replaces": "none in the JAX package: XLA's conv weight gradient",

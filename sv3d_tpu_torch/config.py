@@ -3,10 +3,13 @@
 The reference funnels all configuration through a single argparse namespace that
 is parsed at *module import time* (reference util/arguments.py:7-64, imported by
 model/ifnet.py:8).  Here config is an explicit dataclass passed down the stack;
-nothing global.  Field for field the JAX package's Config, with two changes:
-``Config.dtype`` is a torch dtype, and the JAX package's guard against
+nothing global.  Field for field the JAX package's Config, with three changes:
+``Config.dtype`` is a torch dtype, the JAX package's guard against
 fused_query with net_res 32 at full scale (a compile limit of its TPU kernel)
-is not carried over.
+is not carried over, and two fields come last that the JAX package lacks:
+``decoder``, which puts Convolutional Occupancy Networks' grid decoder
+(``"convonet_grid"``, models/convonet.py) in the place of Projection and the
+IF-Net (``"ifnet"``, the default), and ``convonet``, that decoder's sizes.
 """
 
 from __future__ import annotations
@@ -95,6 +98,35 @@ class IFNetConfig:
 
 
 @dataclass(frozen=True)
+class ConvONetConfig:
+    """Convolutional Occupancy Networks' grid decoder (Peng et al., ECCV 2020;
+    github.com/autonomousvision/convolutional_occupancy_networks,
+    configs/pointcloud/room_grid64.yaml and the modules it names): a
+    local-pool PointNet into a grid^3 feature volume, a 3D U-Net over it and
+    a ResNet decoder of the sampled features.  The defaults are room_grid64's
+    sizes; its widths, which nothing varies, are constants of
+    models/convonet.py."""
+
+    grid: int = 64                # cells a side of the feature volume
+    unet_levels: int = 4
+    unet_fmaps: int = 32          # the U-Net's first level; doubled a level
+
+    @property
+    def fmaps(self) -> tuple:
+        return tuple(self.unet_fmaps * 2 ** i for i in range(self.unet_levels))
+
+
+#: the decoders SceneNet takes (Config.decoder)
+DECODERS = ("ifnet", "convonet_grid")
+
+
+def decoder_of(config) -> str:
+    """config.decoder, or "ifnet" for a configuration without the field (the
+    JAX package's Config, which the port's models and trainers also take)."""
+    return getattr(config, "decoder", "ifnet")
+
+
+@dataclass(frozen=True)
 class Config:
     """Full run configuration — one field per reference CLI flag
     (reference util/arguments.py:7-64)."""
@@ -166,7 +198,13 @@ class Config:
     dp: int = 1                       # data-parallel mesh size
     sp: int = 1                       # point-sharding mesh size
 
+    # the decoder (new; the reference has the IF-Net only)
+    decoder: str = "ifnet"
+    convonet: ConvONetConfig = ConvONetConfig()
+
     def __post_init__(self):
+        if self.decoder not in DECODERS:
+            raise ValueError(f"decoder must be one of {DECODERS}, got {self.decoder!r}")
         object.__setattr__(self, "kernel_size", _triple(tuple(self.kernel_size)))
         object.__setattr__(self, "sigma", _triple(tuple(self.sigma)))
         if self.seed == -1:

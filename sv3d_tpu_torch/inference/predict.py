@@ -120,9 +120,14 @@ def predict(config, model, rgb=None, distance=None, intrinsics=None):
 
     rgb: (H, W, 3) normalized float32, or None with a distance map for the
     GT-depth pipeline.  Runs under inference_mode with TF32 off, so f32
-    convs and matmuls are full f32 like the JAX package's."""
+    convs and matmuls are full f32 like the JAX package's.  A config of
+    another decoder than the IF-Net raises ValueError."""
+    from sv3d_tpu_torch.config import decoder_of
     from sv3d_tpu_torch.geometry.camera import distance_to_depth
 
+    if decoder_of(config) != "ifnet":
+        raise ValueError(f"predict serves the IF-Net's field; decoder {decoder_of(config)!r} "
+                         "has no serving path")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = model.project.sigma.device

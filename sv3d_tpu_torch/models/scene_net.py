@@ -2,7 +2,10 @@
 sv3d_tpu/models/scene_net.py): RGB -> depth -> point cloud -> voxel
 occupancy -> IF-Net occupancy logits at query points (forward, training),
 or the dense lattice (serving, through predict_depth / project_depth /
-project and ifnet.query_lattice).
+project and ifnet.query_lattice).  Under Config(decoder="convonet_grid") the
+point cloud goes to Convolutional Occupancy Networks' grid decoder
+(models/convonet.py) in the place of project and ifnet, in training only,
+at precision 32.
 
 config.precision 16 is the JAX package's mixed precision: the UNet and the
 IF-Net conv stages compute in bf16 (config.dtype) on f32 parameters, so a
@@ -15,10 +18,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sv3d_tpu_torch.config import Config
+from sv3d_tpu_torch.config import Config, decoder_of
 from sv3d_tpu_torch.geometry.camera import Intrinsics
 from sv3d_tpu_torch.geometry.frustum import FrustumGrid
 from sv3d_tpu_torch.geometry.transforms import depthmap_to_gridspace, norm_grid_space
+from sv3d_tpu_torch.models.convonet import ConvONet
 from sv3d_tpu_torch.models.ifnet import IFNet
 from sv3d_tpu_torch.models.mixed import widen
 from sv3d_tpu_torch.models.projection import Projection
@@ -26,9 +30,10 @@ from sv3d_tpu_torch.models.unet import UNet, UNetMini, renormalize_depth, resize
 
 
 class SceneNet(nn.Module):
-    """unet (absent under config.skip_unet), project and ifnet, with weights
-    drawn from generator and the module placed on device; the unet and
-    ifnet compute in bf16 at config.precision 16."""
+    """unet (absent under config.skip_unet), project and ifnet (or, under
+    config.decoder "convonet_grid", convonet), with weights drawn from
+    generator and the module placed on device; the unet and ifnet compute
+    in bf16 at config.precision 16."""
 
     def __init__(self, config: Config, intrinsics: Intrinsics, frustum: FrustumGrid,
                  device=None, generator: torch.Generator | None = None):
@@ -40,8 +45,21 @@ class SceneNet(nn.Module):
         if not config.skip_unet:
             unet_cls = UNet if config.resize_input else UNetMini
             self.unet = unet_cls(channels_out=1, device=device, generator=generator, dtype=dt)
-        self.project = Projection(config.projection(), device=device)
-        self.ifnet = IFNet(config.ifnet(), device=device, generator=generator, dtype=dt)
+        self.decoder = decoder_of(config)
+        if self.decoder == "convonet_grid":
+            if config.precision != 32:
+                raise ValueError(f"decoder {self.decoder!r} trains at precision 32 only, "
+                                 f"got {config.precision}")
+            self.convonet = ConvONet(config.convonet, device=device, generator=generator)
+        else:
+            self.project = Projection(config.projection(), device=device)
+            self.ifnet = IFNet(config.ifnet(), device=device, generator=generator, dtype=dt)
+
+    @property
+    def sigma(self):
+        """The projection's learnable sigma, or None where the decoder takes
+        the point cloud itself (convonet_grid)."""
+        return self.project.sigma if self.decoder == "ifnet" else None
 
     def predict_depth(self, rgb: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalized RGB -> (B, 240, 320) renormalized depth
@@ -64,11 +82,13 @@ class SceneNet(nn.Module):
         above H*W the whole cloud is.  point_slice (a multi-GPU mesh rank's
         share, Mesh.point_slice) cuts the query set to that slice of its
         points, and point_cloud_out to the cloud points inside it; the
-        pyramid is computed whole.  BatchNorm follows the module's mode."""
+        pyramid is computed whole.  BatchNorm follows the module's mode.
+        Under decoder "convonet_grid" the whole cloud is ConvONet's input in
+        the place of the voxel grid."""
         cfg = self.config
         depthmap = depth_target if cfg.skip_unet else self.predict_depth(rgb)
         point_cloud = self.project_depth(depthmap)
-        voxel_occupancy = self.project(point_cloud)
+        voxel_occupancy = self.project(point_cloud) if self.decoder == "ifnet" else None
 
         n_cloud = self.cloud_queries(depthmap)
         if 0 < n_cloud < point_cloud.shape[1]:
@@ -82,7 +102,10 @@ class SceneNet(nn.Module):
             query_points = query_points[:, point_slice]
             queried = queried[:, point_slice.start:max(min(point_slice.stop, n_cloud),
                                                       point_slice.start)]
-        logits = self.ifnet(voxel_occupancy, query_points)
+        if voxel_occupancy is None:
+            logits = self.convonet(point_cloud, query_points)
+        else:
+            logits = self.ifnet(voxel_occupancy, query_points)
         return logits, depthmap, queried if n_cloud else point_cloud
 
     def cloud_queries(self, depthmap: torch.Tensor) -> int:

@@ -5,8 +5,9 @@
                 and its output's gradient dy (B, Cout, D, H, W)
 
 It replaces no TPU kernel (the JAX package leaves its convolutions to XLA):
-the IF-Net pyramid's f32 training step takes its convs' weight gradients
-here instead of from cuDNN (models/ifnet.py::_PyramidConv).  A CPU tensor
+the f32 training step takes the weight gradients of the IF-Net pyramid's
+convs and of ConvONet's U-Net's here instead of from cuDNN
+(models/wgrad.py::WgradConv3d).  A CPU tensor
 of any float dtype runs the plain version, conv3d_wgrad_plain (aten's
 convolution_backward for the weight alone); a CUDA float32 tensor launches
 the kernel (conv3d_wgrad_cuda), and any other CUDA dtype raises.

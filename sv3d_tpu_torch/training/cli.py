@@ -1,7 +1,9 @@
 """CLI flag parsing -> (Config, device) for the port's trainers.
 
 The parser is a copy of sv3d_tpu/training/cli.py's build_parser, flag for
-flag, plus --device.  A copy, not an import, because importing
+flag, plus --device and --decoder (Config.decoder: the IF-Net, or
+Convolutional Occupancy Networks' grid decoder at room_grid64's widths).
+A copy, not an import, because importing
 sv3d_tpu.training.cli runs sv3d_tpu/training/__init__.py, which imports flax
 and optax.  parse_config joins the process group first, as the JAX
 package's joins its cluster: under torchrun, or with the three cluster
@@ -19,7 +21,7 @@ import argparse
 
 import torch
 
-from sv3d_tpu_torch.config import DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
+from sv3d_tpu_torch.config import DECODERS, DEFAULT_MAX_Z, DEFAULT_MIN_Z, Config
 from sv3d_tpu_torch.parallel.mesh import check_world
 from sv3d_tpu_torch.parallel.multihost import initialize_distributed, local_device
 
@@ -84,6 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--decoder", type=str, default="ifnet", choices=DECODERS,
+                   help="ifnet (the default), or convonet_grid: Convolutional "
+                   "Occupancy Networks' grid decoder on the back-projected depth")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default cuda; fails if absent)")
     return p

@@ -7,7 +7,10 @@ sv3d_tpu/training/trainer_scene_net.py).
 Losses: ce_loss = mean BCE-with-logits over all query points, mse_depth_loss
 = mean squared depth error, loss = ce + mse (ce alone under no_depth_sup),
 mesh_ce_loss = BCE over the mesh-sampled supervision points only, point_iou
-at logit 0; the three sigma components are logged too.
+at logit 0; the three sigma components are logged too, where the model has
+the projection's sigma (not under Config.decoder "convonet_grid", whose model
+trains in one Adam group, and whose visualization and test split this
+trainer does not serve: they raise ValueError).
 
 subsample_points > 0 adds a random subset of the projected cloud to the
 query set and labels it on the host against the GT mesh.  The labels belong
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sv3d_tpu_torch.config import Config
+from sv3d_tpu_torch.config import Config, decoder_of
 from sv3d_tpu_torch.data.datasets import SceneNetDataset
 from sv3d_tpu_torch.geometry import FrustumGrid, read_intrinsics
 from sv3d_tpu_torch.models.scene_net import SceneNet
@@ -52,7 +55,8 @@ def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma
     every rank: ce and mse the means of the ranks' means, mesh_ce and
     point_iou ratios of all-reduced sums and counts.  supervised_from: the
     first query column of mesh_ce's supervision points (default
-    config.subsample_points; a rank's slice starts elsewhere)."""
+    config.subsample_points; a rank's slice starts elsewhere).  sigma None
+    (a model without the projection): no sigma metrics."""
     ce = F.binary_cross_entropy_with_logits(logits, occupancies)
     mse = torch.mean((depth - depth_target) ** 2)
     loss = ce + mse
@@ -78,12 +82,13 @@ def scene_losses(config: Config, logits, occupancies, depth, depth_target, sigma
         ce_all, mse_all = (totals[:2] / mesh.size).to(ce.dtype)
         mesh_ce = (totals[2] / totals[3]).to(ce.dtype) if config.subsample_points > 0 else ce_all
         point_iou = (totals[4] / totals[5].clamp(min=1)).float()
-    sigma = sigma.detach()
     metrics = {
         "ce_loss": ce_all, "mse_depth_loss": mse_all, "mesh_ce_loss": mesh_ce,
         "point_iou": point_iou, "loss": ce_all + mse_all,
-        "sigma_x": sigma[2], "sigma_y": sigma[1], "sigma_z": sigma[0],
     }
+    if sigma is not None:
+        sigma = sigma.detach()
+        metrics.update(sigma_x=sigma[2], sigma_y=sigma[1], sigma_z=sigma[0])
     return (ce if config.no_depth_sup else loss), metrics
 
 
@@ -122,7 +127,7 @@ def scene_forward(model: SceneNet, config: Config, batch: dict, subsample_idx=No
         labels = label_fn(pc.detach(), batch) if pc.shape[1] else occ[:, :0]
         occ = torch.cat([labels.to(occ), occ], dim=1)
     loss, metrics = scene_losses(config, logits, occ, depth, batch["depthmap_target"],
-                                 model.project.sigma, mesh, local_s)
+                                 model.sigma, mesh, local_s)
     return loss, metrics, (logits, depth, pc, occ)
 
 
@@ -277,7 +282,16 @@ class SceneNetTrainer(BaseTrainer):
         _, metrics, _ = self._eval_forward(state, batch, self.mesh)
         return _prefixed("val", metrics)
 
+    def _served(self, what: str) -> None:
+        """Raise ValueError unless the decoder is one whose field this
+        trainer meshes (the IF-Net's)."""
+        decoder = decoder_of(self.config)
+        if decoder != "ifnet":
+            raise ValueError(f"{what} meshes the IF-Net's field; decoder {decoder!r} has no "
+                             "serving path")
+
     def visualize(self, state, batch, out_dir: Path):
+        self._served("visualize")
         from sv3d_tpu_torch.utils.visualize import (
             visualize_depthmap,
             visualize_grid,
@@ -313,6 +327,7 @@ class SceneNetTrainer(BaseTrainer):
         other), and rank 0 writes."""
         from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 
+        self._served("test")
         state = self.distribute(load_state_from_checkpoint(self.build_state(), checkpoint))
         loader = self._loader(self.test_dataset(), shuffle=False, drop_last=False, sliced=False)
         out_dir = self.exp_dir / "test_vis"

@@ -1,5 +1,6 @@
-"""The IF-Net pyramid's conv weight gradient (sv3d_tpu_torch/ops/cuda/
-conv3d_wgrad.py and its route in models/ifnet.py::_ConvBlock): the plain
+"""The f32 conv weight gradient of training (sv3d_tpu_torch/ops/cuda/
+conv3d_wgrad.py and its route, models/wgrad.py::WgradConv3d, in
+models/ifnet.py::_ConvBlock and ConvONet's U-Net): the plain
 version against autograd's through F.conv3d in float64, the autograd
 Function's three gradients against nn.Conv3d's, where the route is taken
 and where not, the step's counted operations with and without it, and the
@@ -16,8 +17,8 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from sv3d_tpu_torch.config import IFNetConfig
-from sv3d_tpu_torch.models import ifnet as ifnet_mod
 from sv3d_tpu_torch.models.ifnet import IFNet, _ConvBlock
+from sv3d_tpu_torch.models.wgrad import WgradConv3d
 from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import (
     NARROW,
     SMEM_PER_BLOCK,
@@ -59,7 +60,7 @@ def test_function_gradients_are_conv3ds(dtype, x_grad):
     x = torch.randn((2, 4, 5, 3, 6), dtype=dtype, generator=gen)
     dy = torch.randn((2, 6, 5, 3, 6), dtype=dtype, generator=gen)
     grads = []
-    for run in (ifnet_mod._PyramidConv.apply, lambda x, w, b: layer(x)):
+    for run in (lambda x, w, b: WgradConv3d.apply(x, w, b, "ifnet"), lambda x, w, b: layer(x)):
         layer.zero_grad()
         xi = x.clone().requires_grad_(x_grad)
         run(xi, layer.weight, layer.bias).backward(dy)
@@ -76,13 +77,13 @@ def test_function_gradients_are_conv3ds(dtype, x_grad):
 
 def _count_applies(monkeypatch) -> list:
     calls = []
-    apply = ifnet_mod._PyramidConv.apply
+    apply = WgradConv3d.apply
 
     def counted(*args):
         calls.append(args[1].shape)
         return apply(*args)
 
-    monkeypatch.setattr(ifnet_mod._PyramidConv, "apply", counted)
+    monkeypatch.setattr(WgradConv3d, "apply", counted)
     return calls
 
 
@@ -144,6 +145,7 @@ def test_tracer_counts_the_convs_taken():
     counters = profiling.records()["counters"]
     assert counters.get("ifnet.wgrad") == 9  # the 128 pyramid's nine convs
     assert counters.get("ifnet.wgrad_kernel", 0) == 0  # the plain version on the CPU
+    assert not [k for k in counters if k.startswith("convonet.")]
     profiling.reset()
     bf16 = IFNet(IFNetConfig.for_net_res(128), generator=torch.Generator().manual_seed(0),
                  dtype=torch.bfloat16)
@@ -156,7 +158,9 @@ def test_tracer_counts_the_convs_taken():
 @pytest.mark.parametrize("shape,cout", [((4, 1, 139, 104, 112), 16), ((4, 16, 69, 52, 56), 32),
                                         ((4, 32, 139, 104, 112), 64), ((4, 64, 17, 13, 14), 128),
                                         ((4, 128, 8, 6, 7), 128), ((16, 1, 139, 104, 112), 16),
-                                        ((3, 20, 5, 7, 9), 40), ((1, 3, 1, 1, 1), 8)])
+                                        ((3, 20, 5, 7, 9), 40), ((1, 3, 1, 1, 1), 8),
+                                        ((32, 96, 64, 64, 64), 32), ((32, 32, 64, 64, 64), 32),
+                                        ((32, 384, 16, 16, 16), 128)])
 def test_plan_fits_the_kernel(shape, cout):
     b, cin, d, h, w = shape
     co_t, ci_t, rs, _, _ = NARROW if cin < 16 else WIDE
@@ -178,7 +182,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout", [((4, 1, 139, 104, 112), 16), ((4, 16, 69, 52, 56), 32),
-                                        ((4, 128, 8, 6, 7), 128), ((3, 20, 5, 7, 9), 40)])
+                                        ((4, 128, 8, 6, 7), 128), ((3, 20, 5, 7, 9), 40),
+                                        # ConvONet's U-Net at B=32: the longest sums, 8.4M
+                                        # voxels, and its widest conv
+                                        ((32, 96, 64, 64, 64), 32), ((32, 32, 64, 64, 64), 32),
+                                        ((32, 384, 16, 16, 16), 128)])
 def test_kernel_matches_plain_on_card(cuda_device, shape, cout):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, device=cuda_device, generator=gen)

@@ -29,6 +29,8 @@ from sv3d_tpu_torch.io.mesh import load_obj, save_obj
 
 ROOT = Path(__file__).resolve().parent.parent
 
+#: the port's Config fields that the JAX package's lacks, in their order
+PORT_ONLY = ("decoder", "convonet")
 CONFIGS = [dict(), dict(scale_factor=2), dict(scale_factor=8), dict(net_res=32),
            dict(fused_query=True), dict(inf_res=2), dict(net_res=32, scale_factor=2,
                                                          fused_query=True, precision=16)]
@@ -37,18 +39,22 @@ CONFIGS = [dict(), dict(scale_factor=2), dict(scale_factor=8), dict(net_res=32),
 @pytest.mark.parametrize("kw", CONFIGS, ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items())
                          or "defaults")
 def test_config_matches_jax(kw):
-    """Field for field, dims, projection() and ifnet(), replace()."""
+    """Field for field, dims, projection() and ifnet(), replace(); the port's
+    two decoder fields, which the JAX package lacks, come last, the IF-Net
+    by default."""
     got, ref = tconfig.Config(seed=0, **kw), jconfig.Config(seed=0, **kw)
-    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    ported = lambda c: {k: v for k, v in dataclasses.asdict(c).items() if k not in PORT_ONLY}
+    assert ported(got) == dataclasses.asdict(ref)
+    assert (got.decoder, got.convonet) == ("ifnet", tconfig.ConvONetConfig())
     assert got.dims == ref.dims
     assert dataclasses.asdict(got.projection()) == dataclasses.asdict(ref.projection())
     gi, ri = got.ifnet(), ref.ifnet()
     assert dataclasses.asdict(gi) == dataclasses.asdict(ri)
     assert (gi.feature_channels, gi.align_corners) == (ri.feature_channels, ri.align_corners)
-    assert dataclasses.asdict(got.replace(lr=3e-4)) == dataclasses.asdict(ref.replace(lr=3e-4))
+    assert ported(got.replace(lr=3e-4)) == dataclasses.asdict(ref.replace(lr=3e-4))
     assert got.dtype == (torch.float32 if got.precision == 32 else torch.bfloat16)
     assert [f.name for f in dataclasses.fields(tconfig.Config)] == [
-        f.name for f in dataclasses.fields(jconfig.Config)]
+        f.name for f in dataclasses.fields(jconfig.Config)] + list(PORT_ONLY)
     assert dataclasses.asdict(tconfig.IFNetConfig.for_net_res(32)) == dataclasses.asdict(
         jconfig.IFNetConfig.for_net_res(32))
 

@@ -101,12 +101,14 @@ def smoke_data(tmp_path_factory):
 
 def port_config(cfg, **kw):
     """The port's Config with the fields of cfg (the JAX package's, field for
-    field), replaced by kw: the port's Config.dtype is a torch dtype."""
+    field; the port's decoder fields, which it lacks, at their defaults),
+    replaced by kw: the port's Config.dtype is a torch dtype."""
     from dataclasses import fields
 
     from sv3d_tpu_torch.config import Config as PortConfig
 
-    return PortConfig(**{**{f.name: getattr(cfg, f.name) for f in fields(PortConfig)}, **kw})
+    return PortConfig(**{**{f.name: getattr(cfg, f.name) for f in fields(PortConfig)
+                            if hasattr(cfg, f.name)}, **kw})
 
 
 def _inputs(b=2, n=64, seed=0):
