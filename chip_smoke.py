@@ -70,6 +70,21 @@ that each ran its kernels:
             with and without cudnn.benchmark.  The f32 train steps'
             profiles (phases 11 and 18) must hold it and not cuDNN's direct
             weight-gradient kernel.
+  dgrad     phase 26: the f32 conv input-gradient kernel
+            (csrc/conv3d_dgrad.cu) at ConvONet's room_grid64 U-Net's 14
+            shapes (B=32 on 64^3 to 8^3, NCDHW as the U-Net hands them) and
+            four ragged ones, held to float64 by input channel and to itself
+            (equal bits), and timed beside its bound (the weight gradient's:
+            the same operations and bytes) and cuDNN's input gradient with
+            and without cudnn.benchmark, on NCDHW and on channels-last dy;
+            one f32 IF-Net 128 train step at B=4 shows which input
+            gradients the route gives the kernel (a channels-last dy keeps
+            cuDNN's), and where it takes any, their nine shapes are held and
+            timed too.  One f32 ConvONet room_grid64 SceneNetTrainer step
+            at B=32 must launch the dgrad and wgrad kernels 14 times each
+            (the IF-Net fit paths above none of dgrad), and its warm step is
+            timed as the port runs it, with dx from cuDNN on NCDHW, with the
+            U-Net's input channels-last, and with every conv channels-last.
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -1470,11 +1485,13 @@ def k1b_timings(args: dict) -> dict:
 
 def _counters():
     """The training path's kernels' wrappers (launch_counters' names; wgrad
-    is the f32 pyramid convs' weight gradient)."""
+    and dgrad are the f32 3x3x3 convs' weight and input gradients: the
+    IF-Net's convs take the weight gradient's kernel alone, ConvONet's
+    U-Net's both)."""
     from sv3d_tpu_torch.ops.cuda import launch_counters
 
     return {k: v for k, v in launch_counters().items()
-            if k in ("K1", "K1b", "K4", "K7", "K8", "wgrad")}
+            if k in ("K1", "K1b", "K4", "K7", "K8", "wgrad", "dgrad")}
 
 
 def train_kernel_checks(model, dev, rng, k1b_points: dict, n_query: int = 4096) -> dict:
@@ -2010,9 +2027,12 @@ def ifnet_fit_phase(cfg, counters) -> dict:
           f"predicted {pred_faces} faces (level 0.5), GT {len(gt.faces)} faces in "
           f"[{gt.vertices.min(axis=0).round(2).tolist()}, "
           f"{gt.vertices.max(axis=0).round(2).tolist()}] (target {target.shape})", flush=True)
-    # the step asks no gradient of its points (data), so K7 has nothing to do
-    check(all(n > 0 for k, n in launches.items() if k != "K7") and launches.get("K7", 0) == 0,
-          f"the IF-Net-only path did not run K4, K8 and K2 bf16 (and not K7): {launches}")
+    # the step asks no gradient of its points (data), so K7 has nothing to do;
+    # the pyramid's convs hand their gradients channels-last, so dgrad neither
+    check(all(n > 0 for k, n in launches.items() if k not in ("K7", "dgrad"))
+          and launches.get("K7", 0) == 0 and launches.get("dgrad", 0) == 0,
+          f"the IF-Net-only path did not run K4, K8 and K2 bf16 (and not K7 and dgrad): "
+          f"{launches}")
     check(state.step == 12 and len(losses) == 2 and bool(np.isfinite(losses).all())
           and len(vals) == 2 and bool(np.isfinite(vals).all()),
           "the IF-Net-only fit did not log finite losses and two validations")
@@ -2375,6 +2395,234 @@ def wgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
     return rows
 
 
+# ragged shapes for the input gradient, (B, Cin, D, H, W) and Cout: W not a
+# multiple of 4 (4-byte copies), channel counts that fill no tile, both
+# instances, one voxel
+DGRAD_RAGGED = (((3, 20, 5, 7, 9), 40), ((2, 36, 3, 9, 12), 12), ((2, 128, 9, 7, 30), 64),
+                ((1, 8, 1, 1, 1), 3))
+
+
+def ifnet_dgrad_route(b: int = 4) -> dict:
+    """The tracer's counters of one f32 IF-Net 128 train step's backward at
+    B=b on the full grid: ifnet.dgrad (input gradients taken) and
+    ifnet.dgrad_kernel (those the kernel computed)."""
+    from sv3d_tpu_torch.config import IFNetConfig
+    from sv3d_tpu_torch.models.ifnet import IFNet
+    from sv3d_tpu_torch.utils import profiling
+
+    model = IFNet(IFNetConfig.for_net_res(128), device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grid = torch.rand((b, 139, 104, 112, 1), device="cuda", generator=gen).requires_grad_()
+    points = torch.rand((b, 2048, 3), device="cuda", generator=gen) - 0.5
+    profiling.reset()
+    with profiling.enabled():
+        model(grid, points).square().sum().backward()
+    torch.cuda.synchronize()
+    counters = profiling.records()["counters"]
+    profiling.reset()
+    return {k: counters.get(k, 0) for k in ("ifnet.dgrad", "ifnet.dgrad_kernel")}
+
+
+def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
+    """The conv input-gradient kernel at shapes ([(name, (B, Cin, D, H, W),
+    Cout)], what names them) and at ragged, NCDHW: held to float64 (each
+    input channel within WGRAD_RTOL of its norm; the f32 plain version's
+    difference printed beside) and to itself (two calls, equal bits), one
+    launch counted a call; at shapes CUDA-event ms of calls back to back, in
+    turns (kernel, plain = cuDNN's input gradient as the port ran it before,
+    cuDNN under cudnn.benchmark, cuDNN on channels-last dy and x as a
+    channels-last U-Net would hand them, without and with cudnn.benchmark,
+    kernel), beside the bound.  Returns {name: row}."""
+    from sv3d_tpu_torch.models.wgrad import _aten_backward
+    from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import conv3d_dgrad_cuda, conv3d_dgrad_plain, plan
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_ci = lambda a, r: float(((a - r).transpose(0, 1).flatten(1).norm(dim=1)
+                                 / r.transpose(0, 1).flatten(1).norm(dim=1).clamp_min(1e-30))
+                                .max())
+    rows = {}
+    for name, shape, cout in shapes + [(f"ragged{i}", s, c) for i, (s, c) in
+                                       enumerate(ragged)]:
+        dy = torch.randn((shape[0], cout, *shape[2:]), device="cuda", generator=gen)
+        w = torch.randn((cout, shape[1], 3, 3, 3), device="cuda", generator=gen)
+        before = conv3d_dgrad_cuda.launches
+        got = conv3d_dgrad_cuda(dy, w, shape)
+        again = conv3d_dgrad_cuda(dy, w, shape)
+        ref = conv3d_dgrad_plain(dy, w, shape)
+        ref64 = conv3d_dgrad_plain(dy.double(), w.double(), shape)
+        torch.cuda.synchronize()
+        row = {"shape": shape, "cout": cout, "plan": plan(tuple(shape)),
+               "err": per_ci(got.double(), ref64), "plain_err": per_ci(ref.double(), ref64),
+               "same_bits": bool(torch.equal(got, again)),
+               "launches": conv3d_dgrad_cuda.launches - before}
+        del ref64, got, again, ref
+        if not name.startswith("ragged"):
+            kernel = lambda: conv3d_dgrad_cuda(dy, w, shape)
+            plain = lambda: conv3d_dgrad_plain(dy, w, shape)
+            k1 = cuda_ms(lambda: [kernel() for _ in range(10)], reps=3) / 10
+            row["plain_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], warmup=1, reps=3) / 3
+            cl = torch.channels_last_3d
+            x_cl = torch.empty(shape, device="cuda", memory_format=cl)
+            dy_cl = dy.contiguous(memory_format=cl)
+            cudnn_cl = lambda: _aten_backward(dy_cl, x_cl, w, [True, False, False])[0]
+            check(cudnn_cl().is_contiguous(memory_format=cl),
+                  f"cuDNN's input gradient at {name} on channels-last dy is not channels-last")
+            row["cl_ms"] = cuda_ms(lambda: [cudnn_cl() for _ in range(3)], warmup=1, reps=3) / 3
+            torch.backends.cudnn.benchmark = True
+            try:
+                row["library_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], reps=3) / 3
+                row["cl_library_ms"] = cuda_ms(lambda: [cudnn_cl() for _ in range(3)],
+                                               reps=3) / 3
+            finally:
+                torch.backends.cudnn.benchmark = False
+            del x_cl, dy_cl
+            row["ms"] = cuda_ms(lambda: [kernel() for _ in range(10)], reps=3) / 10
+            row["ms_turns"] = (k1, row["ms"])
+            row["bound"] = wgrad_bound(shape, cout)
+        rows[name] = row
+        del dy, w
+        torch.cuda.empty_cache()
+    print(f"conv input gradient (csrc/conv3d_dgrad.cu) on {smi}, f32 (TF32 off), {what}:",
+          flush=True)
+    for name, r in rows.items():
+        line = (f"  {name} {r['shape']} <- {r['cout']}: plan (ncg, td, th, wtile) {r['plan']}; "
+                f"max rel err by input channel against float64 {r['err']:.2e} (tol "
+                f"{WGRAD_RTOL:g}; cuDNN's f32 {r['plain_err']:.2e}); same bits "
+                f"{r['same_bits']}; launches {r['launches']}")
+        if "ms" in r:
+            line += (f"; kernel {r['ms']:.4f} ms (turns {r['ms_turns'][0]:.4f}), bound "
+                     f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                     f"{100.0 * r['bound'][0] / r['ms']:.1f}%), plain (cuDNN) "
+                     f"{r['plain_ms']:.4f} ms, cudnn.benchmark {r['library_ms']:.4f} ms; "
+                     f"cuDNN channels-last {r['cl_ms']:.4f} ms, cudnn.benchmark "
+                     f"{r['cl_library_ms']:.4f} ms")
+        print(line, flush=True)
+    timed = [r for r in rows.values() if "ms" in r]
+    total = lambda key: sum(r[key] for r in timed)
+    print(f"  the {len(timed)}: kernel {total('ms'):.4f} ms, bound "
+          f"{sum(r['bound'][0] for r in timed):.4f} ms, plain {total('plain_ms'):.4f} ms, "
+          f"cudnn.benchmark {total('library_ms'):.4f} ms; cuDNN channels-last "
+          f"{total('cl_ms'):.4f} ms, cudnn.benchmark {total('cl_library_ms'):.4f} ms",
+          flush=True)
+    for name, r in rows.items():
+        check(r["err"] <= WGRAD_RTOL, f"the dgrad kernel disagrees with float64 at {name}: "
+                                      f"{r['err']}")
+        check(r["same_bits"] and r["launches"] == 2,
+              f"the dgrad kernel at {name}: same bits {r['same_bits']}, {r['launches']} "
+              "launches for 2 calls")
+    return rows
+
+
+def _unet_layout_variants() -> dict:
+    """ConvONet's train step as the port runs it and in three other layouts
+    or routes of the U-Net's 3x3x3 convs, as {name: (object, attribute,
+    value) to patch in} (None: the port): dx from cuDNN on the NCDHW dy (the
+    route before the dgrad kernel); the U-Net's input made channels-last
+    (the one-line layout change); every routed conv's x and dy made
+    channels-last (copied where GroupNorm and the skips hand NCDHW), so that
+    dx comes from cuDNN's channels-last path and the weight gradient's
+    kernel reads both as they are."""
+    from sv3d_tpu_torch.models import convonet
+    from sv3d_tpu_torch.models.wgrad import WgradConv3d, _aten_backward
+    from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_wgrad
+
+    cl = torch.channels_last_3d
+
+    class AtenDgrad(WgradConv3d):
+        @staticmethod
+        def backward(ctx, dy):
+            x, weight = ctx.saved_tensors
+            return (_aten_backward(dy, x, weight, [True, False, False])[0],
+                    conv3d_wgrad(x, dy), None, None)
+
+    class ChannelsLast(WgradConv3d):
+        @staticmethod
+        def forward(ctx, x, weight, bias, prefix):
+            return WgradConv3d.forward(ctx, x.contiguous(memory_format=cl), weight, bias, prefix)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return WgradConv3d.backward(ctx, dy.contiguous(memory_format=cl))
+
+    unet_forward = convonet.UNet3D.forward
+    return {"port": None,
+            "dx from cuDNN, NCDHW": (convonet, "WgradConv3d", AtenDgrad),
+            "U-Net input channels-last": (
+                convonet.UNet3D, "forward",
+                lambda self, x: unet_forward(self, x.contiguous(memory_format=cl))),
+            "every conv channels-last": (convonet, "WgradConv3d", ChannelsLast)}
+
+
+def convonet_step_phase(data_root: Path, smi, b: int = 32) -> dict:
+    """ConvONet's room_grid64 (ConvONetConfig's widths) trained by
+    SceneNetTrainer in f32 at B=b on the smoke tree: one train step with the
+    launch counters set to 0 just before it and the tracer on, which must
+    take all 14 of the U-Net's input and weight gradients from the kernels;
+    then the warm step (CUDA events, median of 5 after 2 warm-ups) and its
+    peak memory in each of _unet_layout_variants(), in turns with the port
+    first and last, each with the tracer's count of the input gradients
+    that took the kernel.  Returns {"launches", "route", "variants"}."""
+    from sv3d_tpu_torch.config import Config, ConvONetConfig
+    from sv3d_tpu_torch.data.loader import collate
+    from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
+    from sv3d_tpu_torch.utils import profiling
+
+    cfg = Config(seed=0, scale_factor=1, batch_size=b, num_points=1024, subsample_points=0,
+                 fused_query=False, decoder="convonet_grid", convonet=ConvONetConfig(),
+                 splitsdir="overfit", datasetdir=str(data_root), sanity_steps=0,
+                 experiment="smoke_convonet")
+    torch.cuda.empty_cache()
+    trainer = SceneNetTrainer(cfg, device="cuda", experiment_dir=WORK / "convonet_step")
+    ds = trainer.train_dataset()
+    batch = collate([ds[i % len(ds)] for i in range(b)])
+    state = trainer.build_state()
+    gen = torch.Generator().manual_seed(0)
+    step = lambda: trainer.train_step(state, batch, gen)
+
+    def traced(fn) -> dict:
+        profiling.reset()
+        with profiling.enabled():
+            fn()
+        torch.cuda.synchronize()
+        counters = profiling.records()["counters"]
+        profiling.reset()
+        return {k: counters.get(k, 0) for k in ("convonet.dgrad", "convonet.dgrad_kernel",
+                                                 "convonet.wgrad", "convonet.wgrad_kernel")}
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    route = traced(step)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"ConvONet room_grid64 f32 train step at B={b} (SceneNetTrainer.train_step): "
+          f"launches {launches}, tracer {route}", flush=True)
+    check(launches["dgrad"] == 14 and launches["wgrad"] == 14
+          and all(n == 14 for n in route.values()),
+          f"the ConvONet step did not take its 14 input and weight gradients from the kernels: "
+          f"launches {launches}, tracer {route}")
+
+    variants = _unet_layout_variants()
+    out = {}
+    for name in ["port", *[k for k in variants if k != "port"], "port"]:
+        def measure():
+            kernel = traced(step)["convonet.dgrad_kernel"]
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, reps=5)
+            return ms, torch.cuda.max_memory_allocated() / 2 ** 30, kernel
+        ms, peak, kernel = _run_variant(variants[name], measure)
+        row = out.setdefault(name, {"ms": [], "peak_gib": peak, "dgrad_kernel": kernel})
+        row["ms"].append(ms)
+    print(f"ConvONet's f32 step at B={b} on {smi}, by the U-Net convs' layout and route (CUDA "
+          "events, median of 5, the port first and last):", flush=True)
+    for name, r in out.items():
+        print(f"  {name}: {', '.join(f'{m:.2f}' for m in r['ms'])} ms, peak {r['peak_gib']:.2f} "
+              f"GiB, {r['dgrad_kernel']} of 14 input gradients the kernel's", flush=True)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "route": route, "variants": out}
+
+
 def serving_p16_phase(ckpt: Path, rgb_png: Path, intrinsics: Path, rgb, smi,
                       extra=()) -> dict:
     """Phase 19, serving at precision 16 (bf16 UNet and IF-Net convs): the
@@ -2529,8 +2777,10 @@ def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) 
         want = {"scene": ("K1", "K1b", "K4", "K7", "K8"), "ifnet": ("K4", "K8", "K2"),
                 "unet": ()}[kind]
         check(state.step == 4 and all(launches[k] > 0 for k in want)
-              and (kind != "ifnet" or launches["K7"] == 0) and launches["wgrad"] == 0,
-              f"the precision-16 {name} fit did not run its kernels (and not the f32 wgrad): "
+              and (kind != "ifnet" or launches["K7"] == 0) and launches["wgrad"] == 0
+              and launches["dgrad"] == 0,
+              f"the precision-16 {name} fit did not run its kernels (and not the f32 wgrad "
+              f"and dgrad): "
               f"{launches}")
         gen = torch.Generator().manual_seed(0)
         batch = batches[kind] if kind in batches else fixed_batch(trainer, cfg.batch_size)
@@ -2768,8 +3018,10 @@ def world2_checks(w2: dict, counted: bool = True) -> None:
     the single-process fit and the lattice and the points are bit-equal."""
     if counted:
         for path, counts in w2["launches"].items():
-            check(all(n > 0 for ns in counts.values() for n in ns),
-                  f"a kernel of the world-2 {path} path never ran in a rank: {counts}")
+            check(all(n > 0 for k, ns in counts.items() if k != "dgrad" for n in ns)
+                  and not any(counts.get("dgrad", ())),
+                  f"a kernel of the world-2 {path} path never ran in a rank (or the dgrad "
+                  f"kernel ran: the IF-Net's convs keep cuDNN's): {counts}")
         check(w2["launches"]["serving_sp2"]["K2"] == [1, 1],
               f"K2 bf16 did not run once in each rank: {w2['launches']['serving_sp2']}")
     for e in w2["fit"]:
@@ -3393,8 +3645,10 @@ def main() -> int:
     vals = [r["val_point_iou"] for r in recs if "val_point_iou" in r]
     print(f"training path: fit(max_steps=12) in {fit_s:.2f} s, launches {train_launches}, "
           f"logged train_loss {losses}, val_point_iou {vals}", flush=True)
-    check(all(n > 0 for n in train_launches.values()),
-          f"a kernel never ran on the training path: {train_launches}")
+    # the IF-Net's convs hand their gradients channels-last: cuDNN's input gradient
+    check(all(n > 0 for k, n in train_launches.items() if k != "dgrad")
+          and train_launches["dgrad"] == 0,
+          f"a kernel never ran on the training path (or the dgrad kernel did): {train_launches}")
     check(state.step == 12 and len(losses) >= 2 and bool(np.isfinite(losses).all())
           and len(vals) == 2, "fit did not log finite losses and two validations")
     last = WORK / "train" / "checkpoints" / "last"
@@ -3559,7 +3813,8 @@ def main() -> int:
     ifnet_cfg = Config(seed=0, net_res=128, scale_factor=1, batch_size=16, num_points=2048,
                        fused_query=True, visualize=True, sanity_steps=0, val_check_interval=6,
                        datasetdir=str(ifnet_root), splitsdir="overfit", experiment="smoke_ifnet")
-    ifnet_counters = {k: v for k, v in _counters().items() if k in ("K4", "K7", "K8", "wgrad")}
+    ifnet_counters = {k: v for k, v in _counters().items()
+                      if k in ("K4", "K7", "K8", "wgrad", "dgrad")}
     ifnet_counters["K2"] = lattice_sweep_bf16_cuda
     fit_ifnet = ifnet_fit_phase(ifnet_cfg, ifnet_counters)
     print(f"phase 13 in {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -3726,6 +3981,22 @@ def main() -> int:
         smi, unet3d_conv_shapes(32), "ConvONet's room_grid64 U-Net, B=32").items()})
     print(f"phase 25 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
+    # -- phase 26: the conv input gradient at the U-Net's shapes, and the IF-Net's route --
+    t_phase = time.perf_counter()
+    dgrad_rows = {f"convonet.{k}": r for k, r in dgrad_phase(
+        smi, unet3d_conv_shapes(32), "ConvONet's room_grid64 U-Net, B=32",
+        ragged=DGRAD_RAGGED).items()}
+    ifnet_route = ifnet_dgrad_route()
+    print(f"the IF-Net 128's f32 step at B=4: {ifnet_route['ifnet.dgrad']} input gradients, "
+          f"{ifnet_route['ifnet.dgrad_kernel']} of them the kernel's (the rest cuDNN's: "
+          "channels-last dy)", flush=True)
+    if ifnet_route["ifnet.dgrad_kernel"]:
+        dgrad_rows.update({f"ifnet.{k}": r for k, r in dgrad_phase(
+            smi, pyramid_conv_shapes(128, dims, 4), f"the IF-Net 128 pyramid, B=4 at {dims}")
+            .items()})
+    convonet_step = convonet_step_phase(data_root, smi)
+    print(f"phase 26 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
     measured = {
         # the random depth at the serving shape, as the row has always been
         # read (the box scene's numbers are its "box" key); launches on both
@@ -3873,6 +4144,24 @@ def main() -> int:
         "shapes": {name: {k: r[k] for k in ("shape", "cout", "err", "plain_err", "ms",
                                              "bound", "plain_ms", "library_ms") if k in r}
                    for name, r in wgrad_rows.items()}}}), flush=True)
+    # the conv input gradient (replaces no TPU kernel): the IF-Net step's route
+    # and its rows at the U-Net's shapes
+    print(json.dumps({"dgrad": {
+        "source": "sv3d_tpu_torch/csrc/conv3d_dgrad.cu",
+        "replaces": "none in the JAX package: XLA's conv input gradient",
+        "launches_by_path": {"fit": train_launches["dgrad"],
+                             "fit_ifnet": fit_ifnet["launches"]["dgrad"],
+                             "fit_p16": fit_p16["end to end"]["dgrad"],
+                             "fit_ifnet_p16": fit_p16["IF-Net-only"]["dgrad"],
+                             "fit_dp2": w2_total.get("dgrad", 0),
+                             "convonet_step_b32": convonet_step["launches"]["dgrad"]},
+        "ifnet_step_b4": ifnet_route,
+        "convonet_step_b32": {"route": convonet_step["route"],
+                              "layouts": convonet_step["variants"]},
+        "shapes": {name: {k: r[k] for k in ("shape", "cout", "err", "plain_err", "ms",
+                                             "bound", "plain_ms", "library_ms", "cl_ms",
+                                             "cl_library_ms") if k in r}
+                   for name, r in dgrad_rows.items()}}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

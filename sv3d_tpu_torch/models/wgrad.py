@@ -1,23 +1,38 @@
-"""The f32 3x3x3 convolutions of training whose weight gradient is the
-port's hand-written kernel's (ops/cuda/conv3d_wgrad.py): the IF-Net
-pyramid's (models/ifnet.py) and ConvONet's U-Net's (models/convonet.py)."""
+"""The f32 3x3x3 convolutions of training, both of whose gradients take
+the port's hand-written kernels: the weight gradient always
+(ops/cuda/conv3d_wgrad.py), the input gradient where the output's gradient
+arrives channel-major, NCDHW (ops/cuda/conv3d_dgrad.py; a channels-last one
+keeps cuDNN's).  The IF-Net pyramid's convs (models/ifnet.py) take the
+weight gradient's kernel alone, ConvONet's U-Net's (models/convonet.py)
+both."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import conv3d_dgrad
 from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_wgrad
 from sv3d_tpu_torch.utils.profiling import count
 
 
+def _aten_backward(dy, x, weight, mask):
+    return torch.ops.aten.convolution_backward(
+        dy, x, weight, [weight.shape[0]], [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1, mask)
+
+
 class WgradConv3d(torch.autograd.Function):
     """F.conv3d(x, weight, bias, padding=1), bias None or a tensor, whose
-    weight gradient is conv3d_wgrad's (the plain version on the CPU, the
-    kernel on the card); the input's and the bias's gradients stay aten's
-    (cuDNN on the card).  The tracer counts <prefix>.wgrad for each weight
-    gradient taken and <prefix>.wgrad_kernel for each one the kernel
-    computes; prefix is the model's ("ifnet", "convonet")."""
+    weight gradient is conv3d_wgrad's and input gradient conv3d_dgrad's or
+    aten's, by dy's layout (the ops run their plain versions on the CPU and
+    their kernels on the card).  The input gradient is conv3d_dgrad's where dy is
+    contiguous (NCDHW), and aten's (cuDNN on the card) where it arrives in
+    another layout (channels-last, as cuDNN hands the IF-Net pyramid's); the
+    bias's gradient stays aten's.  The tracer counts <prefix>.wgrad for each
+    weight gradient taken and <prefix>.wgrad_kernel for each one the kernel
+    computes, <prefix>.dgrad for each input gradient taken and
+    <prefix>.dgrad_kernel for each one its kernel computes; prefix is the
+    model's ("ifnet", "convonet")."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, prefix):
@@ -30,10 +45,16 @@ class WgradConv3d(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         need_x, need_w, need_b, _ = ctx.needs_input_grad
         dx = dw = db = None
-        if need_x or need_b:
-            dx, _, db = torch.ops.aten.convolution_backward(
-                dy, x, weight, [weight.shape[0]], [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
-                [need_x, False, need_b])
+        if need_x and dy.is_contiguous():
+            dx = conv3d_dgrad(dy, weight, list(x.shape))
+            if dy.is_cuda:
+                count(f"{ctx.prefix}.dgrad_kernel")
+            if need_b:
+                db = _aten_backward(dy, x, weight, [False, False, True])[2]
+        elif need_x or need_b:
+            dx, _, db = _aten_backward(dy, x, weight, [need_x, False, need_b])
+        if need_x:
+            count(f"{ctx.prefix}.dgrad")
         if need_w:
             dw = conv3d_wgrad(x, dy)
             count(f"{ctx.prefix}.wgrad")
