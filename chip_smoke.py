@@ -144,32 +144,37 @@ from sv3d_tpu_torch.bench.timing import (  # noqa: E402 (after the check above)
     profile_calls,
     window_kernels,
 )
+from sv3d_tpu_torch.ops.cuda import rel_mean_err  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import DGRAD_RTOL  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import WGRAD_RTOL  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.mlp import K3_BF16_REL_MEAN_TOL, K3_BF16_TOL, K3_TOL  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.point_query import (  # noqa: E402
+    K4_RTOL,
+    K5_ULP,
+    K6_BF16_REL_MEAN_TOL,
+    K6_BF16_TOL,
+    K6_RTOL,
+    K7_RTOL,
+    K8_RTOL,
+)
+from sv3d_tpu_torch.ops.cuda.sweep import K2_BF16_REL_MEAN_TOL, K2_BF16_TOL, K2_TOL  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.voxelize import K1B_RTOL, K1_TOL, base_voxels, k1_raw_tol  # noqa: E402
+from sv3d_tpu_torch.quality.box_scene import (  # noqa: E402
+    INTRINSICS,
+    degenerate_points,
+    iou_box_pair,
+    k1_atomics,
+    k1_points,
+    seeded_scene_net,
+    write_raw_tree,
+    write_smoke_dataset,
+)
 
-INTRINSICS = "[[277.128, 0., 159.5, 0.], [0., 277.128, 119.5, 0.], [0., 0., 1., 0.], [0., 0., 0., 1.]]"
-K1_TOL = 1e-5  # atomics sum in run-dependent order (csrc/voxelize.cu)
-K2_TOL = 1e-4  # K2 f32: FMA vs plain f32 contractions, summation order only (csrc/sweep.cu)
-# K2 bf16 against its plain bf16 version: the same rounding points (levels,
-# features, weights and hidden activations to bf16), f32 sums in another
-# order, so a value within f32 noise of a bf16 rounding boundary may round
-# either way: one bf16 ulp of a feature or a hidden activation.  atol on
-# logits; measured 4.8e-4 at |logit| <= 0.10 on the H100.  Such flips touch
-# a few of a point's roundings, so over the lattice the mean error stays far
-# below the logits' own scale: mean |error| <= K2_BF16_REL_MEAN_TOL x mean
-# |logit| (measured 1.2e-4).  A sweep that rounds at other points is off at
-# every point by about a rounding error, within the max limit but above the
-# mean one (plain_bf16_sweep with a rounding point left out; phase 3 shows
-# that both such sweeps fail).
-K2_BF16_TOL = 2e-3
-K2_BF16_REL_MEAN_TOL = 1e-3
 SLICE_TOL = 1e-4  # card vs CPU sigmoid grid of the small-scale slice, float32
 # the same in bf16 (the default); measured 9.2e-5 on the H100, the JAX
 # package's own mixed-precision bound is 2e-2
 SLICE_BF16_TOL = 1e-3
-# K1b, K4, K7, K8: the same f32 arithmetic in another summation order (FMA,
-# corner and channel order; K8's atomics add in a run-dependent order on
-# both sides, as the plain version's index_add is atomic too), 1e-5 of the
-# plain result's largest magnitude (K8 measured up to 2.9e-6 at full width).
-TRAIN_KERNEL_RTOL = {"K1b": 1e-5, "K4": 1e-5, "K7": 1e-5, "K8": 1e-5}
+TRAIN_KERNEL_RTOL = {"K1b": K1B_RTOL, "K4": K4_RTOL, "K7": K7_RTOL, "K8": K8_RTOL}
 # One f32 train step, on the card and on the CPU, each held to the same step
 # in float64 on the CPU; each bound relative to the float64 value's largest
 # magnitude.  Loss and BatchNorm statistics: 1e-4 (summation orders).
@@ -217,31 +222,6 @@ GRID_GRAD_RTOL = 2e-2
 # held to 1e-4 of their weight's gradient, and step up to lr either way.
 BN_FED_BIASES = ("unet.down.1.bias", "unet.down.2.bias", "unet.same.0.bias",
                  "unet.same.1.bias", "unet.same.2.bias")
-K3_TOL = 1e-4  # f32 FMA vs plain f32 contractions: summation order only (csrc/mlp.cu)
-# K3 in bf16 against its plain bf16 version: the same rounding points, f32
-# sums in another order, so a hidden activation may round the other way of a
-# bf16 boundary (K2 bf16's case); atol on logits.  Such flips are rare, so
-# mean |error| <= K3_BF16_REL_MEAN_TOL x mean |logit| (f64 sums instead of
-# f32 moved the mean by 2.3e-5 to 2.6e-5 in a CPU estimate on standard
-# normal features); a decoder that leaves the hidden rounding out is off at
-# every point (3.5e-3 to 4.0e-3 in the same estimate) and fails it
-# (plain_bf16_mlp with skip; the points phase shows it).
-K3_BF16_TOL = 2e-3
-K3_BF16_REL_MEAN_TOL = 3e-4
-K6_RTOL = 1e-5  # FMA order over at most 7 * 128 terms, of the largest |partial|
-# K6 bf16 against its plain bf16 version (the same rounding points: level,
-# feature, block and partial): f32 sums in another order may round a feature
-# or a partial the other way, one bf16 ulp (2^-8 of the partial at the top),
-# so max |error| <= K6_BF16_TOL x max |partial|; such flips are rare, so over
-# all the partials mean |error| <= K6_BF16_REL_MEAN_TOL x mean |partial|
-# (f64 sums instead of f32 moved the mean by ~2e-7 in a CPU estimate).  A
-# version that leaves one rounding point out is off at every partial by
-# about a rounding error (1.4e-3 to 2.7e-3 of the mean in the same estimate)
-# and fails the mean limit (plain_bf16_fc0 with skip; the points phase shows
-# it).
-K6_BF16_TOL = 1e-2
-K6_BF16_REL_MEAN_TOL = 1e-4
-K5_ULP = 2.0 ** -7  # one bf16 ulp: |d| <= 2^-7 |ref| + 1e-6
 POINTS_TOL = 1e-5  # the f32 evaluate_points routes and the gathers, and card vs CPU, on the sigmoid
 # the bf16 routes (K6 bf16, K5) against the f32 gathers and against each
 # other, on the sigmoid: the JAX package's bf16 point query is held to its
@@ -262,15 +242,6 @@ POINTS_BF16_CARD_TOL = 3e-4
 POINTS_BF16_REL_MEAN_TOL = 1.5e-3
 N_POINTS = 262144  # the JAX package's arbitrary-point measurement (bench.py)
 WORK = Path(__file__).resolve().parent / "build" / "sv3d_tpu_torch" / "smoke"
-
-# the one-scene dataset: an axis-aligned box (camera space, metres) in front
-# of a wall at WALL_Z
-BOX = ((-0.8, -0.9, 2.4), (0.9, 0.4, 4.0))
-WALL_Z = 5.5
-_BOX_FACES = np.array([
-    [0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
-    [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3],
-])
 
 
 def check(ok: bool, what: str) -> None:
@@ -299,234 +270,6 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     """(max abs error, max abs error / max(1e-30, max |ref|))."""
     err = float((got - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-30)
-
-
-def seeded_scene_net(config, device, seed):
-    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
-    from sv3d_tpu_torch.geometry.frustum import FrustumGrid
-    from sv3d_tpu_torch.models.scene_net import SceneNet
-
-    intr = parse_intrinsics(INTRINSICS)
-    frustum = FrustumGrid.create(intr, voxel_size=0.05 * config.scale_factor)
-    gen = torch.Generator().manual_seed(seed)
-    return SceneNet(config, intr, frustum, device=device, generator=gen).eval()
-
-
-def write_smoke_dataset(root, scale_factor: int = 1, seed: int = 0,
-                        n_points: int = 20000) -> Path:
-    """A seeded one-scene dataset tree in the layout SceneNetDataset reads:
-    intrinsics.txt, splits/overfit/{train,val}.txt, raw/overfit/00000/
-    {rgb.png, distance.exr, mesh.obj} and processed/overfit/00000/
-    occupancy_{0.10,0.01}.npz.  The scene is BOX before a wall, rendered
-    exactly (ray-box distances); the mesh is the box in the voxel-index space
-    of the grid that Config(scale_factor=scale_factor) trains on; the
-    supervision points are box-surface samples with N(0, sigma) noise plus
-    10% uniform points, labelled against the mesh.  Returns root."""
-    from sv3d_tpu_torch.config import Config
-    from sv3d_tpu_torch.data.splits import write_split
-    from sv3d_tpu_torch.io.mesh import TriMesh, save_obj
-    from sv3d_tpu_torch.preprocessing.occupancies import _normalize_mesh, determine_occupancy
-
-    rng = np.random.default_rng(seed)
-    root = Path(root)
-    item = "00000"
-    raw = root / "raw" / "overfit" / item
-    proc = root / "processed" / "overfit" / item
-    raw.mkdir(parents=True, exist_ok=True)
-    proc.mkdir(parents=True, exist_ok=True)
-    (root / "intrinsics.txt").write_text(INTRINSICS)
-    for split in ("train", "val"):
-        write_split(root, "overfit", split, [item])
-
-    write_box_view(raw, rng)
-    dims = Config(seed=seed, scale_factor=scale_factor).dims
-    verts = box_vertices(scale_factor)
-    save_obj(raw / "mesh.obj", verts, _BOX_FACES)
-
-    mesh = _normalize_mesh(TriMesh(verts, _BOX_FACES), dims)
-    for sigma in ("0.10", "0.01"):
-        near = mesh.sample(n_points, rng=rng) + float(sigma) * rng.standard_normal((n_points, 3))
-        pts = np.vstack([near, rng.uniform(-0.5, 0.5, (n_points // 10, 3))])
-        _, occ = determine_occupancy([raw / "mesh.obj"], pts[None], dims=dims)
-        np.savez(proc / f"occupancy_{sigma}.npz", points=pts.astype(np.float32),
-                 occupancies=occ[0])
-    return root
-
-
-def write_box_view(raw: Path, rng, wall_z: float = WALL_Z) -> None:
-    """rgb.png and distance.exr of BOX before a wall at wall_z, into raw."""
-    from PIL import Image
-
-    from sv3d_tpu_torch.io.exr import write_exr
-
-    depth, dirs = box_scene_depth(wall_z)
-    write_exr(raw / "distance.exr",
-              {"R": (depth * np.linalg.norm(dirs, axis=-1)).astype(np.float32)})
-    shade = np.clip(1.1 - depth / WALL_Z, 0.0, 1.0)[..., None] * np.array([0.9, 0.7, 0.5])
-    shade = shade + 0.05 * rng.standard_normal(shade.shape)
-    Image.fromarray((np.clip(shade, 0, 1) * 255).astype(np.uint8)).save(raw / "rgb.png")
-
-
-def box_vertices(scale_factor: int = 1) -> np.ndarray:
-    """BOX's 8 corners (the order of _BOX_FACES) in the voxel-index space of
-    the frustum grid of voxel size 0.05 * scale_factor."""
-    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
-    from sv3d_tpu_torch.geometry.frustum import FrustumGrid
-
-    intr = parse_intrinsics(INTRINSICS)
-    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
-    c2f = np.asarray(FrustumGrid.create(intr, voxel_size=0.05 * scale_factor).camera2frustum)
-    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
-                        for z in (lo[2], hi[2])])
-    return corners @ c2f[:3, :3].T + c2f[:3, 3]
-
-
-def box_distance_field() -> np.ndarray:
-    """The distance (voxel units) of each voxel of the full-resolution grid
-    (139, 104, 112) to the solid BOX (0 inside), float32: a
-    distance_field.df whose level-1.0 surface is the box grown by one
-    voxel."""
-    verts = box_vertices(1)
-    lo, hi = verts.min(axis=0), verts.max(axis=0)
-    p = np.indices((139, 104, 112), dtype=np.float64)
-    out = np.maximum(np.maximum(lo[:, None, None, None] - p, p - hi[:, None, None, None]), 0.0)
-    return np.linalg.norm(out, axis=0).astype(np.float32)
-
-
-def iou_box_pair() -> tuple:
-    """A box in the evaluation's unit cube [-0.5, 0.5]^3 that fills a tenth
-    of it (0.4 x 0.5 x 0.5), and the same box shifted by half its width
-    along x: their volumetric IoU is (1/2) / (3/2) = 1/3.  Returns
-    (vertices (2, 8, 3), faces)."""
-    lo, hi = np.array([-0.3, -0.25, -0.25]), np.array([0.1, 0.25, 0.25])
-    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
-                        for z in (lo[2], hi[2])])
-    return np.stack([corners, corners + [0.2, 0.0, 0.0]]), _BOX_FACES
-
-
-#: the raw tree's far view: its wall lies past the frustum's 6 m far plane
-FAR_WALL_Z = 7.0
-
-
-def write_raw_tree(root) -> Path:
-    """A seeded raw tree in the layout process_sample_pipeline walks (its
-    CLI reads <root>/raw/<splitsdir>/<scene>/<view> and
-    <root>/raw/intrinsics.txt; the trainers read <root>/intrinsics.txt):
-    scene 00000, view 00 the box scene of write_smoke_dataset with its
-    full-resolution distance_field.df, view 01 the same box before a wall at
-    FAR_WALL_Z, whose grid index past the far end the pipeline must
-    quarantine (IndexError); and splits/overfit/{train,val}.txt listing
-    00000/00.  <splitsdir> is "overfit": the train split repeats its scene
-    50 times.  Returns root."""
-    from sv3d_tpu_torch.data.splits import write_split
-    from sv3d_tpu_torch.io.volume import write_df
-
-    rng = np.random.default_rng(0)
-    root = Path(root)
-    df = box_distance_field()
-    for view, wall_z in (("00", WALL_Z), ("01", FAR_WALL_Z)):
-        raw = root / "raw" / "overfit" / "00000" / view
-        raw.mkdir(parents=True, exist_ok=True)
-        write_box_view(raw, rng, wall_z)
-        write_df(raw / "distance_field.df", df)
-    for path in (root / "intrinsics.txt", root / "raw" / "intrinsics.txt"):
-        path.write_text(INTRINSICS)
-    for split in ("train", "val"):
-        write_split(root, "overfit", split, ["00000/00"])
-    return root
-
-
-def box_scene_depth(wall_z: float = WALL_Z) -> tuple:
-    """The one-scene dataset's view: the planar depth (240, 320) of BOX
-    before a wall at wall_z, rendered exactly (ray-box distances), and the
-    ray directions of planar depth 1 (240, 320, 3)."""
-    from sv3d_tpu_torch.geometry.camera import parse_intrinsics
-
-    intr = parse_intrinsics(INTRINSICS)
-    u = np.arange(320, dtype=np.float64)[None, :]
-    v = np.arange(240, dtype=np.float64)[:, None]
-    # camera y is up: rows grow down
-    dirs = np.stack(np.broadcast_arrays((u - intr.cx) / intr.focal_length,
-                                        -(v - intr.cy) / intr.focal_length, 1.0), axis=-1)
-    lo, hi = np.asarray(BOX[0]), np.asarray(BOX[1])
-    with np.errstate(divide="ignore", invalid="ignore"):
-        t_lo, t_hi = lo / dirs, hi / dirs
-    t_near = np.minimum(t_lo, t_hi).max(axis=-1)
-    t_far = np.maximum(t_lo, t_hi).min(axis=-1)
-    return np.where((t_near <= t_far) & (t_near > 0), t_near, wall_z), dirs
-
-
-# K1's inputs: a depth map per image, (B, 240, 320) metres
-DEPTHS = {
-    # uniform per pixel: no spatial coherence, the worst case of K1's combine
-    "random": lambda b, rng: rng.uniform(0.4, 6.0, (b, 240, 320)),
-    # write_smoke_dataset's rendered scene
-    "box": lambda b, rng: np.broadcast_to(box_scene_depth()[0], (b, 240, 320)),
-    # a wall at 3 m: every lane of a warp in one or two voxels (the tests' case)
-    "plane": lambda b, rng: np.full((b, 240, 320), 3.0),
-}
-
-
-def k1_points(model, kind: str, b: int, rng, outside: int = 4096) -> torch.Tensor:
-    """K1's points at the main path's shape: the (b, 76800, 3) cloud that
-    model.project_depth makes of a DEPTHS[kind] map, then `outside` uniform
-    points in [-0.7, 0.7]^3 an image, most of them dropped at the border."""
-    dev = next(model.parameters()).device
-    depth = torch.tensor(np.ascontiguousarray(DEPTHS[kind](b, rng), dtype=np.float32), device=dev)
-    with torch.no_grad():
-        pc = model.project_depth(depth)
-    extra = torch.tensor(rng.uniform(-0.7, 0.7, (b, outside, 3)).astype(np.float32), device=dev)
-    return torch.cat([pc, extra], dim=1).contiguous()
-
-
-def _base_voxels(points: torch.Tensor, dims, eps: float = 1e-6) -> tuple:
-    """The scatter's view of (B, N, 3) points, in the kernels' f32
-    arithmetic (bounds rounded to f32): which of the B * N points it keeps,
-    and each kept point's sample and base voxel floor((p + 0.5)(d - 1)), a
-    (B * N,) mask, a (K,) index and three (K,) indices."""
-    flat = points.reshape(-1, 3)
-    kept = ((flat > -0.5 + eps) & (flat < 0.5 - eps)).all(dim=-1)
-    batch = (torch.arange(flat.shape[0], device=flat.device) // points.shape[1])[kept]
-    base = [torch.floor((flat[kept, a] + 0.5) * (d - 1.0)).long() for a, d in enumerate(dims)]
-    return kept, batch, base
-
-
-def k1_atomics(points: torch.Tensor, dims, eps: float = 1e-6) -> tuple:
-    """The global atomics that K1 issues on these (B, N, 3) points: one a
-    (warp, base voxel, in-range corner), a warp being 32 consecutive points
-    of the flattened (B * N) list as the kernel's threads take them; and the
-    old kernel's, one a (kept point, in-range corner)."""
-    kept, batch, i = _base_voxels(points, dims, eps)
-    corners = math.prod((1 + (ia + 1 < d).long()) for ia, d in zip(i, dims))
-    key = ((batch * dims[0] + i[0]) * dims[1] + i[1]) * dims[2] + i[2]
-    warp = torch.nonzero(kept)[:, 0] // 32
-    _, first = np.unique(torch.stack([warp, key], dim=1).cpu().numpy(), axis=0,
-                         return_index=True)
-    return int(corners[torch.as_tensor(first, device=key.device)].sum()), int(corners.sum())
-
-
-def degenerate_points(dims, n: int, rng, voxels: int = 64) -> np.ndarray:
-    """(1, n, 3) points in which the 32 lanes of each warp share one base
-    voxel (K1's combine sums all 32), drawn from `voxels` voxels so that
-    many warps add to each, at fractions in [0.05, 0.95] inside it."""
-    warps = -(-n // 32)
-    pick = rng.integers(0, voxels, warps)
-    base = np.stack([rng.integers(0, d - 1, voxels) for d in dims], axis=-1)[pick]
-    g = np.repeat(base, 32, axis=0)[:n] + rng.uniform(0.05, 0.95, (n, 3))
-    return (g / (np.asarray(dims) - 1.0) - 0.5)[None].astype(np.float32)
-
-
-def k1_raw_tol(points: torch.Tensor, dims, eps: float = 1e-6) -> float:
-    """The bound on K1's raw sums against the plain scatter's, relative to
-    the largest sum: a sum of k nonnegative f32 terms is off its exact value
-    by at most ~k 2^-24 of itself in any order, and the two sides add in
-    different orders: 2 k 2^-24 with k the most contributions of this run's
-    points to one voxel."""
-    _, batch, i = _base_voxels(points, dims, eps)
-    lin = torch.stack([((batch * dims[0] + i[0] + c0) * dims[1] + i[1] + c1) * dims[2] + i[2] + c2
-                       for c0 in (0, 1) for c1 in (0, 1) for c2 in (0, 1)])
-    k = int(torch.unique(lin, return_counts=True)[1].max()) if lin.numel() else 1
-    return 2.0 * k * 2.0 ** -24
 
 
 def scatter_library_grid(points: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -582,7 +325,7 @@ def k1b_bytes(points: torch.Tensor, grid: torch.Tensor, grad: torch.Tensor,
     that the kept points' in-range corners touch, the points in and the
     (B, N, 3) gradient out."""
     dims = grid.shape[1:]
-    _, batch, i = _base_voxels(points, dims, eps)
+    _, batch, i = base_voxels(points, dims, eps)
     sectors = 0
     for t in (grid, grad):
         sb, s0, s1, s2 = t.stride()
@@ -772,11 +515,6 @@ def plain_bf16_mlp(f, w0, b0, w1, b1, w2, b2, w3, b3, skip=()) -> torch.Tensor:
         if i < len(layers) - 1:
             h = torch.relu(h) if "hidden" in skip else rounded(torch.relu(h))
     return h[..., 0, :]
-
-
-def rel_mean_err(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """mean |got - ref| / max(1e-30, mean |ref|)."""
-    return float((got - ref).abs().mean()) / max(float(ref.abs().mean()), 1e-30)
 
 
 def logits_of(sigmoid: np.ndarray) -> np.ndarray:
@@ -2251,13 +1989,6 @@ def ifnet_kernel_timings(model, batch, smi) -> dict:
     return out
 
 
-# The conv weight-gradient kernel (csrc/conv3d_wgrad.cu) against its plain
-# version run in float64 on the same f32 inputs: each output channel's
-# difference within WGRAD_RTOL of that channel's norm.  The kernel sums
-# millions of f32 products (split partials added in a fixed order); cuDNN's
-# f32 weight gradient itself reads 1.1e-5 at stage 0's shape (the kernel
-# 1.4e-6), so the f32 plain version is printed beside it, not held to.
-WGRAD_RTOL = 1e-5
 # ragged shapes, (B, Cin, D, H, W) and Cout: W not a multiple of 4 (4-byte
 # copies), channel counts that do not fill a tile, Cin 1 and 3 (the narrow
 # instance), a grid of one row
@@ -2427,7 +2158,7 @@ def ifnet_dgrad_route(b: int = 4) -> dict:
 def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
     """The conv input-gradient kernel at shapes ([(name, (B, Cin, D, H, W),
     Cout)], what names them) and at ragged, NCDHW: held to float64 (each
-    input channel within WGRAD_RTOL of its norm; the f32 plain version's
+    input channel within DGRAD_RTOL of its norm; the f32 plain version's
     difference printed beside) and to itself (two calls, equal bits), one
     launch counted a call; at shapes CUDA-event ms of calls back to back, in
     turns (kernel, plain = cuDNN's input gradient as the port ran it before,
@@ -2488,7 +2219,7 @@ def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
     for name, r in rows.items():
         line = (f"  {name} {r['shape']} <- {r['cout']}: plan (ncg, td, th, wtile) {r['plan']}; "
                 f"max rel err by input channel against float64 {r['err']:.2e} (tol "
-                f"{WGRAD_RTOL:g}; cuDNN's f32 {r['plain_err']:.2e}); same bits "
+                f"{DGRAD_RTOL:g}; cuDNN's f32 {r['plain_err']:.2e}); same bits "
                 f"{r['same_bits']}; launches {r['launches']}")
         if "ms" in r:
             line += (f"; kernel {r['ms']:.4f} ms (turns {r['ms_turns'][0]:.4f}), bound "
@@ -2506,7 +2237,7 @@ def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
           f"{total('cl_ms'):.4f} ms, cudnn.benchmark {total('cl_library_ms'):.4f} ms",
           flush=True)
     for name, r in rows.items():
-        check(r["err"] <= WGRAD_RTOL, f"the dgrad kernel disagrees with float64 at {name}: "
+        check(r["err"] <= DGRAD_RTOL, f"the dgrad kernel disagrees with float64 at {name}: "
                                       f"{r['err']}")
         check(r["same_bits"] and r["launches"] == 2,
               f"the dgrad kernel at {name}: same bits {r['same_bits']}, {r['launches']} "

@@ -52,3 +52,9 @@ def require(ran: dict, must=(), must_not=(), what: str = "") -> None:
     extra = [k for k in must_not if ran.get(k)]
     if missing or extra:
         raise RuntimeError(f"{what}: kernels {missing} did not launch, {extra} did: {ran}")
+
+
+def rel_mean_err(got, ref) -> float:
+    """mean |got - ref| / max(1e-30, mean |ref|): the mean-error limits of
+    the bf16 kernels (K2, K3, K6 bf16) read this."""
+    return float((got - ref).abs().mean()) / max(float(ref.abs().mean()), 1e-30)

@@ -33,6 +33,13 @@ KC = 8
 #: the most shared memory a block may take (the H100's 227 KB)
 SMEM_PER_BLOCK = 227 * 1024
 
+# The conv input-gradient kernel (csrc/conv3d_dgrad.cu) against its plain
+# version run in float64 on the same f32 inputs: each input channel's
+# difference within DGRAD_RTOL of that channel's norm.  The kernel sums
+# Cout * 27 f32 products a value in another order than cuDNN, whose f32
+# input gradient is printed beside it, not held to.
+DGRAD_RTOL = 1e-5
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dy, w, wt, dx, B, Cin, Cout, D, H, W, ncg, td, th, wtile, stream
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]

@@ -36,6 +36,14 @@ NARROW_BELOW_CIN = 16
 #: reserved a block), and the most a block may take
 SMEM_PER_SM, SMEM_PER_BLOCK = 228 * 1024, 227 * 1024
 
+# The conv weight-gradient kernel (csrc/conv3d_wgrad.cu) against its plain
+# version run in float64 on the same f32 inputs: each output channel's
+# difference within WGRAD_RTOL of that channel's norm.  The kernel sums
+# millions of f32 products (split partials added in a fixed order); cuDNN's
+# f32 weight gradient itself reads 1.1e-5 at stage 0's shape (the kernel
+# 1.4e-6), so the f32 plain version is printed beside it, not held to.
+WGRAD_RTOL = 1e-5
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, dy, part, out, B, Cin, Cout, D, H, W, th, nsplit, parts, stream
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]

@@ -42,6 +42,26 @@ from sv3d_tpu_torch.ops.point_query import (
     level_grad_vol_plain,
 )
 
+# K1b, K4, K7, K8: the same f32 arithmetic in another summation order (FMA,
+# corner and channel order; K8's atomics add in a run-dependent order on
+# both sides, as the plain version's index_add is atomic too), 1e-5 of the
+# plain result's largest magnitude (K8 measured up to 2.9e-6 at full width).
+K4_RTOL = K7_RTOL = K8_RTOL = 1e-5
+K6_RTOL = 1e-5  # FMA order over at most 7 * 128 terms, of the largest |partial|
+# K6 bf16 against its plain bf16 version (the same rounding points: level,
+# feature, block and partial): f32 sums in another order may round a feature
+# or a partial the other way, one bf16 ulp (2^-8 of the partial at the top),
+# so max |error| <= K6_BF16_TOL x max |partial|; such flips are rare, so over
+# all the partials mean |error| <= K6_BF16_REL_MEAN_TOL x mean |partial|
+# (f64 sums instead of f32 moved the mean by ~2e-7 in a CPU estimate).  A
+# version that leaves one rounding point out is off at every partial by
+# about a rounding error (1.4e-3 to 2.7e-3 of the mean in the same estimate)
+# and fails the mean limit (plain_bf16_fc0 with skip; the points phase shows
+# it).
+K6_BF16_TOL = 1e-2
+K6_BF16_REL_MEAN_TOL = 1e-4
+K5_ULP = 2.0 ** -7  # one bf16 ulp: |d| <= 2^-7 |ref| + 1e-6
+
 _TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 

@@ -42,6 +42,21 @@ from sv3d_tpu_torch.ops.lattice import axis0_rows, axis_taps, slab_features
 from sv3d_tpu_torch.ops.mlp import COMPUTE_DTYPES
 from sv3d_tpu_torch.ops.mlp import rounded as _rounded
 
+K2_TOL = 1e-4  # K2 f32: FMA vs plain f32 contractions, summation order only (csrc/sweep.cu)
+# K2 bf16 against its plain bf16 version: the same rounding points (levels,
+# features, weights and hidden activations to bf16), f32 sums in another
+# order, so a value within f32 noise of a bf16 rounding boundary may round
+# either way: one bf16 ulp of a feature or a hidden activation.  atol on
+# logits; measured 4.8e-4 at |logit| <= 0.10 on the H100.  Such flips touch
+# a few of a point's roundings, so over the lattice the mean error stays far
+# below the logits' own scale: mean |error| <= K2_BF16_REL_MEAN_TOL x mean
+# |logit| (measured 1.2e-4).  A sweep that rounds at other points is off at
+# every point by about a rounding error, within the max limit but above the
+# mean one (plain_bf16_sweep with a rounding point left out; phase 3 shows
+# that both such sweeps fail).
+K2_BF16_TOL = 2e-3
+K2_BF16_REL_MEAN_TOL = 1e-3
+
 
 def lattice_sweep_plain(
     levels, mlp, r: tuple, rows: int, row_offset: int, align_corners: bool,

@@ -24,6 +24,11 @@ from sv3d_tpu_torch.ops.voxelize import scatter_voxels, scatter_voxels_bwd, scat
 __all__ = ["scatter_voxels", "scatter_voxels_cuda", "scatter_voxels_raw_cuda",
            "scatter_voxels_bwd_cuda"]
 
+K1_TOL = 1e-5  # atomics sum in run-dependent order (csrc/voxelize.cu)
+# K1b: the same f32 arithmetic in another summation order, 1e-5 of the plain
+# result's largest magnitude (K4, K7 and K8 alike: point_query.py)
+K1B_RTOL = 1e-5
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     # points, grid, batch, n, d0, d1, d2, lo, hi, clamp, stream
@@ -141,3 +146,28 @@ def scatter_voxels_cuda(points: torch.Tensor, dims: tuple, eps: float = 1e-6) ->
 
 scatter_voxels_cuda.launches = 0
 scatter_voxels_bwd_cuda.launches = 0
+
+
+def base_voxels(points: torch.Tensor, dims, eps: float = 1e-6) -> tuple:
+    """The scatter's view of (B, N, 3) points, in the kernels' f32
+    arithmetic (bounds rounded to f32): which of the B * N points it keeps,
+    and each kept point's sample and base voxel floor((p + 0.5)(d - 1)), a
+    (B * N,) mask, a (K,) index and three (K,) indices."""
+    flat = points.reshape(-1, 3)
+    kept = ((flat > -0.5 + eps) & (flat < 0.5 - eps)).all(dim=-1)
+    batch = (torch.arange(flat.shape[0], device=flat.device) // points.shape[1])[kept]
+    base = [torch.floor((flat[kept, a] + 0.5) * (d - 1.0)).long() for a, d in enumerate(dims)]
+    return kept, batch, base
+
+
+def k1_raw_tol(points: torch.Tensor, dims, eps: float = 1e-6) -> float:
+    """The bound on K1's raw sums against the plain scatter's, relative to
+    the largest sum: a sum of k nonnegative f32 terms is off its exact value
+    by at most ~k 2^-24 of itself in any order, and the two sides add in
+    different orders: 2 k 2^-24 with k the most contributions of this run's
+    points to one voxel."""
+    _, batch, i = base_voxels(points, dims, eps)
+    lin = torch.stack([((batch * dims[0] + i[0] + c0) * dims[1] + i[1] + c1) * dims[2] + i[2] + c2
+                       for c0 in (0, 1) for c1 in (0, 1) for c2 in (0, 1)])
+    k = int(torch.unique(lin, return_counts=True)[1].max()) if lin.numel() else 1
+    return 2.0 * k * 2.0 ** -24

@@ -195,16 +195,11 @@ def test_trace_writes_a_torch_profiler_trace(tmp_path):
 def test_fit_under_the_advanced_profiler_writes_its_trace(tmp_path):
     """--profiler advanced: the loop traces the first steps through
     utils.profiling.trace into <exp>/profile/trace.json."""
-    import importlib.util
-
     from sv3d_tpu_torch.config import Config
+    from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    root = chip_smoke.write_smoke_dataset(tmp_path / "data", scale_factor=8, n_points=200)
+    root = write_smoke_dataset(tmp_path / "data", scale_factor=8, n_points=200)
     cfg = Config(seed=0, scale_factor=8, batch_size=1, num_points=16, skip_unet=True,
                  datasetdir=str(root), sanity_steps=0, profiler="advanced")
     SceneNetTrainer(cfg, device="cpu", experiment_dir=tmp_path / "exp").fit(max_steps=2)

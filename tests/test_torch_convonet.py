@@ -39,6 +39,7 @@ from sv3d_tpu_torch.ops.cell_pool import (  # noqa: E402
     normalize_coordinate,
     scatter_mean,
 )
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset  # noqa: E402
 from sv3d_tpu_torch.utils import profiling  # noqa: E402
 
 torch.set_num_threads(1)
@@ -199,11 +200,7 @@ def test_the_cell_layout_is_the_one_grid_sample_reads():
 
 @pytest.fixture(scope="module")
 def smoke_data(tmp_path_factory):
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    return chip_smoke.write_smoke_dataset(tmp_path_factory.mktemp("smoke"), scale_factor=8,
-                                          n_points=2000)
+    return write_smoke_dataset(tmp_path_factory.mktemp("smoke"), scale_factor=8, n_points=2000)
 
 
 def _convonet_config(root, **kw) -> Config:

@@ -1,15 +1,17 @@
 """The port's CUDA kernels (K1, K1b, K2, K3, K4, K5, K6 f32 and bf16, K7,
 K8) against their plain torch versions.
 
-This file imports only sv3d_tpu_torch and runs chip_smoke.py's definitions
-for the bf16 kernels' limits (the card machine has no flax).  The tests marked ``cuda`` need an NVIDIA GPU and skip without one; run them on
+This file imports only sv3d_tpu_torch (the card machine has no flax); each
+kernel's limits are its wrapper's constants, and chip_smoke.py is run for
+its own references: the bf16 plain versions with a rounding point left
+out, points_card_vs_cpu and one_kernel_a_call.  The tests marked ``cuda``
+need an NVIDIA GPU and skip without one; run them on
 the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.  The
 CPU tests check the part of the sweep kernels that Python owns: the 2-tap
 tables and their index arithmetic, replayed in numpy against the plain
 sweep; the sweep plan's whole-lattice tables cut to a slab as the kernels
 index them; the bf16 kernel's fc0 order and mma fragment layouts; the
-f32 kernel's fc0 rows and chunk table, and compare_sweep.py's C
-interfaces; that the sweep's values do not depend on slab_rows; and that
+f32 kernel's fc0 rows and chunk table; that the sweep's values do not depend on slab_rows; and that
 K2 bf16's mean limit fails a sweep that rounds at the wrong points.  One
 card test holds the multi-GPU BatchNorm (its statistics all-reduced over
 two ranks on the one card) to the whole batch's."""
@@ -28,8 +30,16 @@ from sv3d_tpu_torch.inference.dense_grid import (
     evaluate_points,
 )
 from sv3d_tpu_torch.models.ifnet import IFNet
-from sv3d_tpu_torch.ops.cuda.mlp import fused_point_mlp
+from sv3d_tpu_torch.ops.cuda import rel_mean_err
+from sv3d_tpu_torch.ops.cuda.mlp import K3_BF16_REL_MEAN_TOL, K3_BF16_TOL, K3_TOL, fused_point_mlp
 from sv3d_tpu_torch.ops.cuda.point_query import (
+    K4_RTOL,
+    K5_ULP,
+    K6_BF16_REL_MEAN_TOL,
+    K6_BF16_TOL,
+    K6_RTOL,
+    K7_RTOL,
+    K8_RTOL,
     fc0_block_bf16,
     level_fc0_bf16_cuda,
     level_fc0_cuda,
@@ -41,6 +51,9 @@ from sv3d_tpu_torch.ops.cuda.point_query import (
     stage_channels_last,
 )
 from sv3d_tpu_torch.ops.cuda.sweep import (
+    K2_BF16_REL_MEAN_TOL,
+    K2_BF16_TOL,
+    K2_TOL,
     SweepPlan,
     fc0_chunk_order,
     fc0_chunk_table,
@@ -53,6 +66,9 @@ from sv3d_tpu_torch.ops.cuda.sweep import (
     sweep_tables,
 )
 from sv3d_tpu_torch.ops.cuda.voxelize import (
+    K1B_RTOL,
+    K1_TOL,
+    k1_raw_tol,
     scatter_voxels,
     scatter_voxels_bwd_cuda,
     scatter_voxels_cuda,
@@ -68,6 +84,7 @@ from sv3d_tpu_torch.ops.point_query import (
     level_grad_vol_plain,
 )
 from sv3d_tpu_torch.ops.voxelize import scatter_voxels_bwd, scatter_voxels_raw
+from sv3d_tpu_torch.quality import box_scene
 
 torch.set_num_threads(1)
 
@@ -290,38 +307,6 @@ def test_f32_sweep_kernel_layouts(net_res, dims):
     torch.testing.assert_close(got.reshape(ref.shape), ref, atol=1e-5, rtol=0)
 
 
-COLUMN_SWEEP_ENTRY = (
-    'extern "C" int sv3d_lattice_sweep(const void* vols, const void* meta, int n_levels,\n'
-    "    const void* tap_idx, const void* tap_w, const void* w0t,\n"
-    "    const void* b0, const void* w1t, const void* b1,\n"
-    "    const void* w2t, const void* b2, const void* w3,\n"
-    "    const void* b3, void* out, int batch, int rows,\n"
-    "    int row_offset, int r0, int r1, int r2, int sum_c, int h0,\n"
-    "    int max_c, void* stream) {")
-
-
-@pytest.mark.parametrize("design", ["column", "fma"])
-def test_compare_sweep_tells_the_two_c_interfaces_apart(design):
-    """compare_sweep.py calls each checkout's K2 f32 entry with the arguments
-    of its design: the column design (n_levels, sum_c, max_c) or the FMA
-    core's (the plan's chunk table), each argument a pointer or an int as
-    the C signature says; this checkout's source is the fma design, called
-    as its wrapper calls it (CPU)."""
-    import ctypes
-    import re
-
-    from sv3d_tpu_torch.ops.cuda import sweep as wrapper
-
-    cmp = runpy.run_path(str(ROOT / "compare_sweep.py"))
-    src = (ROOT / "sv3d_tpu_torch" / "csrc" / "sweep.cu").read_text()
-    entry = {"column": COLUMN_SWEEP_ENTRY, "fma": src}[design]
-    assert cmp["design_of"](entry) == design
-    params = re.search(r"int\s+sv3d_lattice_sweep\s*\(([^)]*)\)", entry).group(1).split(",")
-    want = [ctypes.c_void_p if "*" in q else ctypes.c_int for q in params]
-    assert cmp["_ARGTYPES"][design] == want
-    assert cmp["_ARGTYPES"]["fma"] == wrapper._ARGTYPES["sv3d_lattice_sweep"]
-
-
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_k2_bf16_mean_limit_fails_wrong_rounding(net_res, dims):
     """chip_smoke.py's plain_bf16_sweep: with no rounding point left out it
@@ -337,8 +322,8 @@ def test_k2_bf16_mean_limit_fails_wrong_rounding(net_res, dims):
         assert torch.equal(smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, *args), ref)
         for skip in ("feature", "hidden"):
             wrong = smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, *args, (skip,))
-            assert float((wrong - ref).abs().max()) <= smoke["K2_BF16_TOL"], skip
-            assert smoke["rel_mean_err"](wrong, ref) > smoke["K2_BF16_REL_MEAN_TOL"], skip
+            assert float((wrong - ref).abs().max()) <= K2_BF16_TOL, skip
+            assert rel_mean_err(wrong, ref) > K2_BF16_REL_MEAN_TOL, skip
 
 
 @pytest.mark.parametrize("net_res", [128, 32])
@@ -357,7 +342,7 @@ def test_k3_bf16_mean_limit_fails_wrong_rounding(net_res):
         ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
         assert torch.equal(smoke["plain_bf16_mlp"](f, *weights), ref)
         wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("hidden",))
-    assert smoke["rel_mean_err"](wrong, ref) > smoke["K3_BF16_REL_MEAN_TOL"]
+    assert rel_mean_err(wrong, ref) > K3_BF16_REL_MEAN_TOL
 
 
 @pytest.mark.parametrize("net_res", [128, 32])
@@ -375,7 +360,7 @@ def test_k3_bf16_mean_limit_fails_unrounded_features(net_res):
                           cfg.displacement)[0]
         ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
         wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("feature",))
-    assert smoke["rel_mean_err"](wrong, ref) > smoke["K3_BF16_REL_MEAN_TOL"]
+    assert rel_mean_err(wrong, ref) > K3_BF16_REL_MEAN_TOL
 
 
 @pytest.mark.parametrize("net_res,dims", CASES)
@@ -402,9 +387,9 @@ def _rel_err(got, ref):
 
 @pytest.mark.cuda
 def test_scatter_kernel_matches_plain_on_card(cuda_device):
-    """K1: atomics sum in a run-dependent order, atol 1e-5 after the clamp;
-    K1b (the backward, through autograd): the same gathers in another
-    summation order, 1e-5 of the largest gradient (csrc/voxelize.cu)."""
+    """K1: atomics sum in a run-dependent order, atol K1_TOL after the
+    clamp; K1b (the backward, through autograd): the same gathers in another
+    summation order, K1B_RTOL of the largest gradient (csrc/voxelize.cu)."""
     rng = np.random.default_rng(3)
     pts = torch.tensor(rng.uniform(-0.7, 0.7, (2, 76800, 3)).astype(np.float32),
                        device=cuda_device)
@@ -413,7 +398,7 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     got = scatter_voxels_cuda(pts, dims)
     torch.cuda.synchronize()
     assert scatter_voxels_cuda.launches == before + 1
-    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=K1_TOL, rtol=0)
     with pytest.raises(TypeError):
         scatter_voxels_cuda(pts.double(), dims)
 
@@ -424,49 +409,49 @@ def test_scatter_kernel_matches_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert scatter_voxels_bwd_cuda.launches == before + 1
     raw = scatter_voxels_raw_cuda(pts, dims)
-    assert _rel_err(p.grad, scatter_voxels_bwd(pts, raw, w)) <= 1e-5
-    assert _rel_err(scatter_voxels_bwd_cuda(pts, raw, w), scatter_voxels_bwd(pts, raw, w)) <= 1e-5
+    assert _rel_err(p.grad, scatter_voxels_bwd(pts, raw, w)) <= K1B_RTOL
+    assert (_rel_err(scatter_voxels_bwd_cuda(pts, raw, w), scatter_voxels_bwd(pts, raw, w))
+            <= K1B_RTOL)
 
 
 
 def _scatter_inputs(kind, device):
-    """K1's inputs at the serving dims: the points chip_smoke.py projects
-    from write_smoke_dataset's box-before-a-wall depth and from a plane at
-    3 m (B=2, 76,800 + 4,096 outside each); its degenerate input (each
-    warp's 32 lanes in one voxel); and B=3 x 1013 uniform points, N not a
-    multiple of 32 (warps straddle the samples, the last one ragged) with
-    border-dropped points inside the warps."""
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
+    """K1's inputs at the serving dims: the points that box_scene.k1_points
+    projects from write_smoke_dataset's box-before-a-wall depth and from a
+    plane at 3 m (B=2, 76,800 + 4,096 outside each); its degenerate input
+    (each warp's 32 lanes in one voxel); and B=3 x 1013 uniform points, N
+    not a multiple of 32 (warps straddle the samples, the last one ragged)
+    with border-dropped points inside the warps."""
     dims = (139, 104, 112)
     rng = np.random.default_rng(12)
     if kind in ("box", "plane"):
         from sv3d_tpu_torch.config import Config
 
-        model = smoke["seeded_scene_net"](Config(seed=0), device, 0)
-        return smoke, dims, smoke["k1_points"](model, kind, 2, rng)
-    pts = (smoke["degenerate_points"](dims, 80896, rng) if kind == "degenerate"
+        model = box_scene.seeded_scene_net(Config(seed=0), device, 0)
+        return dims, box_scene.k1_points(model, kind, 2, rng)
+    pts = (box_scene.degenerate_points(dims, 80896, rng) if kind == "degenerate"
            else rng.uniform(-0.7, 0.7, (3, 1013, 3)).astype(np.float32))
-    return smoke, dims, torch.tensor(pts, device=device)
+    return dims, torch.tensor(pts, device=device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["box", "plane", "degenerate", "ragged"])
 def test_scatter_kernels_on_coherent_degenerate_and_ragged_inputs_on_card(kind, cuda_device):
     """K1 (warp-combined atomics) against its plain version: clamped at atol
-    1e-5, raw within chip_smoke.py's 2 k 2^-24 of the largest sum (k the
+    K1_TOL, raw within k1_raw_tol's 2 k 2^-24 of the largest sum (k the
     most contributions to one voxel); one launch a call.  K1b through
     autograd (given the clamped grid the forward kept, the cotangent as the
     blur's einsum backward strides it) and on a contiguous cotangent, at
-    1e-5 of the largest plain component."""
-    smoke, dims, pts = _scatter_inputs(kind, cuda_device)
+    K1B_RTOL of the largest plain component."""
+    dims, pts = _scatter_inputs(kind, cuda_device)
     before = scatter_voxels_cuda.launches
     got = scatter_voxels_cuda(pts, dims)
     torch.cuda.synchronize()
     assert scatter_voxels_cuda.launches == before + 1
-    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, scatter_voxels(pts, dims), atol=K1_TOL, rtol=0)
     raw = scatter_voxels_raw_cuda(pts, dims)
-    assert _rel_err(raw, scatter_voxels_raw(pts, dims)) <= smoke["k1_raw_tol"](pts, dims)
-    issued, old = smoke["k1_atomics"](pts, dims)
+    assert _rel_err(raw, scatter_voxels_raw(pts, dims)) <= k1_raw_tol(pts, dims)
+    issued, old = box_scene.k1_atomics(pts, dims)
     assert issued <= old if kind == "ragged" else issued < old
 
     b = pts.shape[0]
@@ -476,10 +461,10 @@ def test_scatter_kernels_on_coherent_degenerate_and_ragged_inputs_on_card(kind, 
     (scatter_voxels_cuda(p, dims) * g).sum().backward()
     torch.cuda.synchronize()
     assert scatter_voxels_bwd_cuda.launches == before + 1
-    assert _rel_err(p.grad, scatter_voxels_bwd(pts, got, g)) <= 1e-5
+    assert _rel_err(p.grad, scatter_voxels_bwd(pts, got, g)) <= K1B_RTOL
     for cot in (g, g.contiguous()):
         assert _rel_err(scatter_voxels_bwd_cuda(pts, got, cot),
-                        scatter_voxels_bwd(pts, got, cot)) <= 1e-5
+                        scatter_voxels_bwd(pts, got, cot)) <= K1B_RTOL
 
 
 FEATURE_CHANNELS = [1, 3, 16, 64, 128, 160]
@@ -492,9 +477,9 @@ def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
     """K4, K7, K8 against their plain versions, both conventions, B = 2,
     points partly outside the volume.  K4's channel counts take its scalar
     path (1, 3: 32 and 8 points a warp) and its float4 path (16: 8 points a
-    warp; 64, 128: 2 and 1; 160: one point a warp with a masked tail).  1e-5
-    of the largest plain magnitude (summation order; K8's atomics in
-    run-dependent order)."""
+    warp; 64, 128: 2 and 1; 160: one point a warp with a masked tail).
+    K4_RTOL, K7_RTOL and K8_RTOL of the largest plain magnitude (summation
+    order; K8's atomics in run-dependent order)."""
     rng = np.random.default_rng(c)
     dims = (19, 13, 14)
     flat = torch.tensor(rng.standard_normal((2, c, 19 * 13 * 14)).astype(np.float32),
@@ -504,10 +489,12 @@ def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
     g = torch.tensor(rng.standard_normal((2, 333, 7 * c)).astype(np.float32), device=cuda_device)
     args = (dims, ac, disp)
     counts = [f.launches for f in (level_features_cuda, level_grad_points_cuda, level_grad_vol_cuda)]
-    assert _rel_err(level_features_cuda(flat, *p, *args), level_features_plain(flat, *p, *args)) <= 1e-5
+    assert (_rel_err(level_features_cuda(flat, *p, *args), level_features_plain(flat, *p, *args))
+            <= K4_RTOL)
     assert _rel_err(level_grad_points_cuda(flat, *p, g, *args),
-                    level_grad_points_plain(flat, *p, g, *args)) <= 1e-5
-    assert _rel_err(level_grad_vol_cuda(*p, g, *args), level_grad_vol_plain(*p, g, *args)) <= 1e-5
+                    level_grad_points_plain(flat, *p, g, *args)) <= K7_RTOL
+    assert (_rel_err(level_grad_vol_cuda(*p, g, *args), level_grad_vol_plain(*p, g, *args))
+            <= K8_RTOL)
     torch.cuda.synchronize()
     assert [f.launches for f in (level_features_cuda, level_grad_points_cuda,
                                  level_grad_vol_cuda)] == [n + 1 for n in counts]
@@ -516,19 +503,19 @@ def test_point_query_kernels_match_plain_on_card(ac, disp, c, cuda_device):
     vol = flat.clone().requires_grad_()
     (level_features(vol, *p, *args) * g).sum().backward()
     assert level_grad_points_cuda.launches == counts[1] + 1
-    assert _rel_err(vol.grad, level_grad_vol_plain(*p, g, *args)) <= 1e-5
+    assert _rel_err(vol.grad, level_grad_vol_plain(*p, g, *args)) <= K8_RTOL
     q = [x.clone().requires_grad_() for x in p]
     (level_features(flat, *q, *args) * g).sum().backward()
     assert level_grad_points_cuda.launches == counts[1] + 2
     ref = level_grad_points_plain(flat, *p, g, *args)
-    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= 1e-5
+    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= K7_RTOL
     with pytest.raises(ValueError):
         level_features_cuda(flat[:, :, :-1], *p, *args)
 
 
 def _k5_within_one_ulp(got, ref):
     diff = (got.float() - ref.float()).abs()
-    return bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+    return bool((diff <= K5_ULP * ref.float().abs() + 1e-6).all())
 
 
 @pytest.mark.cuda
@@ -554,7 +541,7 @@ def test_feature_kernels_read_channels_last_levels_on_card(c, cuda_device):
     ref4 = level_features_plain(flat, *p, *args)
     ref5 = level_features_banded_plain(flat, *p, *args)
     got4 = level_features_cuda(flat, *p, *args)
-    assert _rel_err(got4, ref4) <= 1e-5
+    assert _rel_err(got4, ref4) <= K4_RTOL
     buf = torch.empty(2 * g * c + 1, device=cuda_device)
     buf[1:] = staged.reshape(-1)
     before = stage_channels_last.copies
@@ -659,7 +646,7 @@ def test_evaluate_points_stages_the_bf16_pyramid_once(bands):
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
     """K2 f32 (a float32 plan) vs plain f32 torch: summation order only, atol
-    1e-4; ragged slabs, a slab past the lattice, the whole lattice."""
+    K2_TOL; ragged slabs, a slab past the lattice, the whole lattice."""
     cfg, model, levels = _encoded(net_res, dims, cuda_device)
     r = tuple(2 * d for d in dims)
     with torch.inference_mode():
@@ -671,22 +658,13 @@ def test_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
             assert lattice_sweep_f32_cuda.launches == before + 1
             ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
                                       cfg.displacement)
-            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
-
-
-# K2 bf16 against its plain version: the same rounding points, f32 sums in
-# another order, so a value near a bf16 rounding boundary may round the
-# other way (one bf16 ulp of a feature or a hidden activation); measured up
-# to 5.0e-4 at |logit| <= 0.095 on the H100.  Over a whole lattice the mean
-# error is held to chip_smoke.py's K2_BF16_REL_MEAN_TOL of the mean |logit|,
-# which the plain sweep with a rounding point left out fails.
-K2_BF16_ATOL = 2e-3
+            torch.testing.assert_close(got, ref, atol=K2_TOL, rtol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("net_res,dims", CASES)
 def test_bf16_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
-    """K2 bf16 (a bfloat16 plan) vs plain bf16 torch at atol K2_BF16_ATOL on
+    """K2 bf16 (a bfloat16 plan) vs plain bf16 torch at atol K2_BF16_TOL on
     logits: ragged slabs, a slab past the lattice, the whole lattice in one
     launch, a batch of two; each point's logit is the same bit for bit in
     whichever slab it comes.  Over the whole lattice the mean error is held
@@ -710,23 +688,23 @@ def test_bf16_sweep_kernel_matches_plain_on_card(net_res, dims, cuda_device):
             assert lattice_sweep_bf16_cuda.launches == before + 1
             ref = lattice_sweep_plain(levels, model.mlp, r, rows, off, cfg.align_corners,
                                       cfg.displacement, torch.bfloat16)
-            torch.testing.assert_close(got, ref, atol=K2_BF16_ATOL, rtol=0)
+            torch.testing.assert_close(got, ref, atol=K2_BF16_TOL, rtol=0)
             inside = min(rows, r[0] - off)
             assert torch.equal(got[:, :inside], whole[:, off:off + inside])
         smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
-        tol = smoke["K2_BF16_REL_MEAN_TOL"]
-        assert smoke["rel_mean_err"](whole, ref) <= tol  # ref: the whole lattice's, last
+        tol = K2_BF16_REL_MEAN_TOL
+        assert rel_mean_err(whole, ref) <= tol  # ref: the whole lattice's, last
         for skip in ("feature", "hidden"):
             wrong = smoke["plain_bf16_sweep"](levels, model.mlp, r, r[0], 0, cfg.align_corners,
                                               cfg.displacement, (skip,))
-            assert smoke["rel_mean_err"](wrong, ref) > tol, skip
+            assert rel_mean_err(wrong, ref) > tol, skip
         both = [(torch.cat([f, f.flip(-1)]), d) for f, d in levels]
         plan2 = SweepPlan(both, model.mlp, r, cfg.align_corners, cfg.displacement)
         got = lattice_sweep(plan2, 3, 4)
         assert torch.equal(got[:1], lattice_sweep(plan, 3, 4))
         torch.testing.assert_close(got, lattice_sweep_plain(
             both, model.mlp, r, 3, 4, cfg.align_corners, cfg.displacement, torch.bfloat16),
-            atol=K2_BF16_ATOL, rtol=0)
+            atol=K2_BF16_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -810,10 +788,10 @@ def test_sweep_plan_makes_no_copy_per_slab(dtype, cuda_device):
 @pytest.mark.parametrize("c,h", [(1, 256), (3, 256), (16, 512), (64, 256), (128, 256),
                                  (160, 256)])
 def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device):
-    """K6 against its plain version, alone and adding into a buffer: 1e-5 of
-    the largest plain magnitude (FMA order over 7*C terms); on a staged
+    """K6 against its plain version, alone and adding into a buffer: K6_RTOL
+    of the largest plain magnitude (FMA order over 7*C terms); on a staged
     channels-last level the same partial as on the channel-major flat.  K5: at most one
-    bf16 ulp, |d| <= 2^-7 |ref| + 1e-6 (the kernel's and the plain f32
+    bf16 ulp, |d| <= K5_ULP |ref| + 1e-6 (the kernel's and the plain f32
     features may round either way of a bf16 boundary), on K4's scalar and
     float4 paths (channel counts as there).  C = 160 takes two channel
     rounds in K6.  Both raise under autograd."""
@@ -829,7 +807,7 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     counts = [level_fc0_cuda.launches, level_features_banded_cuda.launches]
     ref = level_fc0_plain(flat, w0l, *p, *args)
     part = level_fc0_cuda(flat, w0l, *p, *args)
-    assert _rel_err(part, ref) <= 1e-5
+    assert _rel_err(part, ref) <= K6_RTOL
     # K6 f32 reads the level channels-last: a staged view is read as it is
     # and gives the partial that the channel-major flat (staged in the
     # wrapper) gives
@@ -839,7 +817,7 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
     assert stage_channels_last.copies == copies
     acc = torch.randn((2, 333, h), device=cuda_device)
     got = level_fc0_cuda(flat, w0l, *p, *args, out=acc.clone())
-    assert _rel_err(got, acc + ref) <= 1e-5
+    assert _rel_err(got, acc + ref) <= K6_RTOL
     got = level_features_banded_cuda(flat, *p, *args)
     ref = level_features_banded_plain(flat, *p, *args)
     assert got.dtype == torch.bfloat16
@@ -864,7 +842,7 @@ def test_inference_point_kernels_match_plain_on_card(ac, disp, c, h, cuda_device
 @pytest.mark.parametrize("net_res", [128, 32])
 def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
     """K3 against its plain version at F 2583 (H0 256) and 2247 (H0 512), N
-    not a multiple of the block's points: atol 1e-4 on logits (summation
+    not a multiple of the block's points: atol K3_TOL on logits (summation
     order), as K2."""
     model = IFNet(IFNetConfig.for_net_res(net_res), device=cuda_device,
                   generator=torch.Generator().manual_seed(net_res)).eval()
@@ -875,7 +853,7 @@ def test_mlp_kernel_matches_plain_on_card(net_res, cuda_device):
     got = fused_point_mlp(f, *weights)
     torch.cuda.synchronize()
     assert fused_point_mlp.launches == before + 1
-    torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=K3_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -887,11 +865,10 @@ def test_mlp_kernel_f32_ragged_on_card(net_res, n, misaligned, cuda_device):
     512): ragged N (a partial tile; N % 4 != 0, and an f that starts 4 bytes
     past a 16-byte boundary, take the 4-byte copies; 11,648 is the full
     row), with and without mlp_operands: one launch a call, bit-identical
-    with and without operands, within chip_smoke.py's K3_TOL (1e-4) of the
-    plain f32 version on logits."""
+    with and without operands, within K3_TOL of the plain f32 version on
+    logits."""
     from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
 
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     f, weights = _k3_inputs(net_res, n, cuda_device, misaligned)
     with torch.inference_mode():
         ops = mlp_operands(weights, torch.float32)
@@ -902,8 +879,7 @@ def test_mlp_kernel_f32_ragged_on_card(net_res, n, misaligned, cuda_device):
         assert fused_point_mlp.launches == before + 2
         assert torch.equal(got, again)
         assert got.shape == (n,) and bool(torch.isfinite(got).all())
-        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=smoke["K3_TOL"],
-                                   rtol=0)
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=K3_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -912,7 +888,7 @@ def test_mlp_kernel_f32_ragged_on_card(net_res, n, misaligned, cuda_device):
 def test_mlp_kernel_f32_odd_widths_on_card(n_feat, widths, cuda_device):
     """K3 f32 takes any F and hidden widths up to 512: widths that are no
     multiple of 4 take the 4-byte weight copies and pad in the kernel; 512
-    pads every layer to 512 columns.  Within 1e-4 of the plain version on
+    pads every layer to 512 columns.  Within K3_TOL of the plain version on
     logits, at 333 points (a partial tile)."""
     rng = np.random.default_rng(n_feat)
     h0, h1, h2 = widths
@@ -923,7 +899,7 @@ def test_mlp_kernel_f32_odd_widths_on_card(n_feat, widths, cuda_device):
     with torch.inference_mode():
         got = fused_point_mlp(f, *weights)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=1e-4, rtol=0)
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *weights), atol=K3_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -980,7 +956,7 @@ def test_grad_points_reads_the_saved_channels_last_copy_on_card(c, cuda_device):
     """K7 given a channels-last view of the level (what level_features saves
     when it is given one) reads it as it is (no staging copy) and agrees
     with K7 on the channel-major flat bit for bit, also from a pointer that
-    is not 16-byte aligned (the scalar path): 1e-5 of the plain version's
+    is not 16-byte aligned (the scalar path): K7_RTOL of the plain version's
     largest magnitude.  Through autograd from such a view the backward
     stages nothing."""
     rng = np.random.default_rng(300 + c)
@@ -994,19 +970,19 @@ def test_grad_points_reads_the_saved_channels_last_copy_on_card(c, cuda_device):
     args = (dims, False, 0.0722)
     ref = level_grad_points_plain(flat, *p, cot, *args)
     got = level_grad_points_cuda(flat, *p, cot, *args)
-    assert _rel_err(got, ref) <= 1e-5
+    assert _rel_err(got, ref) <= K7_RTOL
     staged = stage_channels_last(flat)
     buf = torch.empty(2 * g * c + 1, device=cuda_device)
     buf[1:] = staged.reshape(-1)
     before = stage_channels_last.copies
     for level in (staged.transpose(1, 2), buf[1:].view(2, g, c).transpose(1, 2)):
-        assert _rel_err(level_grad_points_cuda(level, *p, cot, *args), ref) <= 1e-5
+        assert _rel_err(level_grad_points_cuda(level, *p, cot, *args), ref) <= K7_RTOL
     assert torch.equal(level_grad_points_cuda(staged.transpose(1, 2), *p, cot, *args), got)
     q = [x.clone().requires_grad_() for x in p]
     (level_features(staged.transpose(1, 2), *q, *args) * cot).sum().backward()
     torch.cuda.synchronize()
     assert stage_channels_last.copies == before
-    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= 1e-5
+    assert _rel_err(torch.stack([x.grad for x in q], -1), ref) <= K7_RTOL
 
 
 @pytest.mark.cuda
@@ -1014,7 +990,7 @@ def test_grad_points_reads_the_saved_channels_last_copy_on_card(c, cuda_device):
 @pytest.mark.parametrize("c", FEATURE_CHANNELS)
 def test_grad_vol_paths_and_layout_on_card(ac, disp, c, cuda_device):
     """K8 against its plain version, both conventions, B = 2, points partly
-    outside the volume, 1e-5 of the largest plain magnitude (atomics in
+    outside the volume, K8_RTOL of the largest plain magnitude (atomics in
     run-dependent order), on a small level, a larger one and the 336-voxel
     one of the full-width pyramid (the most contended); the gradient lies
     channels-last, (B, C, G) with strides (G C, 1, C); through autograd it
@@ -1033,11 +1009,11 @@ def test_grad_vol_paths_and_layout_on_card(ac, disp, c, cuda_device):
         torch.cuda.synchronize()
         assert level_grad_vol_cuda.launches == before + 1
         assert got.shape == (2, c, gsize) and got.stride() == (gsize * c, 1, c)
-        assert _rel_err(got, ref) <= 1e-5, dims
+        assert _rel_err(got, ref) <= K8_RTOL, dims
         flat = torch.tensor(rng.standard_normal((2, c, gsize)).astype(np.float32),
                             device=cuda_device).requires_grad_()
         (level_features(flat, *p, *args) * g).sum().backward()
-        assert _rel_err(flat.grad, ref) <= 1e-5
+        assert _rel_err(flat.grad, ref) <= K8_RTOL
 
 
 @pytest.mark.cuda
@@ -1047,7 +1023,7 @@ def test_grad_vol_paths_and_layout_on_card(ac, disp, c, cuda_device):
 def test_level_fc0_bf16_kernel_matches_plain_on_card(ac, disp, c, h, cuda_device):
     """K6 bf16 against its plain bf16 version (level_fc0_plain(...,
     torch.bfloat16)), alone and adding into a buffer: max |error| within
-    chip_smoke.py's K6_BF16_TOL of the largest |partial| and mean |error|
+    K6_BF16_TOL of the largest |partial| and mean |error|
     within K6_BF16_REL_MEAN_TOL of the mean |partial|, a limit that the plain
     version with a rounding point left out fails.  The level as an f32 flat
     (the wrapper rounds and stages it) and as a staged bf16 channels-last
@@ -1076,12 +1052,12 @@ def test_level_fc0_bf16_kernel_matches_plain_on_card(ac, disp, c, h, cuda_device
     torch.cuda.synchronize()
     assert level_fc0_bf16_cuda.launches == before + 3
     assert torch.equal(got, got.to(torch.bfloat16).float())
-    assert _rel_err(got, ref) <= smoke["K6_BF16_TOL"]
-    assert smoke["rel_mean_err"](got, ref) <= smoke["K6_BF16_REL_MEAN_TOL"]
-    assert _rel_err(summed - acc, ref) <= smoke["K6_BF16_TOL"]
+    assert _rel_err(got, ref) <= K6_BF16_TOL
+    assert rel_mean_err(got, ref) <= K6_BF16_REL_MEAN_TOL
+    assert _rel_err(summed - acc, ref) <= K6_BF16_TOL
     for skip in ("level", "feature", "partial"):
         wrong = smoke["plain_bf16_fc0"](flat, w0l, p, *args, skip=(skip,))
-        assert smoke["rel_mean_err"](wrong, ref) > smoke["K6_BF16_REL_MEAN_TOL"], skip
+        assert rel_mean_err(wrong, ref) > K6_BF16_REL_MEAN_TOL, skip
     with pytest.raises(NotImplementedError):
         level_fc0_bf16_cuda(flat.clone().requires_grad_(), w0k, *p, *args)
     three = torch.zeros((2, 3, 19 * 13 * 14), device=cuda_device)
@@ -1095,7 +1071,7 @@ def test_mlp_kernel_bf16_matches_plain_on_card(net_res, cuda_device):
     """K3 with compute_dtype bfloat16 (the features rounded on load and each
     ReLU output in the kernel, the weights by mlp_operands; fc0-fc2 on the
     tensor cores) against its plain bf16 version:
-    atol chip_smoke.py's K3_BF16_TOL on logits (a hidden activation may round
+    atol K3_BF16_TOL on logits (a hidden activation may round
     the other way of a bf16 boundary) and mean |error| within
     K3_BF16_REL_MEAN_TOL of the mean |logit|, a limit that the plain bf16
     decoder with its hidden rounding left out fails."""
@@ -1110,11 +1086,10 @@ def test_mlp_kernel_bf16_matches_plain_on_card(net_res, cuda_device):
     torch.cuda.synchronize()
     assert fused_point_mlp.launches == before + 1
     ref = fused_point_mlp_plain(f, *weights, compute_dtype=torch.bfloat16)
-    torch.testing.assert_close(got, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
-    tol = smoke["K3_BF16_REL_MEAN_TOL"]
-    assert smoke["rel_mean_err"](got, ref) <= tol
+    torch.testing.assert_close(got, ref, atol=K3_BF16_TOL, rtol=0)
+    assert rel_mean_err(got, ref) <= K3_BF16_REL_MEAN_TOL
     wrong = smoke["plain_bf16_mlp"](f, *weights, skip=("hidden",))
-    assert smoke["rel_mean_err"](wrong, ref) > tol
+    assert rel_mean_err(wrong, ref) > K3_BF16_REL_MEAN_TOL
 
 
 def _k3_inputs(net_res, n, device, misaligned=False):
@@ -1149,12 +1124,10 @@ def test_mlp_kernel_bf16_ragged_on_card(net_res, n, misaligned, cuda_device):
     16: a zero-padded last chunk) and ragged N (a partial tile; N % 4 != 0
     and a misaligned f take the scalar loads; 11,648 is the full row), with
     and without mlp_operands: one launch a call, bit-identical with and
-    without operands, within chip_smoke.py's K3_BF16_TOL of the plain bf16
-    version and, from 1000 points on, within K3_BF16_REL_MEAN_TOL of the
-    mean |logit|."""
+    without operands, within K3_BF16_TOL of the plain bf16 version and,
+    from 1000 points on, within K3_BF16_REL_MEAN_TOL of the mean |logit|."""
     from sv3d_tpu_torch.ops.cuda.mlp import mlp_operands
 
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     f, weights = _k3_inputs(net_res, n, cuda_device, misaligned)
     bf16 = torch.bfloat16
     with torch.inference_mode():
@@ -1167,9 +1140,9 @@ def test_mlp_kernel_bf16_ragged_on_card(net_res, n, misaligned, cuda_device):
         assert torch.equal(got, again)
         ref = fused_point_mlp_plain(f, *weights, compute_dtype=bf16)
         assert got.shape == (n,) and bool(torch.isfinite(got).all())
-        torch.testing.assert_close(got, ref, atol=smoke["K3_BF16_TOL"], rtol=0)
+        torch.testing.assert_close(got, ref, atol=K3_BF16_TOL, rtol=0)
         if n >= 1000:
-            assert smoke["rel_mean_err"](got, ref) <= smoke["K3_BF16_REL_MEAN_TOL"]
+            assert rel_mean_err(got, ref) <= K3_BF16_REL_MEAN_TOL
 
 
 @pytest.mark.cuda
@@ -1206,7 +1179,7 @@ def test_mlp_kernel_bf16_refuses_other_widths_on_card(cuda_device):
             with pytest.raises(ValueError, match="hidden widths"):
                 fused_point_mlp(f, *ws, compute_dtype=torch.bfloat16)
             got = fused_point_mlp(f, *ws)
-        torch.testing.assert_close(got, fused_point_mlp_plain(f, *ws), atol=1e-4, rtol=0)
+        torch.testing.assert_close(got, fused_point_mlp_plain(f, *ws), atol=K3_TOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -1256,7 +1229,7 @@ def test_stale_plan_raises_on_card(dtype, cuda_device):
         fresh = model.query_lattice(levels, r, 1, 12, 0, dtype)
         want = lattice_sweep_plain(levels, model.mlp, r, 12, 0, cfg.align_corners,
                                    cfg.displacement, dtype)
-    torch.testing.assert_close(fresh, want, atol=K2_BF16_ATOL, rtol=0)
+    torch.testing.assert_close(fresh, want, atol=K2_BF16_TOL, rtol=0)
     assert not torch.equal(fresh, before)
 
 

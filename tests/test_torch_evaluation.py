@@ -1,5 +1,5 @@
 """The port's mesh evaluation (sv3d_tpu_torch.evaluation.metrics) against
-the JAX package's, on seeded unit-space meshes: chip_smoke's box scene, the
+the JAX package's, on seeded unit-space meshes: box_scene's box, the
 box shifted along x, the box shrunk about its centre.  Both run the same
 native code on the same numpy draws: floats at 1e-6 relative, IoU exactly.
 And the analytic case chip_smoke checks on the card: a box against itself
@@ -14,7 +14,7 @@ from sv3d_tpu.evaluation import metrics as jmetrics
 from sv3d_tpu.io.mesh import TriMesh as JTriMesh
 from sv3d_tpu_torch.evaluation import metrics
 from sv3d_tpu_torch.io.mesh import TriMesh, save_obj
-from test_torch_training import chip_smoke
+from sv3d_tpu_torch.quality import box_scene
 
 RTOL = 1e-6
 N_POINTS = 2000
@@ -24,9 +24,9 @@ def _box(shift=(0.0, 0.0, 0.0), scale=1.0):
     """The smoke scene's box in unit space (translate -dims/2, scale
     1/dims), shifted and scaled about its centre: (vertices, faces)."""
     dims = np.array([139.0, 104.0, 112.0])
-    v = (chip_smoke.box_vertices(1) - dims / 2) / dims
+    v = (box_scene.box_vertices(1) - dims / 2) / dims
     c = v.mean(axis=0)
-    return (v - c) * scale + c + np.asarray(shift), chip_smoke._BOX_FACES
+    return (v - c) * scale + c + np.asarray(shift), box_scene.BOX_FACES
 
 
 MESHES = {"box": _box(), "shifted": _box(shift=(0.05, 0.0, 0.0)), "shrunk": _box(scale=0.7)}
@@ -113,6 +113,6 @@ def test_evaluate_mesh_lists_and_cli_match_jax(tmp_path, monkeypatch):
 def test_half_width_shift_has_iou_one_third():
     """A box and the same box shifted by half its width along x overlap in
     half of each: IoU (1/2) / (3/2) = 1/3, up to the sampling error."""
-    v, f = chip_smoke.iou_box_pair()
+    v, f = box_scene.iou_box_pair()
     got = metrics.volumetric_iou(TriMesh(v[0], f), TriMesh(v[1], f), -0.5, 0.5, 200000)
     assert abs(got - 1.0 / 3.0) <= 0.01

@@ -4,7 +4,6 @@ the datasets and loader.  Tests may import both packages; the port itself
 imports nothing of sv3d_tpu (tests/test_torch_no_jax.py)."""
 
 import dataclasses
-import runpy
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +25,7 @@ from sv3d_tpu_torch.data.datasets import DepthDataset, SceneNetDataset
 from sv3d_tpu_torch.data.loader import DataLoader
 from sv3d_tpu_torch.io.exr import read_exr, read_exr_channel, write_exr
 from sv3d_tpu_torch.io.mesh import load_obj, save_obj
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -150,12 +150,11 @@ def _same(a, b):
 
 
 def test_datasets_and_loader_match_on_the_smoke_tree(tmp_path):
-    """The tree chip_smoke.write_smoke_dataset writes at scale_factor 8: the
+    """The tree box_scene.write_smoke_dataset writes at scale_factor 8: the
     port's SceneNetDataset (with and without the flip augmentation) and
     DepthDataset yield the JAX datasets' arrays, and the loaders the same
     batches."""
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
-    root = smoke["write_smoke_dataset"](tmp_path / "data", scale_factor=8, n_points=500)
+    root = write_smoke_dataset(tmp_path / "data", scale_factor=8, n_points=500)
     for flip in (None, 0.37):
         kw = dict(num_points=64, splitsdir="overfit", seed=3, flip_x_about=flip)
         got, ref = SceneNetDataset("train", root, **kw), JSceneNetDataset("train", root, **kw)

@@ -7,9 +7,6 @@ wrapper computes, and operands made from other weights, or from weights
 changed in place since, raise; bf16 takes IF-Net's widths only.  The kernels themselves
 are held to the plain version on the card (tests/test_torch_cuda.py)."""
 
-import runpy
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -21,7 +18,6 @@ from sv3d_tpu_torch.ops.cuda.mlp import check_bf16_widths, fused_point_mlp, mlp_
 from sv3d_tpu_torch.ops.mlp import fused_point_mlp_plain, rounded
 
 torch.set_num_threads(1)
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def _decoder(net_res, seed=None):
@@ -139,35 +135,3 @@ def test_stale_operands_raise(case, dtype):
             fused_point_mlp(f, *ws, compute_dtype=dtype, operands=stale)
         got = fused_point_mlp(f, *ws, compute_dtype=dtype, operands=mlp_operands(ws, dtype))
         assert torch.equal(got, fused_point_mlp_plain(f, *ws, compute_dtype=dtype))
-
-
-@pytest.mark.parametrize("entry,design", [
-    ("extern \"C\" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,\n"
-     "    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3,\n"
-     "    const void* b3, void* out, int n_feat, int n, int h0, int h1,\n"
-     "    int h2, int round_hidden, void* stream) {", "round_hidden"),
-    ("extern \"C\" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,\n"
-     "    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3,\n"
-     "    const void* b3, void* out, int n_feat, int n, int h0, int h1,\n"
-     "    int h2, void* stream) {", "mma"),
-    ("#include \"fma_f32.cuh\"\n#include \"mma_bf16.cuh\"\n"
-     "extern \"C\" int sv3d_fused_point_mlp(const void* f, const void* w0t, const void* b0,\n"
-     "    const void* w1t, const void* b1, const void* w2t, const void* b2, const void* w3,\n"
-     "    const void* b3, void* out, int n_feat, int n, int h0, int h1,\n"
-     "    int h2, void* stream) {", "fma"),
-])
-def test_compare_mlp_tells_the_two_c_interfaces_apart(entry, design):
-    """compare_mlp.py calls each checkout's K3 entries with the arguments of
-    its design: the f32 kernel with a round_hidden flag (the bf16 class on
-    it), or without one beside the mma.sync bf16 kernel, the f32 kernel one
-    output column a thread ("mma") or on the f32 FMA core ("fma", the same
-    C entries).  This checkout's source is the fma design, called as its
-    wrapper calls it."""
-    from sv3d_tpu_torch.ops.cuda import mlp as wrapper
-
-    cmp = runpy.run_path(str(ROOT / "compare_mlp.py"))
-    assert cmp["design_of"](entry) == design
-    src = (ROOT / "sv3d_tpu_torch" / "csrc" / "mlp.cu").read_text()
-    assert cmp["design_of"](src) == "fma"
-    assert cmp["_ARGTYPES"]["fma"] == cmp["_ARGTYPES"]["mma"] == wrapper._ARGTYPES
-    assert set(cmp["_ARGTYPES"][design]) >= {"sv3d_fused_point_mlp"}

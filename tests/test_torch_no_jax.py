@@ -62,6 +62,7 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.evaluation.metrics", "sv3d_tpu_torch.training.trainer_ifnet",
         "sv3d_tpu_torch.training.trainer_unet", "sv3d_tpu_torch.models.mixed",
         "sv3d_tpu_torch.quality", "sv3d_tpu_torch.quality.synthetic_scenes",
+        "sv3d_tpu_torch.quality.box_scene",
         "sv3d_tpu_torch.quality.scoring", "sv3d_tpu_torch.quality.overfit",
         "sv3d_tpu_torch.quality.multiscene", "sv3d_tpu_torch.quality.diagnose",
         "sv3d_tpu_torch.quality.compare_precision", "sv3d_tpu_torch.parallel",
@@ -94,12 +95,13 @@ SLICE = BLOCK + textwrap.dedent("""
 
 
 TRAIN = BLOCK + textwrap.dedent("""
-    import json, runpy, sys
+    import json, sys
     import numpy as np
     import torch
     torch.set_num_threads(1)
-    smoke = runpy.run_path("chip_smoke.py")
-    root = smoke["write_smoke_dataset"](sys.argv[1], scale_factor=8, n_points=500)
+    from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
+
+    root = write_smoke_dataset(sys.argv[1], scale_factor=8, n_points=500)
     from sv3d_tpu_torch.config import Config
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
@@ -138,20 +140,16 @@ def test_port_trains_one_step_without_jax(tmp_path):
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
-    """Every import statement of every .py under sv3d_tpu_torch/, of
-    chip_smoke.py and of the root compare_*.py scripts (compare_voxelize.py,
-    compare_mlp.py, compare_sweep.py), at any depth, names none of
-    sv3d_tpu, jax, jaxlib, flax."""
-    compare = sorted(ROOT.glob("compare_*.py"))
-    assert {p.name for p in compare} >= {"compare_voxelize.py", "compare_mlp.py",
-                                         "compare_sweep.py"}
-    sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                 *compare]
+    """Every import statement of every .py under sv3d_tpu_torch/ and of
+    chip_smoke.py, at any depth, names none of sv3d_tpu, jax, jaxlib,
+    flax."""
+    sources = sorted((ROOT / "sv3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(sources) > 40
-    # the quality tooling's ports of the JAX package's scripts are scanned too
+    # the quality tooling's ports of the JAX package's scripts are scanned
+    # too, and the box scene of the tests and the card smoke
     assert {p.name for p in sources if p.parent.name == "quality"} >= {
         "synthetic_scenes.py", "scoring.py", "overfit.py", "multiscene.py", "diagnose.py",
-        "compare_precision.py"}
+        "compare_precision.py", "box_scene.py"}
     # and the ports of bench.py and scripts/measure_step.py
     assert {p.name for p in sources if p.parent.name == "bench"} >= {
         "__main__.py", "headline.py", "measure_step.py", "timing.py"}

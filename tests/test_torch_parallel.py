@@ -71,6 +71,7 @@ from sv3d_tpu_torch.parallel import (
     shard_batch,
 )
 from sv3d_tpu_torch.parallel.mesh import check_world
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 from test_torch_training import chip_smoke
 from test_torch_unet import randomized
 
@@ -121,7 +122,7 @@ def world2(tmp_path_factory):
     steps, the sp=2 lattice and the CLI fit.  Returns (tmp, the lattice
     case, the per-rank results)."""
     tmp = tmp_path_factory.mktemp("world2")
-    data = chip_smoke.write_smoke_dataset(tmp / "data", scale_factor=8, n_points=2000)
+    data = write_smoke_dataset(tmp / "data", scale_factor=8, n_points=2000)
     for kind in ("raw", "processed"):  # a 4-item split: one step an epoch at batch 4
         os.symlink(data / kind / "overfit", data / kind / "tiny")
     write_split(data, "tiny", "train", ["00000"] * 4)
@@ -360,7 +361,7 @@ def test_chip_smoke_world2_phase_on_the_cpu(tmp_path, monkeypatch):
     import chip_smoke as smoke  # importable by name, as the spawned ranks import it
 
     monkeypatch.setattr(smoke, "WORK", tmp_path)
-    root = smoke.write_smoke_dataset(tmp_path / "data", scale_factor=8, n_points=2000)
+    root = write_smoke_dataset(tmp_path / "data", scale_factor=8, n_points=2000)
     fit = Config(seed=0, scale_factor=8, batch_size=4, num_points=64, subsample_points=128,
                  fused_query=True, datasetdir=str(root), sanity_steps=0)
     serve = Config(seed=0, scale_factor=8)

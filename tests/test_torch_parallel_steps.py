@@ -47,6 +47,7 @@ from sv3d_tpu.config import Config as JConfig
 from sv3d_tpu.data.loader import collate
 from sv3d_tpu.training.trainer_scene_net import SceneNetTrainer as JSceneNetTrainer
 from sv3d_tpu_torch.convert import from_flax
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 from test_torch_precision_e2e import compare_bf16_step
 from test_torch_training import (
     _TENSORS,
@@ -54,7 +55,6 @@ from test_torch_training import (
     _compare_step,
     _jax_grads,
     _port_state,
-    chip_smoke,
     port_config,
 )
 
@@ -104,7 +104,7 @@ def world4(tmp_path_factory):
     """Both JAX cases, and one spawn of 4 ranks running every port variant:
     {(fused, precision, float64): per-rank snapshots}."""
     tmp = tmp_path_factory.mktemp("world4")
-    data = chip_smoke.write_smoke_dataset(tmp / "data", scale_factor=8, n_points=2000)
+    data = write_smoke_dataset(tmp / "data", scale_factor=8, n_points=2000)
     cases = {32: _jax_case(tmp, data, 32)}
     cases[16] = _jax_case(tmp, data, 16, cases[32])
     variants = [(fused, p, f64) for fused in (False, True) for p, f64 in

@@ -64,6 +64,7 @@ from sv3d_tpu_torch.geometry.frustum import FrustumGrid
 from sv3d_tpu_torch.inference.dense_grid import evaluate_on_grid
 from sv3d_tpu_torch.inference.predict import predict
 from sv3d_tpu_torch.models.scene_net import SceneNet
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 from sv3d_tpu_torch.training.trainer_ifnet import ImplicitRefinementTrainer
 from sv3d_tpu_torch.training.trainer_scene_net import to_device, train_step
 from sv3d_tpu_torch.training.trainer_unet import DepthRegressorTrainer
@@ -72,7 +73,6 @@ from test_torch_predict import SCALE, TEXT, _served_grid
 from test_torch_trainer_ifnet import _jax_grads as ifnet_jax_grads
 from test_torch_trainer_ifnet import _processed_tree
 from test_torch_training import _TENSORS, LR, _inputs, _jax_grads, _jax_net, _port_state
-from test_torch_training import chip_smoke
 from test_torch_unet import randomized
 
 torch.set_num_threads(1)
@@ -180,7 +180,7 @@ def test_ifnet_step_matches_jax_precision16(tmp_path):
 def test_unet_step_matches_jax_precision16(tmp_path, resize_input):
     """The UNet-only step (B=2; UNet at W = 256) against JAX's trainer's step
     at precision 16, whose depth_forward widens the bf16 logits to f32."""
-    root = chip_smoke.write_smoke_dataset(tmp_path / "tree", scale_factor=8, n_points=200)
+    root = write_smoke_dataset(tmp_path / "tree", scale_factor=8, n_points=200)
     kw = dict(seed=0, batch_size=2, lr=LR, precision=16, resize_input=resize_input, W=256,
               datasetdir=str(root), splitsdir="overfit")
     jtrainer = JUNetTrainer(JConfig(**kw), experiment_dir=tmp_path / "jax")
@@ -311,7 +311,7 @@ def test_precision16_trainer_checkpoint_serves_at_16_and_32(tmp_path, monkeypatc
     mixed-precision bound 2e-2 and both are meshed."""
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
-    root = chip_smoke.write_smoke_dataset(tmp_path / "data", scale_factor=SCALE)
+    root = write_smoke_dataset(tmp_path / "data", scale_factor=SCALE)
     cfg = Config(seed=0, scale_factor=SCALE, batch_size=2, num_points=64, precision=16,
                  fused_query=True, datasetdir=str(root), sanity_steps=0, experiment="p16")
     state = SceneNetTrainer(cfg, device="cpu", experiment_dir=tmp_path / "train").fit(

@@ -234,10 +234,11 @@ def test_chip_smoke_serves_a_fit_checkpoint(tmp_path):
     from pathlib import Path
 
     from sv3d_tpu_torch.config import Config as TConfig
+    from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 
     smoke = runpy.run_path(str(Path(__file__).resolve().parents[1] / "chip_smoke.py"))
-    root = smoke["write_smoke_dataset"](tmp_path / "data", scale_factor=SCALE)
+    root = write_smoke_dataset(tmp_path / "data", scale_factor=SCALE)
     cfg = TConfig(seed=0, scale_factor=SCALE, batch_size=2, num_points=64,
                   subsample_points=128, fused_query=True, splitsdir="overfit",
                   datasetdir=str(root), sanity_steps=0, experiment="smoke")

@@ -1,6 +1,6 @@
 """The port's offline preprocessing (sv3d_tpu_torch.preprocessing) against
 the JAX package's, on copies of one synthetic raw tree
-(chip_smoke.write_raw_tree: the box scene with its distance field, and a
+(box_scene.write_raw_tree: the box scene with its distance field, and a
 view whose far wall lies past the frustum): depth_grid_from_distance,
 sample_points, process_sample, the pipeline with its quarantine (serial
 and over two worker processes), create_split, copy_data and scaled_obj.
@@ -19,7 +19,7 @@ from sv3d_tpu.preprocessing import scaled_obj as jscaled
 from sv3d_tpu.preprocessing.occupancies import sample_points as j_sample_points
 from sv3d_tpu_torch.preprocessing import copy_data, create_split, scaled_obj
 from sv3d_tpu_torch.preprocessing.occupancies import sample_points
-from test_torch_training import chip_smoke
+from sv3d_tpu_torch.quality import box_scene
 
 # the packages' __init__ export a function named process_sample
 process_sample = importlib.import_module("sv3d_tpu_torch.preprocessing.process_sample")
@@ -30,7 +30,7 @@ NUM_SAMPLES = 3000
 
 @pytest.fixture(scope="module")
 def raw_tree(tmp_path_factory):
-    return chip_smoke.write_raw_tree(tmp_path_factory.mktemp("raw"))
+    return box_scene.write_raw_tree(tmp_path_factory.mktemp("raw"))
 
 
 def _copy(tree, dst):
@@ -79,7 +79,7 @@ def test_sample_points_matches_jax(raw_tree, tmp_path):
     from sv3d_tpu_torch.io.mesh import save_obj
 
     mesh = tmp_path / "box.obj"
-    save_obj(mesh, chip_smoke.box_vertices(2), chip_smoke._BOX_FACES)
+    save_obj(mesh, box_scene.box_vertices(2), box_scene.BOX_FACES)
     dims = (70, 52, 56)
     got = sample_points(mesh, dims, 1000, 0.01, rng=np.random.default_rng(3))
     want = j_sample_points(mesh, dims, 1000, 0.01, rng=np.random.default_rng(3))
@@ -171,7 +171,7 @@ def test_scaled_obj_matches_jax(raw_tree, tmp_path):
     for who in ("port", "jax"):
         for name in ("x/a_predicted.obj", "b_predicted.obj", "c_gt.obj"):
             (tmp_path / who / name).parent.mkdir(parents=True, exist_ok=True)
-            save_obj(tmp_path / who / name, chip_smoke.box_vertices(1), chip_smoke._BOX_FACES)
+            save_obj(tmp_path / who / name, box_scene.box_vertices(1), box_scene.BOX_FACES)
     got = scaled_obj.convert_tree(tmp_path / "port")
     want = jscaled.convert_tree(tmp_path / "jax")
     assert [p.name for p in got] == [p.name for p in want] == ["b_predicted_normed.obj",

@@ -200,14 +200,14 @@ def test_overfit_runs_in_both_precisions(tmp_path):
 
 
 def test_scoring_matches_jax_eval_mesh(tmp_path):
-    """score() of one pair in grid coordinates of (17, 13, 14): chip_smoke's
+    """score() of one pair in grid coordinates of (17, 13, 14): box_scene's
     analytic box pair, whose volumetric IoU is 1/3, moved there; it gives
     the JAX package's eval_mesh on the same normalized meshes, to the digits
     the results JSON keeps."""
     from sv3d_tpu_torch.io.mesh import save_obj
-    from test_torch_training import chip_smoke
+    from sv3d_tpu_torch.quality.box_scene import iou_box_pair
 
-    verts, faces = chip_smoke.iou_box_pair()
+    verts, faces = iou_box_pair()
     dims = (17, 13, 14)
     d = np.asarray(dims, dtype=np.float64)
     pred, gt = tmp_path / "pred.obj", tmp_path / "gt.obj"

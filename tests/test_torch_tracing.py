@@ -4,14 +4,12 @@ fit's --profiler simple|advanced on it.  CPU only: device ms reads None."""
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import shutil
 import sys
 import threading
 import time
 import warnings
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +20,7 @@ from sv3d_tpu_torch.config import Config
 from sv3d_tpu_torch.data.datasets import SceneNetDataset
 from sv3d_tpu_torch.data.loader import DataLoader
 from sv3d_tpu_torch.data.splits import write_split
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 from sv3d_tpu_torch.utils import profiling
 from sv3d_tpu_torch.utils.profiling import count, records, span
 
@@ -33,20 +32,12 @@ STEP_TREE = {"train.step": None, "train.to_device": "train.step",
              "train.optimizer": "train.step"}
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     """The smoke scene at scale 8, and a split "trio" of three copies of it,
     listed twice."""
-    root = _chip_smoke().write_smoke_dataset(tmp_path_factory.mktemp("tracing") / "data",
-                                             scale_factor=8, n_points=200)
+    root = write_smoke_dataset(tmp_path_factory.mktemp("tracing") / "data", scale_factor=8,
+                               n_points=200)
     items = ["00000", "00001", "00002"]
     for kind in ("raw", "processed"):
         for item in items:

@@ -3,7 +3,7 @@ trainer_ifnet) against the JAX package's.
 
 One ImplicitRefinementTrainer step at scale_factor 8 from JAX's weights
 carried over by from_flax, on a batch of the tree that the port's
-preprocessing pipeline writes from chip_smoke.write_raw_tree, held as
+preprocessing pipeline writes from box_scene.write_raw_tree, held as
 tests/test_torch_training.py holds the scene step: JAX's exact (gather
 path) step in float64 is the witness; the port's float64 gradients at
 EXACT_RTOL, its f32 ones at IFNET_GRAD_RTOL; loss, parameters after one
@@ -33,10 +33,11 @@ from sv3d_tpu_torch.convert import from_flax
 from sv3d_tpu_torch.data.loader import collate
 from sv3d_tpu_torch.io.mesh import load_obj
 from sv3d_tpu_torch.preprocessing.process_sample import process_sample_pipeline
+from sv3d_tpu_torch.quality.box_scene import write_raw_tree
 from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 from sv3d_tpu_torch.training.trainer_ifnet import TENSORS, ImplicitRefinementTrainer
 from sv3d_tpu_torch.training.trainer_ifnet import cli_main, train_step
-from test_torch_training import LR, _compare_step, chip_smoke, port_config
+from test_torch_training import LR, _compare_step, port_config
 from test_torch_unet import randomized
 
 torch.set_num_threads(1)
@@ -53,7 +54,7 @@ IFNET_GRAD_RTOL = 1e-3
 
 
 def _processed_tree(root, scale_factor):
-    chip_smoke.write_raw_tree(root)
+    write_raw_tree(root)
     processed, quarantined = process_sample_pipeline(
         root / "raw", "overfit", scale_factor, num_samples=2000, seed=0,
         processed_root=root / "processed" / "overfit")

@@ -3,7 +3,7 @@ trainer_unet) against the JAX package's.
 
 One DepthRegressorTrainer step, UNetMini at 240x320 and UNet at W = 256
 (resize_input; the 8-level UNet's smallest input), from JAX's weights
-carried over by from_flax, on a batch of chip_smoke.write_smoke_dataset's
+carried over by from_flax, on a batch of box_scene.write_smoke_dataset's
 tree, held as tests/test_torch_training.py holds the scene step: JAX's step
 in float64 is the witness (its depth_forward casts the logits to f32, so
 the witness composes the same forward without that cast); the port's
@@ -30,11 +30,12 @@ from sv3d_tpu_torch.convert import from_flax
 from sv3d_tpu_torch.data.loader import collate
 from sv3d_tpu_torch.data.splits import write_split
 from sv3d_tpu_torch.io.exr import read_exr_channel
+from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 from sv3d_tpu_torch.training.checkpoint import load_state_from_checkpoint
 from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
 from sv3d_tpu_torch.training.trainer_unet import TENSORS, DepthRegressorTrainer
 from sv3d_tpu_torch.training.trainer_unet import cli_main, train_step
-from test_torch_training import LR, _compare_step, chip_smoke, port_config
+from test_torch_training import LR, _compare_step, port_config
 from test_torch_unet import randomized
 
 torch.set_num_threads(1)
@@ -61,8 +62,7 @@ BN_FED = {
 def tree(tmp_path_factory):
     """The smoke tree, plus split "one": its scene once (an "overfit" train
     split repeats it 500 times)."""
-    root = chip_smoke.write_smoke_dataset(tmp_path_factory.mktemp("unet"), scale_factor=8,
-                                          n_points=200)
+    root = write_smoke_dataset(tmp_path_factory.mktemp("unet"), scale_factor=8, n_points=200)
     (root / "raw" / "one").symlink_to(root / "raw" / "overfit")
     for split in ("train", "val"):
         write_split(root, "one", split, ["00000"])

@@ -16,7 +16,7 @@ is exactly 0 in exact arithmetic; both frameworks compute rounding residue
 there, held to 1e-4 (float32) and 1e-12 (float64) of their weight's
 gradient.
 
-The one-scene dataset tree is chip_smoke.write_smoke_dataset's, at a small
+The one-scene dataset tree is box_scene.write_smoke_dataset's, at a small
 point count and scale_factor 8, which keeps the grids at (17, 13, 14).
 """
 
@@ -47,6 +47,7 @@ from sv3d_tpu_torch.convert import from_flax
 from sv3d_tpu_torch.geometry import FrustumGrid, parse_intrinsics
 from sv3d_tpu_torch.models.scene_net import SceneNet
 from sv3d_tpu_torch.preprocessing.occupancies import determine_occupancy
+from sv3d_tpu_torch.quality import box_scene
 from sv3d_tpu_torch.training.checkpoint import load_pretrained_unet, load_state_from_checkpoint
 from sv3d_tpu_torch.training.cli import parse_config
 from sv3d_tpu_torch.training.optim import build_optimizer
@@ -93,8 +94,8 @@ BN_RTOL = 1e-5
 
 @pytest.fixture(scope="module")
 def smoke_data(tmp_path_factory):
-    root = chip_smoke.write_smoke_dataset(tmp_path_factory.mktemp("smoke"), scale_factor=8,
-                                          n_points=2000)
+    root = box_scene.write_smoke_dataset(tmp_path_factory.mktemp("smoke"), scale_factor=8,
+                                         n_points=2000)
     write_split(root, "overfit", "test", ["00000"])
     return root
 
@@ -122,7 +123,7 @@ def _inputs(b=2, n=64, seed=0):
 
 
 def _jax_net(cfg, batch, seed):
-    intr = j_parse_intrinsics(chip_smoke.INTRINSICS)
+    intr = j_parse_intrinsics(box_scene.INTRINSICS)
     jm = JSceneNet(cfg, intr, JFrustumGrid.create(intr, voxel_size=0.05 * cfg.scale_factor))
     init = jax.jit(lambda k: jm.init(k, *(jnp.asarray(batch[k][:1]) for k in
                                           ("rgb", "depthmap_target", "points")), train=False,
@@ -131,7 +132,7 @@ def _jax_net(cfg, batch, seed):
 
 
 def _port_state(cfg, variables):
-    intr = parse_intrinsics(chip_smoke.INTRINSICS)
+    intr = parse_intrinsics(box_scene.INTRINSICS)
     model = SceneNet(cfg, intr, FrustumGrid.create(intr, voxel_size=0.05 * cfg.scale_factor))
     model.load_state_dict(from_flax(variables))
     return TrainState(model, build_optimizer(cfg.lr, model))
@@ -349,7 +350,7 @@ class _WideConfig(Config):
 def test_flip_mirror_check_takes_the_image_width_from_the_config(smoke_data, tmp_path):
     wide = tmp_path / "wide"
     wide.mkdir()
-    (wide / "intrinsics.txt").write_text(chip_smoke.INTRINSICS.replace("159.5", "319.5"))
+    (wide / "intrinsics.txt").write_text(box_scene.INTRINSICS.replace("159.5", "319.5"))
     trainer = SceneNetTrainer(_WideConfig(seed=0, flip_aug=True, datasetdir=str(wide)),
                               device="cpu", experiment_dir=tmp_path / "a")
     assert np.isfinite(trainer._flip_x_about())

@@ -7,8 +7,6 @@ scatter and its Pallas kernel (tests/test_pallas_voxelize.py).  Smoothing is
 three f32 contractions on both sides: atol 1e-6."""
 
 import importlib
-import runpy
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +27,7 @@ from sv3d_tpu_torch.models.projection import Projection
 # name, as sv3d_tpu.ops does
 tv = importlib.import_module("sv3d_tpu_torch.ops.voxelize")
 from sv3d_tpu_torch.ops.cuda.voxelize import scatter_voxels_bwd_cuda, scatter_voxels_cuda
+from sv3d_tpu_torch.quality import box_scene
 
 torch.set_num_threads(1)
 
@@ -78,7 +77,6 @@ def test_smoothing_and_projection_module():
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
-ROOT = Path(__file__).resolve().parents[1]
 # d - 1 a power of two on every axis: a point at k / (d - 1) - 0.5 sits
 # exactly on a voxel in f32, with weight exactly 1 there and 0 at the other
 # corners
@@ -137,15 +135,14 @@ def test_scatter_backward_takes_the_clamped_or_the_raw_grid():
 def test_scatter_autograd_saves_the_clamped_grid_and_matches_jax_on_the_box_scene():
     """The CPU autograd path of scatter_voxels_cuda keeps (points, clamped
     grid) for its backward and nothing else (no raw grid); on the points
-    that chip_smoke.py projects from write_smoke_dataset's box-before-a-wall
+    that box_scene.k1_points projects from write_smoke_dataset's box-before-a-wall
     depth at scale factor 8 (76,800 + 4,096 outside), its gradient equals
     jax.grad through scatter_voxels_pallas (interpret mode) at 1e-5 of the
     largest component."""
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     cfg = Config(seed=0, scale_factor=8)
-    model = smoke["seeded_scene_net"](cfg, "cpu", 0)
+    model = box_scene.seeded_scene_net(cfg, "cpu", 0)
     rng = np.random.default_rng(7)
-    pts = smoke["k1_points"](model, "box", 1, rng).numpy()
+    pts = box_scene.k1_points(model, "box", 1, rng).numpy()
     dims = cfg.dims
     w = rng.standard_normal((1, *dims)).astype(np.float32)
 
@@ -172,15 +169,14 @@ def test_scatter_autograd_saves_the_clamped_grid_and_matches_jax_on_the_box_scen
     ("random", None, 1.1),  # a uniform random depth per pixel: 1.02x
 ])
 def test_k1_atomic_count_on_full_width_depths(kind, least, most):
-    """chip_smoke.py's count of K1's global atomics (one a warp, base voxel
+    """box_scene.k1_atomics, the count of K1's global atomics (one a warp, base voxel
     and corner slot) against one a corner, on a 240x320 depth projected at
     the serving dims: spatially coherent depths combine many lanes of a
     warp, a random depth per pixel almost none."""
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     cfg = Config(seed=0)
-    model = smoke["seeded_scene_net"](cfg, "cpu", 0)
-    pts = smoke["k1_points"](model, kind, 1, np.random.default_rng(0), outside=0)
-    issued, old = smoke["k1_atomics"](pts, cfg.dims)
+    model = box_scene.seeded_scene_net(cfg, "cpu", 0)
+    pts = box_scene.k1_points(model, kind, 1, np.random.default_rng(0), outside=0)
+    issued, old = box_scene.k1_atomics(pts, cfg.dims)
     assert old == 8 * 240 * 320
     if least is not None:
         assert old / issued >= least
@@ -193,11 +189,10 @@ def test_k1_atomic_count_matches_a_warp_by_warp_count():
     points dropped at the border, the last warp ragged, coincident runs)
     against a loop over the warps that counts each distinct base voxel's
     in-range corners once."""
-    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"))
     rng = np.random.default_rng(9)
     pts = rng.uniform(-0.7, 0.7, (3, 1013, 3)).astype(np.float32)
     pts[:, 100:400] = (0.1, -0.2, 0.3)  # one voxel for whole warps
-    issued, old = smoke["k1_atomics"](torch.tensor(pts), DIMS)
+    issued, old = box_scene.k1_atomics(torch.tensor(pts), DIMS)
     flat = pts.reshape(-1, 3)
     want_issued = want_old = 0
     for start in range(0, len(flat), 32):
@@ -214,22 +209,3 @@ def test_k1_atomic_count_matches_a_warp_by_warp_count():
                 want_issued += corners
     assert (issued, old) == (want_issued, want_old)
     assert issued < old
-
-
-@pytest.mark.parametrize("entry,design", [
-    ("extern \"C\" int sv3d_scatter_voxels(const void* points, void* grid, int batch,\n"
-     "    int n, int d0, int d1, int d2, float lo,\n    float hi, void* stream) {", "zeroed"),
-    ("extern \"C\" int sv3d_scatter_voxels(const void* points, void* grid, int batch,\n"
-     "    int n, int d0, int d1, int d2, float lo,\n    float hi, int clamp, void* stream) {",
-     "one call"),
-])
-def test_compare_voxelize_tells_the_two_c_interfaces_apart(entry, design):
-    """compare_voxelize.py calls each checkout's K1/K1b entries with the
-    arguments of its design: the scatter into a zeroed grid (no clamp
-    argument), or one call that zeroes, scatters and clamps.  This
-    checkout's source is the one-call design."""
-    cmp = runpy.run_path(str(ROOT / "compare_voxelize.py"))
-    assert cmp["design_of"](entry) == design
-    src = (ROOT / "sv3d_tpu_torch" / "csrc" / "voxelize.cu").read_text()
-    assert cmp["design_of"](src) == "one call"
-    assert set(cmp["_ARGTYPES"][design]) == {"sv3d_scatter_voxels", "sv3d_scatter_voxels_bwd"}
