@@ -84,7 +84,18 @@ that each ran its kernels:
             at B=32 must launch the dgrad and wgrad kernels 14 times each
             (the IF-Net fit paths above none of dgrad), and its warm step is
             timed as the port runs it, with dx from cuDNN on NCDHW, with the
-            U-Net's input channels-last, and with every conv channels-last.
+            U-Net's input channels-last, with every conv channels-last, and
+            with y from cuDNN (the forward's route before phase 27's kernel).
+  fprop     phase 27: the f32 conv forward kernel (csrc/conv3d_fprop.cu) at
+            ConvONet's room_grid64 U-Net's 14 shapes (B=32 on 64^3 to 8^3,
+            NCDHW as GroupNorm hands them) and four ragged ones (one with a
+            bias), held to float64 by output channel and to itself (equal
+            bits), and timed beside its bound (the weight gradient's: the
+            same operations and bytes) and cuDNN's forward without and with
+            cudnn.benchmark (library_ms).  Phase 26's ConvONet step must
+            launch it 14 times, and the IF-Net fit paths and phase 26's
+            IF-Net 128 step none (stage 0 has 16 output channels, the
+            later stages' x arrives channels-last).
 
 K1 and K1b are held against their plain versions on a uniform random
 depth per pixel, on the rendered box scene of the training data and on a
@@ -146,6 +157,7 @@ from sv3d_tpu_torch.bench.timing import (  # noqa: E402 (after the check above)
 )
 from sv3d_tpu_torch.ops.cuda import rel_mean_err  # noqa: E402
 from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import DGRAD_RTOL  # noqa: E402
+from sv3d_tpu_torch.ops.cuda.conv3d_fprop import FPROP_RTOL  # noqa: E402
 from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import WGRAD_RTOL  # noqa: E402
 from sv3d_tpu_torch.ops.cuda.mlp import K3_BF16_REL_MEAN_TOL, K3_BF16_TOL, K3_TOL  # noqa: E402
 from sv3d_tpu_torch.ops.cuda.point_query import (  # noqa: E402
@@ -1222,14 +1234,14 @@ def k1b_timings(args: dict) -> dict:
 
 
 def _counters():
-    """The training path's kernels' wrappers (launch_counters' names; wgrad
-    and dgrad are the f32 3x3x3 convs' weight and input gradients: the
-    IF-Net's convs take the weight gradient's kernel alone, ConvONet's
-    U-Net's both)."""
+    """The training path's kernels' wrappers (launch_counters' names; wgrad,
+    dgrad and fprop are the f32 3x3x3 convs' weight and input gradients and
+    forward: the IF-Net's convs take the weight gradient's kernel alone,
+    ConvONet's U-Net's all three)."""
     from sv3d_tpu_torch.ops.cuda import launch_counters
 
     return {k: v for k, v in launch_counters().items()
-            if k in ("K1", "K1b", "K4", "K7", "K8", "wgrad", "dgrad")}
+            if k in ("K1", "K1b", "K4", "K7", "K8", "wgrad", "dgrad", "fprop")}
 
 
 def train_kernel_checks(model, dev, rng, k1b_points: dict, n_query: int = 4096) -> dict:
@@ -1766,11 +1778,13 @@ def ifnet_fit_phase(cfg, counters) -> dict:
           f"[{gt.vertices.min(axis=0).round(2).tolist()}, "
           f"{gt.vertices.max(axis=0).round(2).tolist()}] (target {target.shape})", flush=True)
     # the step asks no gradient of its points (data), so K7 has nothing to do;
-    # the pyramid's convs hand their gradients channels-last, so dgrad neither
-    check(all(n > 0 for k, n in launches.items() if k not in ("K7", "dgrad"))
-          and launches.get("K7", 0) == 0 and launches.get("dgrad", 0) == 0,
-          f"the IF-Net-only path did not run K4, K8 and K2 bf16 (and not K7 and dgrad): "
-          f"{launches}")
+    # the pyramid's convs hand their gradients channels-last, so dgrad neither,
+    # and their inputs (stage 0: 16 output channels), so fprop neither
+    check(all(n > 0 for k, n in launches.items() if k not in ("K7", "dgrad", "fprop"))
+          and launches.get("K7", 0) == 0 and launches.get("dgrad", 0) == 0
+          and launches.get("fprop", 0) == 0,
+          f"the IF-Net-only path did not run K4, K8 and K2 bf16 (and not K7, dgrad and "
+          f"fprop): {launches}")
     check(state.step == 12 and len(losses) == 2 and bool(np.isfinite(losses).all())
           and len(vals) == 2 and bool(np.isfinite(vals).all()),
           "the IF-Net-only fit did not log finite losses and two validations")
@@ -2133,10 +2147,11 @@ DGRAD_RAGGED = (((3, 20, 5, 7, 9), 40), ((2, 36, 3, 9, 12), 12), ((2, 128, 9, 7,
                 ((1, 8, 1, 1, 1), 3))
 
 
-def ifnet_dgrad_route(b: int = 4) -> dict:
-    """The tracer's counters of one f32 IF-Net 128 train step's backward at
-    B=b on the full grid: ifnet.dgrad (input gradients taken) and
-    ifnet.dgrad_kernel (those the kernel computed)."""
+def ifnet_conv_route(b: int = 4) -> dict:
+    """The tracer's counters of one f32 IF-Net 128 train step at B=b on the
+    full grid: ifnet.dgrad (input gradients taken), ifnet.dgrad_kernel
+    (those the kernel computed), ifnet.fprop (forwards) and
+    ifnet.fprop_kernel (those the kernel computed)."""
     from sv3d_tpu_torch.config import IFNetConfig
     from sv3d_tpu_torch.models.ifnet import IFNet
     from sv3d_tpu_torch.utils import profiling
@@ -2152,7 +2167,8 @@ def ifnet_dgrad_route(b: int = 4) -> dict:
     torch.cuda.synchronize()
     counters = profiling.records()["counters"]
     profiling.reset()
-    return {k: counters.get(k, 0) for k in ("ifnet.dgrad", "ifnet.dgrad_kernel")}
+    return {k: counters.get(k, 0) for k in ("ifnet.dgrad", "ifnet.dgrad_kernel", "ifnet.fprop",
+                                             "ifnet.fprop_kernel")}
 
 
 def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
@@ -2245,16 +2261,100 @@ def dgrad_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
     return rows
 
 
+# ragged shapes for the forward, (B, Cin, D, H, W), Cout and a bias or not: W
+# not a multiple of 4 (4-byte copies), channel counts that fill no tile,
+# both instances, one voxel
+FPROP_RAGGED = (((3, 20, 5, 7, 9), 40, True), ((2, 12, 3, 9, 12), 36, False),
+                ((2, 64, 9, 7, 30), 128, False), ((1, 3, 1, 1, 1), 8, True))
+
+
+def fprop_phase(smi, shapes: list, what: str, ragged: tuple = ()) -> dict:
+    """The conv forward kernel at shapes ([(name, (B, Cin, D, H, W), Cout)],
+    what names them; no bias, as the U-Net's convs) and at ragged, NCDHW:
+    held to float64 (each output channel within FPROP_RTOL of its norm;
+    cuDNN's f32 difference printed beside) and to itself (two calls, equal
+    bits), one launch counted a call; at shapes CUDA-event ms of calls back
+    to back, in turns (kernel, plain = cuDNN's forward as the port ran it
+    before, cuDNN under cudnn.benchmark = library_ms, kernel), beside the
+    bound.  Returns {name: row}."""
+    from sv3d_tpu_torch.ops.cuda.conv3d_fprop import conv3d_fprop_cuda, conv3d_fprop_plain, plan
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_co = lambda a, r: float(((a - r).transpose(0, 1).flatten(1).norm(dim=1)
+                                 / r.transpose(0, 1).flatten(1).norm(dim=1).clamp_min(1e-30))
+                                .max())
+    rows = {}
+    for name, shape, cout, bias in ([(n, s, c, False) for n, s, c in shapes]
+                                    + [(f"ragged{i}", s, c, b) for i, (s, c, b) in
+                                       enumerate(ragged)]):
+        x = torch.randn(shape, device="cuda", generator=gen)
+        w = torch.randn((cout, shape[1], 3, 3, 3), device="cuda", generator=gen)
+        b = torch.randn(cout, device="cuda", generator=gen) if bias else None
+        before = conv3d_fprop_cuda.launches
+        got = conv3d_fprop_cuda(x, w, b)
+        again = conv3d_fprop_cuda(x, w, b)
+        ref = conv3d_fprop_plain(x, w, b)
+        ref64 = conv3d_fprop_plain(x.double(), w.double(), None if b is None else b.double())
+        torch.cuda.synchronize()
+        row = {"shape": shape, "cout": cout, "bias": bias, "plan": plan(tuple(shape), cout),
+               "err": per_co(got.double(), ref64), "plain_err": per_co(ref.double(), ref64),
+               "same_bits": bool(torch.equal(got, again)),
+               "launches": conv3d_fprop_cuda.launches - before}
+        del ref64, got, again, ref
+        if not name.startswith("ragged"):
+            kernel = lambda: conv3d_fprop_cuda(x, w, b)
+            plain = lambda: conv3d_fprop_plain(x, w, b)
+            k1 = cuda_ms(lambda: [kernel() for _ in range(10)], reps=3) / 10
+            row["plain_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], warmup=1, reps=3) / 3
+            torch.backends.cudnn.benchmark = True
+            try:
+                row["library_ms"] = cuda_ms(lambda: [plain() for _ in range(3)], reps=3) / 3
+            finally:
+                torch.backends.cudnn.benchmark = False
+            row["ms"] = cuda_ms(lambda: [kernel() for _ in range(10)], reps=3) / 10
+            row["ms_turns"] = (k1, row["ms"])
+            row["bound"] = wgrad_bound(shape, cout)
+        rows[name] = row
+        del x, w, b
+        torch.cuda.empty_cache()
+    print(f"conv forward (csrc/conv3d_fprop.cu) on {smi}, f32 (TF32 off), {what}:", flush=True)
+    for name, r in rows.items():
+        line = (f"  {name} {r['shape']} -> {r['cout']}{' + bias' if r['bias'] else ''}: plan "
+                f"(ncg, td, th, wtile) {r['plan']}; max rel err by output channel against "
+                f"float64 {r['err']:.2e} (tol {FPROP_RTOL:g}; cuDNN's f32 {r['plain_err']:.2e}); "
+                f"same bits {r['same_bits']}; launches {r['launches']}")
+        if "ms" in r:
+            line += (f"; kernel {r['ms']:.4f} ms (turns {r['ms_turns'][0]:.4f}), bound "
+                     f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                     f"{100.0 * r['bound'][0] / r['ms']:.1f}%), plain (cuDNN) "
+                     f"{r['plain_ms']:.4f} ms, library (cudnn.benchmark) "
+                     f"{r['library_ms']:.4f} ms")
+        print(line, flush=True)
+    timed = [r for r in rows.values() if "ms" in r]
+    total = lambda key: sum(r[key] for r in timed)
+    print(f"  the {len(timed)}: kernel {total('ms'):.4f} ms, bound "
+          f"{sum(r['bound'][0] for r in timed):.4f} ms, plain (cuDNN) {total('plain_ms'):.4f} "
+          f"ms, library (cudnn.benchmark) {total('library_ms'):.4f} ms", flush=True)
+    for name, r in rows.items():
+        check(r["err"] <= FPROP_RTOL, f"the fprop kernel disagrees with float64 at {name}: "
+                                      f"{r['err']}")
+        check(r["same_bits"] and r["launches"] == 2,
+              f"the fprop kernel at {name}: same bits {r['same_bits']}, {r['launches']} "
+              "launches for 2 calls")
+    return rows
+
+
 def _unet_layout_variants() -> dict:
-    """ConvONet's train step as the port runs it and in three other layouts
+    """ConvONet's train step as the port runs it and in four other layouts
     or routes of the U-Net's 3x3x3 convs, as {name: (object, attribute,
     value) to patch in} (None: the port): dx from cuDNN on the NCDHW dy (the
     route before the dgrad kernel); the U-Net's input made channels-last
     (the one-line layout change); every routed conv's x and dy made
     channels-last (copied where GroupNorm and the skips hand NCDHW), so that
     dx comes from cuDNN's channels-last path and the weight gradient's
-    kernel reads both as they are."""
-    from sv3d_tpu_torch.models import convonet
+    kernel reads both as they are; y from cuDNN (the route before the
+    fprop kernel)."""
+    from sv3d_tpu_torch.models import convonet, wgrad
     from sv3d_tpu_torch.models.wgrad import WgradConv3d, _aten_backward
     from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_wgrad
 
@@ -2282,18 +2382,20 @@ def _unet_layout_variants() -> dict:
             "U-Net input channels-last": (
                 convonet.UNet3D, "forward",
                 lambda self, x: unet_forward(self, x.contiguous(memory_format=cl))),
-            "every conv channels-last": (convonet, "WgradConv3d", ChannelsLast)}
+            "every conv channels-last": (convonet, "WgradConv3d", ChannelsLast),
+            "y from cuDNN": (wgrad, "takes_fprop", lambda x, weight: False)}
 
 
 def convonet_step_phase(data_root: Path, smi, b: int = 32) -> dict:
     """ConvONet's room_grid64 (ConvONetConfig's widths) trained by
     SceneNetTrainer in f32 at B=b on the smoke tree: one train step with the
     launch counters set to 0 just before it and the tracer on, which must
-    take all 14 of the U-Net's input and weight gradients from the kernels;
-    then the warm step (CUDA events, median of 5 after 2 warm-ups) and its
-    peak memory in each of _unet_layout_variants(), in turns with the port
-    first and last, each with the tracer's count of the input gradients
-    that took the kernel.  Returns {"launches", "route", "variants"}."""
+    take all 14 of the U-Net's forwards and input and weight gradients from
+    the kernels; then the warm step (CUDA events, median of 5 after 2
+    warm-ups) and its peak memory in each of _unet_layout_variants(), in
+    turns with the port first and last, each with the tracer's count of the
+    input gradients and forwards that took the kernels.  Returns
+    {"launches", "route", "variants"}."""
     from sv3d_tpu_torch.config import Config, ConvONetConfig
     from sv3d_tpu_torch.data.loader import collate
     from sv3d_tpu_torch.training.trainer_scene_net import SceneNetTrainer
@@ -2319,7 +2421,8 @@ def convonet_step_phase(data_root: Path, smi, b: int = 32) -> dict:
         counters = profiling.records()["counters"]
         profiling.reset()
         return {k: counters.get(k, 0) for k in ("convonet.dgrad", "convonet.dgrad_kernel",
-                                                 "convonet.wgrad", "convonet.wgrad_kernel")}
+                                                 "convonet.wgrad", "convonet.wgrad_kernel",
+                                                 "convonet.fprop", "convonet.fprop_kernel")}
 
     counters = _counters()
     for fn in counters.values():
@@ -2328,27 +2431,30 @@ def convonet_step_phase(data_root: Path, smi, b: int = 32) -> dict:
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"ConvONet room_grid64 f32 train step at B={b} (SceneNetTrainer.train_step): "
           f"launches {launches}, tracer {route}", flush=True)
-    check(launches["dgrad"] == 14 and launches["wgrad"] == 14
+    check(launches["dgrad"] == 14 and launches["wgrad"] == 14 and launches["fprop"] == 14
           and all(n == 14 for n in route.values()),
-          f"the ConvONet step did not take its 14 input and weight gradients from the kernels: "
-          f"launches {launches}, tracer {route}")
+          f"the ConvONet step did not take its 14 forwards and input and weight gradients from "
+          f"the kernels: launches {launches}, tracer {route}")
 
     variants = _unet_layout_variants()
     out = {}
     for name in ["port", *[k for k in variants if k != "port"], "port"]:
         def measure():
-            kernel = traced(step)["convonet.dgrad_kernel"]
+            route = traced(step)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(step, reps=5)
-            return ms, torch.cuda.max_memory_allocated() / 2 ** 30, kernel
-        ms, peak, kernel = _run_variant(variants[name], measure)
-        row = out.setdefault(name, {"ms": [], "peak_gib": peak, "dgrad_kernel": kernel})
+            return (ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+                    route["convonet.dgrad_kernel"], route["convonet.fprop_kernel"])
+        ms, peak, kernel, fprop = _run_variant(variants[name], measure)
+        row = out.setdefault(name, {"ms": [], "peak_gib": peak, "dgrad_kernel": kernel,
+                                    "fprop_kernel": fprop})
         row["ms"].append(ms)
     print(f"ConvONet's f32 step at B={b} on {smi}, by the U-Net convs' layout and route (CUDA "
           "events, median of 5, the port first and last):", flush=True)
     for name, r in out.items():
         print(f"  {name}: {', '.join(f'{m:.2f}' for m in r['ms'])} ms, peak {r['peak_gib']:.2f} "
-              f"GiB, {r['dgrad_kernel']} of 14 input gradients the kernel's", flush=True)
+              f"GiB, {r['dgrad_kernel']} of 14 input gradients and {r['fprop_kernel']} of 14 "
+              f"forwards the kernels'", flush=True)
     del trainer, state, batch
     torch.cuda.empty_cache()
     return {"launches": launches, "route": route, "variants": out}
@@ -2509,9 +2615,9 @@ def training_p16_phase(cfgs: dict, batches: dict, f32: dict, parity: dict, smi) 
                 "unet": ()}[kind]
         check(state.step == 4 and all(launches[k] > 0 for k in want)
               and (kind != "ifnet" or launches["K7"] == 0) and launches["wgrad"] == 0
-              and launches["dgrad"] == 0,
-              f"the precision-16 {name} fit did not run its kernels (and not the f32 wgrad "
-              f"and dgrad): "
+              and launches["dgrad"] == 0 and launches["fprop"] == 0,
+              f"the precision-16 {name} fit did not run its kernels (and not the f32 wgrad, "
+              f"dgrad and fprop): "
               f"{launches}")
         gen = torch.Generator().manual_seed(0)
         batch = batches[kind] if kind in batches else fixed_batch(trainer, cfg.batch_size)
@@ -2749,10 +2855,11 @@ def world2_checks(w2: dict, counted: bool = True) -> None:
     the single-process fit and the lattice and the points are bit-equal."""
     if counted:
         for path, counts in w2["launches"].items():
-            check(all(n > 0 for k, ns in counts.items() if k != "dgrad" for n in ns)
-                  and not any(counts.get("dgrad", ())),
+            check(all(n > 0 for k, ns in counts.items() if k not in ("dgrad", "fprop")
+                      for n in ns)
+                  and not any(counts.get("dgrad", ())) and not any(counts.get("fprop", ())),
                   f"a kernel of the world-2 {path} path never ran in a rank (or the dgrad "
-                  f"kernel ran: the IF-Net's convs keep cuDNN's): {counts}")
+                  f"or fprop kernel ran: the IF-Net's convs keep cuDNN's): {counts}")
         check(w2["launches"]["serving_sp2"]["K2"] == [1, 1],
               f"K2 bf16 did not run once in each rank: {w2['launches']['serving_sp2']}")
     for e in w2["fit"]:
@@ -3376,10 +3483,12 @@ def main() -> int:
     vals = [r["val_point_iou"] for r in recs if "val_point_iou" in r]
     print(f"training path: fit(max_steps=12) in {fit_s:.2f} s, launches {train_launches}, "
           f"logged train_loss {losses}, val_point_iou {vals}", flush=True)
-    # the IF-Net's convs hand their gradients channels-last: cuDNN's input gradient
-    check(all(n > 0 for k, n in train_launches.items() if k != "dgrad")
-          and train_launches["dgrad"] == 0,
-          f"a kernel never ran on the training path (or the dgrad kernel did): {train_launches}")
+    # the IF-Net's convs hand their gradients channels-last: cuDNN's input
+    # gradient; and their inputs (stage 0: 16 output channels): cuDNN's forward
+    check(all(n > 0 for k, n in train_launches.items() if k not in ("dgrad", "fprop"))
+          and train_launches["dgrad"] == 0 and train_launches["fprop"] == 0,
+          f"a kernel never ran on the training path (or the dgrad or fprop kernel did): "
+          f"{train_launches}")
     check(state.step == 12 and len(losses) >= 2 and bool(np.isfinite(losses).all())
           and len(vals) == 2, "fit did not log finite losses and two validations")
     last = WORK / "train" / "checkpoints" / "last"
@@ -3545,7 +3654,7 @@ def main() -> int:
                        fused_query=True, visualize=True, sanity_steps=0, val_check_interval=6,
                        datasetdir=str(ifnet_root), splitsdir="overfit", experiment="smoke_ifnet")
     ifnet_counters = {k: v for k, v in _counters().items()
-                      if k in ("K4", "K7", "K8", "wgrad", "dgrad")}
+                      if k in ("K4", "K7", "K8", "wgrad", "dgrad", "fprop")}
     ifnet_counters["K2"] = lattice_sweep_bf16_cuda
     fit_ifnet = ifnet_fit_phase(ifnet_cfg, ifnet_counters)
     print(f"phase 13 in {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -3717,16 +3826,26 @@ def main() -> int:
     dgrad_rows = {f"convonet.{k}": r for k, r in dgrad_phase(
         smi, unet3d_conv_shapes(32), "ConvONet's room_grid64 U-Net, B=32",
         ragged=DGRAD_RAGGED).items()}
-    ifnet_route = ifnet_dgrad_route()
+    ifnet_route = ifnet_conv_route()
     print(f"the IF-Net 128's f32 step at B=4: {ifnet_route['ifnet.dgrad']} input gradients, "
           f"{ifnet_route['ifnet.dgrad_kernel']} of them the kernel's (the rest cuDNN's: "
-          "channels-last dy)", flush=True)
+          f"channels-last dy); {ifnet_route['ifnet.fprop']} forwards, "
+          f"{ifnet_route['ifnet.fprop_kernel']} of them the kernel's", flush=True)
+    check(ifnet_route["ifnet.fprop"] == 9 and ifnet_route["ifnet.fprop_kernel"] == 0,
+          f"the IF-Net 128's step took a forward from the fprop kernel: {ifnet_route}")
     if ifnet_route["ifnet.dgrad_kernel"]:
         dgrad_rows.update({f"ifnet.{k}": r for k, r in dgrad_phase(
             smi, pyramid_conv_shapes(128, dims, 4), f"the IF-Net 128 pyramid, B=4 at {dims}")
             .items()})
     convonet_step = convonet_step_phase(data_root, smi)
     print(f"phase 26 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # -- phase 27: the conv forward at the U-Net's shapes ---------------------------------
+    t_phase = time.perf_counter()
+    fprop_rows = {f"convonet.{k}": r for k, r in fprop_phase(
+        smi, unet3d_conv_shapes(32), "ConvONet's room_grid64 U-Net, B=32",
+        ragged=FPROP_RAGGED).items()}
+    print(f"phase 27 in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
     measured = {
         # the random depth at the serving shape, as the row has always been
@@ -3893,6 +4012,21 @@ def main() -> int:
                                              "bound", "plain_ms", "library_ms", "cl_ms",
                                              "cl_library_ms") if k in r}
                    for name, r in dgrad_rows.items()}}}), flush=True)
+    # the conv forward (replaces no TPU kernel): launches by path, and its
+    # rows at the U-Net's shapes
+    print(json.dumps({"fprop": {
+        "source": "sv3d_tpu_torch/csrc/conv3d_fprop.cu",
+        "replaces": "none in the JAX package: XLA's conv forward",
+        "launches_by_path": {"fit": train_launches["fprop"],
+                             "fit_ifnet": fit_ifnet["launches"]["fprop"],
+                             "fit_p16": fit_p16["end to end"]["fprop"],
+                             "fit_ifnet_p16": fit_p16["IF-Net-only"]["fprop"],
+                             "fit_dp2": w2_total.get("fprop", 0),
+                             "ifnet_step_b4": ifnet_route["ifnet.fprop_kernel"],
+                             "convonet_step_b32": convonet_step["launches"]["fprop"]},
+        "shapes": {name: {k: r[k] for k in ("shape", "cout", "bias", "err", "plain_err", "ms",
+                                             "bound", "plain_ms", "library_ms") if k in r}
+                   for name, r in fprop_rows.items()}}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,11 @@
-"""The f32 3x3x3 convolutions of training, both of whose gradients take
-the port's hand-written kernels: the weight gradient always
+"""The f32 3x3x3 convolutions of training, whose forward and both
+gradients take the port's hand-written kernels: the weight gradient always
 (ops/cuda/conv3d_wgrad.py), the input gradient where the output's gradient
 arrives channel-major, NCDHW (ops/cuda/conv3d_dgrad.py; a channels-last one
-keeps cuDNN's).  The IF-Net pyramid's convs (models/ifnet.py) take the
-weight gradient's kernel alone, ConvONet's U-Net's (models/convonet.py)
-both."""
+keeps cuDNN's), the forward where the input arrives NCDHW with 32 output
+channels or more (ops/cuda/conv3d_fprop.py; otherwise cuDNN's).  The IF-Net
+pyramid's convs (models/ifnet.py) take the weight gradient's kernel alone,
+ConvONet's U-Net's (models/convonet.py) all three."""
 
 from __future__ import annotations
 
@@ -12,8 +13,19 @@ import torch
 import torch.nn.functional as F
 
 from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import conv3d_dgrad
+from sv3d_tpu_torch.ops.cuda.conv3d_fprop import conv3d_fprop
 from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import conv3d_wgrad
 from sv3d_tpu_torch.utils.profiling import count
+
+
+def takes_fprop(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether WgradConv3d's forward goes through conv3d_fprop: x
+    channel-major (NCDHW) with 32 output channels or more, so that no tile
+    of the kernel is more than half empty, and on the card in float32 (the
+    kernel's one dtype; a float64 CUDA x keeps aten's).  On the CPU the op
+    runs F.conv3d itself."""
+    return (x.is_contiguous() and weight.shape[0] >= 32
+            and (not x.is_cuda or x.dtype == torch.float32))
 
 
 def _aten_backward(dy, x, weight, mask):
@@ -23,14 +35,16 @@ def _aten_backward(dy, x, weight, mask):
 
 class WgradConv3d(torch.autograd.Function):
     """F.conv3d(x, weight, bias, padding=1), bias None or a tensor, whose
-    weight gradient is conv3d_wgrad's and input gradient conv3d_dgrad's or
-    aten's, by dy's layout (the ops run their plain versions on the CPU and
-    their kernels on the card).  The input gradient is conv3d_dgrad's where dy is
-    contiguous (NCDHW), and aten's (cuDNN on the card) where it arrives in
-    another layout (channels-last, as cuDNN hands the IF-Net pyramid's); the
-    bias's gradient stays aten's.  The tracer counts <prefix>.wgrad for each
-    weight gradient taken and <prefix>.wgrad_kernel for each one the kernel
-    computes, <prefix>.dgrad for each input gradient taken and
+    output is conv3d_fprop's or aten's, by takes_fprop (x's layout and
+    dtype, the output's width); weight gradient conv3d_wgrad's; input
+    gradient conv3d_dgrad's where dy is contiguous (NCDHW), and aten's
+    (cuDNN on the card) where it arrives in another layout (channels-last,
+    as cuDNN hands the IF-Net pyramid's).  The ops run their plain versions
+    on the CPU and their kernels on the card; the bias's gradient stays
+    aten's.  The tracer counts <prefix>.fprop for each forward computed and
+    <prefix>.fprop_kernel for each one the kernel computes, <prefix>.wgrad
+    for each weight gradient taken and <prefix>.wgrad_kernel for each one
+    the kernel computes, <prefix>.dgrad for each input gradient taken and
     <prefix>.dgrad_kernel for each one its kernel computes; prefix is the
     model's ("ifnet", "convonet")."""
 
@@ -38,6 +52,11 @@ class WgradConv3d(torch.autograd.Function):
     def forward(ctx, x, weight, bias, prefix):
         ctx.save_for_backward(x, weight)
         ctx.prefix = prefix
+        count(f"{prefix}.fprop")
+        if takes_fprop(x, weight):
+            if x.is_cuda:
+                count(f"{prefix}.fprop_kernel")
+            return conv3d_fprop(x, weight, bias)
         return F.conv3d(x, weight, bias, padding=1)
 
     @staticmethod

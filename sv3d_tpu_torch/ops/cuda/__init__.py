@@ -10,10 +10,12 @@ sv3d_tpu_torch/csrc/*.cu at first use (sv3d_tpu_torch.ops.cuda.build).
 def launch_counters() -> dict:
     """Every kernel's wrapper by the kernel's name in the port's records
     (PERF.md): read a count as ``launch_counters()[name].launches``.  K3's
-    wrapper counts both of its dtypes; "wgrad" and "dgrad" are the f32
-    3x3x3 convs' weight and input gradients, which replace no TPU kernel."""
+    wrapper counts both of its dtypes; "wgrad", "dgrad" and "fprop" are the
+    f32 3x3x3 convs' weight and input gradients and forward, which replace
+    no TPU kernel."""
     from sv3d_tpu_torch.ops.cuda import (
         conv3d_dgrad,
+        conv3d_fprop,
         conv3d_wgrad,
         mlp,
         point_query,
@@ -28,7 +30,7 @@ def launch_counters() -> dict:
         "K5": point_query.level_features_banded_cuda, "K6": point_query.level_fc0_cuda,
         "K6bf16": point_query.level_fc0_bf16_cuda, "K7": point_query.level_grad_points_cuda,
         "K8": point_query.level_grad_vol_cuda, "wgrad": conv3d_wgrad.conv3d_wgrad_cuda,
-        "dgrad": conv3d_dgrad.conv3d_dgrad_cuda,
+        "dgrad": conv3d_dgrad.conv3d_dgrad_cuda, "fprop": conv3d_fprop.conv3d_fprop_cuda,
     }
 
 

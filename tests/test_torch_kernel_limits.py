@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from sv3d_tpu_torch.ops.cuda.conv3d_dgrad import DGRAD_RTOL, conv3d_dgrad_plain
+from sv3d_tpu_torch.ops.cuda.conv3d_fprop import FPROP_RTOL, conv3d_fprop_plain
 from sv3d_tpu_torch.ops.cuda.conv3d_wgrad import WGRAD_RTOL, conv3d_wgrad_plain
 from sv3d_tpu_torch.ops.cuda.mlp import K3_TOL
 from sv3d_tpu_torch.ops.cuda.point_query import K4_RTOL, K6_RTOL, K7_RTOL, K8_RTOL
@@ -176,11 +177,20 @@ def _dgrad(rng):
             _per_channel(1))
 
 
+def _fprop(rng):
+    """The conv forward, by output channel's norm."""
+    x = torch.tensor(rng.standard_normal((2, 6, 5, 4, 7)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((8, 6, 3, 3, 3)) / np.sqrt(6 * 27),
+                     dtype=torch.float32)
+    return conv3d_fprop_plain, [x, w], FPROP_RTOL, _per_channel(1)
+
+
 def _cast(operands, fn):
     return [[fn(t) for t in op] if isinstance(op, list) else fn(op) for op in operands]
 
 
-@pytest.mark.parametrize("case", [_k1b, _k2, _k3, _k4, _k6, _k7, _k8, _wgrad, _dgrad],
+@pytest.mark.parametrize("case", [_k1b, _k2, _k3, _k4, _k6, _k7, _k8, _wgrad, _dgrad,
+                                  _fprop],
                          ids=lambda c: c.__name__[1:])
 def test_f32_limit_rejects_the_bf16_class(case):
     run, operands, tol, err = case(np.random.default_rng(0))
