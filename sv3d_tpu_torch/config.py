@@ -6,10 +6,12 @@ model/ifnet.py:8).  Here config is an explicit dataclass passed down the stack;
 nothing global.  Field for field the JAX package's Config, with three changes:
 ``Config.dtype`` is a torch dtype, the JAX package's guard against
 fused_query with net_res 32 at full scale (a compile limit of its TPU kernel)
-is not carried over, and two fields come last that the JAX package lacks:
+is not carried over, and three fields come last that the JAX package lacks:
 ``decoder``, which puts Convolutional Occupancy Networks' grid decoder
-(``"convonet_grid"``, models/convonet.py) in the place of Projection and the
-IF-Net (``"ifnet"``, the default), and ``convonet``, that decoder's sizes.
+(``"convonet_grid"``, models/convonet.py) or 3DShape2VecSet's transformer
+autoencoder (``"vecset"``, models/vecset.py) in the place of Projection and
+the IF-Net (``"ifnet"``, the default), and ``convonet`` and ``vecset``, those
+decoders' sizes.
 """
 
 from __future__ import annotations
@@ -116,8 +118,38 @@ class ConvONetConfig:
         return tuple(self.unet_fmaps * 2 ** i for i in range(self.unet_levels))
 
 
+@dataclass(frozen=True)
+class VecSetConfig:
+    """3DShape2VecSet's occupancy autoencoder (Zhang et al., SIGGRAPH 2023;
+    github.com/1zb/3DShape2VecSet models_ae.py, AutoEncoder): Fourier point
+    embeddings, a one-head cross-attention from the latents to the input
+    points, `depth` self-attention blocks of `heads` heads, and a one-head
+    cross-attention from the query points to the latents.  The defaults are
+    ae_d512_m512's; its widths that nothing varies (GEGLU's x4, 8 Fourier
+    frequencies an axis, LayerNorm's eps) are constants of models/vecset.py.
+    The inputs are a lattice of rows x cols pixels of the back-projected
+    depth, the latents' seeds its even rows and columns."""
+
+    dim: int = 512
+    depth: int = 24
+    heads: int = 8
+    lattice: tuple = (32, 64)     # the input pixels' rows and columns
+
+    @property
+    def dim_head(self) -> int:
+        return self.dim // self.heads
+
+    @property
+    def num_inputs(self) -> int:
+        return self.lattice[0] * self.lattice[1]
+
+    @property
+    def num_latents(self) -> int:
+        return -(-self.lattice[0] // 2) * -(-self.lattice[1] // 2)
+
+
 #: the decoders SceneNet takes (Config.decoder)
-DECODERS = ("ifnet", "convonet_grid")
+DECODERS = ("ifnet", "convonet_grid", "vecset")
 
 
 def decoder_of(config) -> str:
@@ -201,6 +233,7 @@ class Config:
     # the decoder (new; the reference has the IF-Net only)
     decoder: str = "ifnet"
     convonet: ConvONetConfig = ConvONetConfig()
+    vecset: VecSetConfig = VecSetConfig()
 
     def __post_init__(self):
         if self.decoder not in DECODERS:

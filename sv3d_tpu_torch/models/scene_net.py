@@ -4,8 +4,9 @@ occupancy -> IF-Net occupancy logits at query points (forward, training),
 or the dense lattice (serving, through predict_depth / project_depth /
 project and ifnet.query_lattice).  Under Config(decoder="convonet_grid") the
 point cloud goes to Convolutional Occupancy Networks' grid decoder
-(models/convonet.py) in the place of project and ifnet, in training only,
-at precision 32.
+(models/convonet.py), under Config(decoder="vecset") to 3DShape2VecSet's
+transformer autoencoder (models/vecset.py), in the place of project and
+ifnet, in training only, at precision 32.
 
 config.precision 16 is the JAX package's mixed precision: the UNet and the
 IF-Net conv stages compute in bf16 (config.dtype) on f32 parameters, so a
@@ -27,13 +28,14 @@ from sv3d_tpu_torch.models.ifnet import IFNet
 from sv3d_tpu_torch.models.mixed import widen
 from sv3d_tpu_torch.models.projection import Projection
 from sv3d_tpu_torch.models.unet import UNet, UNetMini, renormalize_depth, resize_crop_depth
+from sv3d_tpu_torch.models.vecset import VecSet
 
 
 class SceneNet(nn.Module):
     """unet (absent under config.skip_unet), project and ifnet (or, under
-    config.decoder "convonet_grid", convonet), with weights drawn from
-    generator and the module placed on device; the unet and ifnet compute
-    in bf16 at config.precision 16."""
+    config.decoder "convonet_grid", convonet; under "vecset", vecset), with
+    weights drawn from generator and the module placed on device; the unet
+    and ifnet compute in bf16 at config.precision 16."""
 
     def __init__(self, config: Config, intrinsics: Intrinsics, frustum: FrustumGrid,
                  device=None, generator: torch.Generator | None = None):
@@ -46,19 +48,22 @@ class SceneNet(nn.Module):
             unet_cls = UNet if config.resize_input else UNetMini
             self.unet = unet_cls(channels_out=1, device=device, generator=generator, dtype=dt)
         self.decoder = decoder_of(config)
-        if self.decoder == "convonet_grid":
-            if config.precision != 32:
-                raise ValueError(f"decoder {self.decoder!r} trains at precision 32 only, "
-                                 f"got {config.precision}")
-            self.convonet = ConvONet(config.convonet, device=device, generator=generator)
-        else:
+        if self.decoder == "ifnet":
             self.project = Projection(config.projection(), device=device)
             self.ifnet = IFNet(config.ifnet(), device=device, generator=generator, dtype=dt)
+            return
+        if config.precision != 32:
+            raise ValueError(f"decoder {self.decoder!r} trains at precision 32 only, "
+                             f"got {config.precision}")
+        if self.decoder == "convonet_grid":
+            self.convonet = ConvONet(config.convonet, device=device, generator=generator)
+        else:
+            self.vecset = VecSet(config.vecset, device=device, generator=generator)
 
     @property
     def sigma(self):
         """The projection's learnable sigma, or None where the decoder takes
-        the point cloud itself (convonet_grid)."""
+        the point cloud itself (convonet_grid, vecset)."""
         return self.project.sigma if self.decoder == "ifnet" else None
 
     def predict_depth(self, rgb: torch.Tensor) -> torch.Tensor:
@@ -84,7 +89,7 @@ class SceneNet(nn.Module):
         points, and point_cloud_out to the cloud points inside it; the
         pyramid is computed whole.  BatchNorm follows the module's mode.
         Under decoder "convonet_grid" the whole cloud is ConvONet's input in
-        the place of the voxel grid."""
+        the place of the voxel grid, under "vecset" its lattice of pixels."""
         cfg = self.config
         depthmap = depth_target if cfg.skip_unet else self.predict_depth(rgb)
         point_cloud = self.project_depth(depthmap)
@@ -102,10 +107,12 @@ class SceneNet(nn.Module):
             query_points = query_points[:, point_slice]
             queried = queried[:, point_slice.start:max(min(point_slice.stop, n_cloud),
                                                       point_slice.start)]
-        if voxel_occupancy is None:
+        if self.decoder == "ifnet":
+            logits = self.ifnet(voxel_occupancy, query_points)
+        elif self.decoder == "convonet_grid":
             logits = self.convonet(point_cloud, query_points)
         else:
-            logits = self.ifnet(voxel_occupancy, query_points)
+            logits = self.vecset(point_cloud, query_points, depthmap.shape[-2:])
         return logits, depthmap, queried if n_cloud else point_cloud
 
     def cloud_queries(self, depthmap: torch.Tensor) -> int:

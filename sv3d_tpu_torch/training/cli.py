@@ -1,8 +1,9 @@
 """CLI flag parsing -> (Config, device) for the port's trainers.
 
 The parser is a copy of sv3d_tpu/training/cli.py's build_parser, flag for
-flag, plus --device and --decoder (Config.decoder: the IF-Net, or
-Convolutional Occupancy Networks' grid decoder at room_grid64's widths).
+flag, plus --device and --decoder (Config.decoder: the IF-Net,
+Convolutional Occupancy Networks' grid decoder at room_grid64's widths, or
+3DShape2VecSet's transformer autoencoder at ae_d512_m512's).
 A copy, not an import, because importing
 sv3d_tpu.training.cli runs sv3d_tpu/training/__init__.py, which imports flax
 and optax.  parse_config joins the process group first, as the JAX
@@ -87,8 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--decoder", type=str, default="ifnet", choices=DECODERS,
-                   help="ifnet (the default), or convonet_grid: Convolutional "
-                   "Occupancy Networks' grid decoder on the back-projected depth")
+                   help="ifnet (the default); convonet_grid: Convolutional "
+                   "Occupancy Networks' grid decoder on the back-projected depth; "
+                   "vecset: 3DShape2VecSet's transformer autoencoder (ae_d512_m512) "
+                   "on a lattice of it; both train only, at precision 32")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default cuda; fails if absent)")
     return p

@@ -8,9 +8,9 @@ Losses: ce_loss = mean BCE-with-logits over all query points, mse_depth_loss
 = mean squared depth error, loss = ce + mse (ce alone under no_depth_sup),
 mesh_ce_loss = BCE over the mesh-sampled supervision points only, point_iou
 at logit 0; the three sigma components are logged too, where the model has
-the projection's sigma (not under Config.decoder "convonet_grid", whose model
-trains in one Adam group, and whose visualization and test split this
-trainer does not serve: they raise ValueError).
+the projection's sigma (not under Config.decoder "convonet_grid" or
+"vecset", whose models train in one Adam group, and whose visualization and
+test split this trainer does not serve: they raise ValueError).
 
 subsample_points > 0 adds a random subset of the projected cloud to the
 query set and labels it on the host against the GT mesh.  The labels belong

@@ -30,7 +30,7 @@ from sv3d_tpu_torch.quality.box_scene import write_smoke_dataset
 ROOT = Path(__file__).resolve().parent.parent
 
 #: the port's Config fields that the JAX package's lacks, in their order
-PORT_ONLY = ("decoder", "convonet")
+PORT_ONLY = ("decoder", "convonet", "vecset")
 CONFIGS = [dict(), dict(scale_factor=2), dict(scale_factor=8), dict(net_res=32),
            dict(fused_query=True), dict(inf_res=2), dict(net_res=32, scale_factor=2,
                                                          fused_query=True, precision=16)]
@@ -40,12 +40,13 @@ CONFIGS = [dict(), dict(scale_factor=2), dict(scale_factor=8), dict(net_res=32),
                          or "defaults")
 def test_config_matches_jax(kw):
     """Field for field, dims, projection() and ifnet(), replace(); the port's
-    two decoder fields, which the JAX package lacks, come last, the IF-Net
+    three decoder fields, which the JAX package lacks, come last, the IF-Net
     by default."""
     got, ref = tconfig.Config(seed=0, **kw), jconfig.Config(seed=0, **kw)
     ported = lambda c: {k: v for k, v in dataclasses.asdict(c).items() if k not in PORT_ONLY}
     assert ported(got) == dataclasses.asdict(ref)
-    assert (got.decoder, got.convonet) == ("ifnet", tconfig.ConvONetConfig())
+    assert (got.decoder, got.convonet, got.vecset) == ("ifnet", tconfig.ConvONetConfig(),
+                                                       tconfig.VecSetConfig())
     assert got.dims == ref.dims
     assert dataclasses.asdict(got.projection()) == dataclasses.asdict(ref.projection())
     gi, ri = got.ifnet(), ref.ifnet()

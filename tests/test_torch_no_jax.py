@@ -44,6 +44,7 @@ SLICE = BLOCK + textwrap.dedent("""
         "sv3d_tpu_torch.ops.lattice", "sv3d_tpu_torch.ops.cuda.build",
         "sv3d_tpu_torch.ops.cuda.voxelize", "sv3d_tpu_torch.ops.cuda.sweep",
         "sv3d_tpu_torch.models", "sv3d_tpu_torch.models.convonet", "sv3d_tpu_torch.models.wgrad",
+        "sv3d_tpu_torch.models.vecset",
         "sv3d_tpu_torch.ops.cell_pool", "sv3d_tpu_torch.inference.dense_grid",
         "sv3d_tpu_torch.inference.predict", "sv3d_tpu_torch.ops.point_query",
         "sv3d_tpu_torch.ops.cuda.point_query", "sv3d_tpu_torch.models.batchnorm",
